@@ -1,0 +1,139 @@
+"""Control trees: per-device-class execution configuration.
+
+The port's counterpart of ``repro.core.control_tree``.  BLIS drives every
+operation from a recursive *control tree* (paper Section 5.1); the paper
+duplicates it per core class (Section 5.3) so fast and slow cores run
+with different cache parameters and, potentially, different
+micro-kernels.  A :class:`ControlTree` carries, per device class, the
+CUDA :class:`~repro_torch.core.blocking.BlockConfig`, the coarse/fine loop
+choice, and the kernel selection (a name in
+:data:`repro_torch.core.execution.BACKENDS`).
+
+:func:`build_control_trees` reproduces the Section 5.3 dependency on
+Hopper's shared memory: under Loop 3 (``coarse_loop="rows"``) the staged
+B panel is shared, forcing a common ``bk``; a class whose shared memory
+cannot hold the shared panel with a two-stage ring keeps the full panel
+on the one-stage lean kernel when that fits, instead of shrinking ``bm``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Mapping, Optional
+
+from repro_torch.core import blocking as B
+from repro_torch.core import execution as X
+from repro_torch.core.execution import Backend  # one backend vocabulary (re-export)
+
+CoarseLoop = Literal["cols", "rows"]  # paper's Loop 1 (j_c/n) vs Loop 3 (i_c/m)
+FineLoop = Literal["loop4", "loop5", "both"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlTree:
+    """Execution configuration for one device class."""
+
+    device_class: str
+    block: B.BlockConfig
+    coarse_loop: CoarseLoop = "rows"
+    fine_loop: FineLoop = "loop4"
+    backend: Backend = "matmul"
+    # Class spec used to derive `block`; kept for re-derivation.
+    spec: B.HopperClassSpec = B.H100
+    # Provenance of `block`: "analytical" until the port has a tuning cache.
+    block_source: str = "analytical"
+    # (m, k, n) the tree was built for; execution contexts reuse `block`
+    # verbatim for calls in the same tile-aligned shape bucket.
+    problem_shape: Optional[tuple[int, int, int]] = None
+
+
+def build_control_trees(
+    specs: Mapping[str, B.HopperClassSpec],
+    m: int,
+    k: int,
+    n: int,
+    *,
+    coarse_loop: CoarseLoop = "rows",
+    fine_loop: FineLoop = "loop4",
+    backend: Backend = "matmul",
+    cache_aware: bool = True,
+    dtype_bytes: int = 2,
+) -> dict[str, ControlTree]:
+    """One control tree per device class (paper Sections 5.1/5.3).
+
+    With ``cache_aware=False`` every class reuses the *first* class's block
+    config — the single-control-tree baseline (plain SAS/DAS).  With
+    ``cache_aware=True`` each class derives its own config; under Loop 3
+    (``coarse_loop == "rows"``) ``bk`` is forced to the first class's value
+    and each other class re-derives the largest ``bm`` its shared memory
+    holds at that ``bk`` — the structure of the paper's
+    ``k_c = 952 -> m_c = 32`` adjustment.  When ``backend`` has a lean
+    variant (``execution.LEAN_VARIANTS``), a class whose lean (one-stage)
+    ring holds a larger panel than its pipelined ring keeps that larger
+    panel on the lean kernel.
+    """
+
+    names = list(specs)
+    if not names:
+        raise ValueError("need at least one device class")
+    first = names[0]
+    lean_backend = X.LEAN_VARIANTS.get(backend)  # None for matmul / lean itself
+    stages = X.backend_stages(backend)
+
+    def _resolve(spec: B.HopperClassSpec) -> B.BlockConfig:
+        cfg, _ = X.resolve_block_config(
+            m, k, n, spec=spec, dtype_name=X.dtype_name_for_bytes(dtype_bytes),
+            dtype_bytes=dtype_bytes, stages=stages,
+        )
+        return cfg
+
+    base = _resolve(specs[first])
+    trees: dict[str, ControlTree] = {}
+    for name in names:
+        class_backend = backend
+        if not cache_aware or name == first:
+            blk = base
+        elif coarse_loop == "rows":
+            blk = _rederive_bm(specs[name], base, dtype_bytes, stages=stages)
+            if lean_backend is not None:
+                lean_blk = _rederive_bm(specs[name], base, dtype_bytes, stages=1)
+                if lean_blk.bm > blk.bm:
+                    blk, class_backend = lean_blk, lean_backend
+        else:
+            # Independent panels (Loop 1): fully independent resolution.
+            blk = _resolve(specs[name])
+        trees[name] = ControlTree(
+            device_class=name,
+            block=blk,
+            coarse_loop=coarse_loop,
+            fine_loop=fine_loop,
+            backend=class_backend,
+            spec=specs[name],
+            block_source="analytical",
+            problem_shape=(m, k, n),
+        )
+    return trees
+
+
+def _rederive_bm(
+    spec: B.HopperClassSpec,
+    base: B.BlockConfig,
+    dtype_bytes: int,
+    *,
+    stages: int = 2,
+) -> B.BlockConfig:
+    """The largest ``bm`` (halving from the anchor's) whose ring fits this
+    class's shared memory at the shared ``(bk, bn)``."""
+
+    bk, bn = base.bk, base.bn
+    bm = base.bm
+    floor = min(B.BM_TILES)
+    while bm > floor:
+        cfg = B.BlockConfig(bm=bm, bk=bk, bn=bn, dtype_bytes=dtype_bytes)
+        if cfg.fits(spec, stages=stages):
+            break
+        bm //= 2
+    return B.BlockConfig(bm=max(bm, floor), bk=bk, bn=bn, dtype_bytes=dtype_bytes)
+
+
+__all__ = ["ControlTree", "build_control_trees", "CoarseLoop", "FineLoop", "Backend"]

@@ -1,0 +1,490 @@
+"""Class-routed execution contexts: one ambient control tree per device class.
+
+The port's counterpart of ``repro.core.execution`` (its dispatch half):
+
+  * :class:`ExecutionContext` — a context manager binding one device
+    class's :class:`~repro_torch.core.control_tree.ControlTree` as the
+    ambient configuration.  Every :func:`repro_torch.kernels.ops.gemm`
+    call underneath takes its backend and block shapes from it, so model
+    code never threads ``config=``/``backend=`` by hand.
+  * the **backend dispatch table** (:data:`BACKENDS`) — the one
+    vocabulary of kernel implementations, tagged by op family.
+  * :func:`resolve_block_config` — the analytical derivation under the
+    class's Hopper spec (the tuning cache arrives with the tuning slice;
+    until then the ``tuned_*`` lookups return ``None``).
+
+Names against the reference's vocabulary:
+
+  ============================  ===========================================
+  port                          reference
+  ============================  ===========================================
+  ``matmul``                    ``xla`` (the framework's own matmul)
+  ``cuda``                      ``pallas`` (``gemm_cuda``)
+  ``cuda_lean``                 ``pallas_lean`` (``gemm_cuda_lean``)
+  ``torch_ref`` / ``_lean``     ``pallas_interpret`` / ``pallas_lean_interpret``
+  ``paged_attn_torch``          ``paged_attn_xla`` (the gather route)
+  ``paged_attn_cuda``           ``paged_attn_pallas``
+  ============================  ===========================================
+
+The ``cuda`` entries launch their kernel for CUDA tensors and run the
+kernel's plain PyTorch version for CPU tensors; the ``torch_ref`` twins
+run the plain version on any device (the role the reference's
+interpret-mode twins play).
+"""
+
+from __future__ import annotations
+
+import contextvars
+import dataclasses
+from typing import TYPE_CHECKING, Callable, Literal, Optional
+
+import torch
+
+from repro_torch.core.blocking import (
+    H100,
+    BlockConfig,
+    HopperClassSpec,
+    _round_up,
+    derive_block_config,
+    largest_tile,
+    BM_TILES,
+    BN_TILES,
+)
+
+if TYPE_CHECKING:  # control_tree imports Backend from here; keep it one-way.
+    from repro_torch.core.control_tree import ControlTree
+
+# ---------------------------------------------------------------------------
+# Backend dispatch table (the one backend vocabulary)
+# ---------------------------------------------------------------------------
+
+Backend = Literal["matmul", "cuda", "cuda_lean", "torch_ref", "torch_ref_lean"]
+
+
+def _matmul_gemm(a2, b, config, out_dtype):
+    # Like the reference's XLA entry: an fp32 output accumulates and
+    # returns fp32; otherwise the product comes back in the compute dtype.
+    if out_dtype == torch.float32:
+        return torch.matmul(a2.float(), b.float())
+    return torch.matmul(a2, b).to(out_dtype)
+
+
+def _cuda_gemm(a2, b, config, out_dtype):
+    from repro_torch.kernels.gemm import gemm_cuda
+
+    return gemm_cuda(a2, b, config, out_dtype=out_dtype)
+
+
+def _torch_ref_gemm(a2, b, config, out_dtype):
+    from repro_torch.kernels.gemm import gemm_plain
+
+    return gemm_plain(a2, b, config, out_dtype=out_dtype)
+
+
+def _cuda_lean_gemm(a2, b, config, out_dtype):
+    from repro_torch.kernels.gemm import gemm_cuda_lean
+
+    return gemm_cuda_lean(a2, b, config, out_dtype=out_dtype)
+
+
+def _torch_ref_lean_gemm(a2, b, config, out_dtype):
+    from repro_torch.kernels.gemm import gemm_lean_plain
+
+    return gemm_lean_plain(a2, b, config, out_dtype=out_dtype)
+
+
+def _paged_attn_torch(q, pages_k, pages_v, page_table, pos):
+    from repro_torch.kernels.paged_attention import paged_attention_torch
+
+    return paged_attention_torch(q, pages_k, pages_v, page_table, pos)
+
+
+def _paged_attn_cuda(q, pages_k, pages_v, page_table, pos):
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+
+    return paged_attention_cuda(q, pages_k, pages_v, page_table, pos)
+
+
+# name -> kernel callable.  GEMM entries take ``(a2, b, config,
+# out_dtype)``; paged-attention entries take ``(q, pages_k, pages_v,
+# page_table, pos)`` — :data:`BACKEND_OPS` tags each name with its family
+# and the dispatch funnels validate the tag.
+BACKENDS: dict[str, Callable] = {
+    "matmul": _matmul_gemm,
+    "cuda": _cuda_gemm,
+    "torch_ref": _torch_ref_gemm,
+    "cuda_lean": _cuda_lean_gemm,
+    "torch_ref_lean": _torch_ref_lean_gemm,
+    "paged_attn_torch": _paged_attn_torch,
+    "paged_attn_cuda": _paged_attn_cuda,
+}
+
+# name -> op family ("gemm" | "paged_attn").
+BACKEND_OPS: dict[str, str] = {
+    "matmul": "gemm",
+    "cuda": "gemm",
+    "torch_ref": "gemm",
+    "cuda_lean": "gemm",
+    "torch_ref_lean": "gemm",
+    "paged_attn_torch": "paged_attn",
+    "paged_attn_cuda": "paged_attn",
+}
+
+
+def backend_op(name: str) -> str:
+    """The op family of a dispatch-table entry (validating the name)."""
+
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}")
+    return BACKEND_OPS[name]
+
+
+# Kernel backend -> its plain PyTorch twin (identity for entries that are
+# plain PyTorch already).  The CPU parity tests walk BACKENDS through this
+# map, so every new table entry must be registered here.
+PLAIN_TWIN: dict[str, str] = {
+    "matmul": "matmul",
+    "cuda": "torch_ref",
+    "torch_ref": "torch_ref",
+    "cuda_lean": "torch_ref_lean",
+    "torch_ref_lean": "torch_ref_lean",
+    "paged_attn_torch": "paged_attn_torch",
+    "paged_attn_cuda": "paged_attn_torch",
+}
+
+# Pipelined backend -> the shared-memory-lean variant of the same family.
+LEAN_VARIANTS: dict[str, str] = {
+    "cuda": "cuda_lean",
+    "torch_ref": "torch_ref_lean",
+}
+
+# Backends whose kernels stage one A/B pair at a time (``stages=1``).
+_LEAN_BACKENDS = frozenset(LEAN_VARIANTS.values())
+
+
+def plain_twin(name: str) -> str:
+    """The plain PyTorch twin of a backend (validating both names)."""
+
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}")
+    twin = PLAIN_TWIN.get(name)
+    if twin is None or twin not in BACKENDS:
+        raise ValueError(
+            f"backend {name!r} has no plain twin registered in PLAIN_TWIN"
+        )
+    return twin
+
+
+def backend_stages(name: str) -> int:
+    """Depth of the ``cp.async`` staging ring this backend's kernel uses:
+    2 for the pipelined kernel, 1 for the lean variant.  Decides which
+    shared-memory model governs block feasibility."""
+
+    return 1 if name in _LEAN_BACKENDS else 2
+
+
+def validate_registry() -> list[str]:
+    """Statically verify the dispatch tables' closure invariants.
+
+    Returns human-readable violations (empty == healthy): ``BACKENDS`` and
+    ``BACKEND_OPS`` agree; ``PLAIN_TWIN`` covers every entry, stays in the
+    op family and is idempotent; ``LEAN_VARIANTS`` maps two-stage entries
+    to one-stage entries of the same family; ``GEMM_KERNELS`` names only
+    kernel (non-twin) GEMM entries.
+    """
+
+    problems: list[str] = []
+    known_ops = {"gemm", "paged_attn"}
+    if set(BACKENDS) != set(BACKEND_OPS):
+        problems.append(
+            f"BACKENDS/BACKEND_OPS disagree: "
+            f"{sorted(set(BACKENDS) ^ set(BACKEND_OPS))}"
+        )
+    for name, op in BACKEND_OPS.items():
+        if op not in known_ops:
+            problems.append(f"BACKEND_OPS[{name!r}] = {op!r} is not a known op family")
+    if set(PLAIN_TWIN) != set(BACKENDS):
+        problems.append(
+            f"PLAIN_TWIN does not cover BACKENDS exactly: "
+            f"{sorted(set(PLAIN_TWIN) ^ set(BACKENDS))}"
+        )
+    for name, twin in PLAIN_TWIN.items():
+        if twin not in BACKENDS:
+            problems.append(f"PLAIN_TWIN[{name!r}] = {twin!r} not in BACKENDS")
+            continue
+        if BACKEND_OPS.get(name) != BACKEND_OPS.get(twin):
+            problems.append(f"PLAIN_TWIN[{name!r}] = {twin!r} crosses op families")
+        if PLAIN_TWIN.get(twin) != twin:
+            problems.append(f"plain twin {twin!r} (of {name!r}) is not its own twin")
+    for name, lean in LEAN_VARIANTS.items():
+        if name not in BACKENDS or lean not in BACKENDS:
+            problems.append(f"LEAN_VARIANTS {name!r} -> {lean!r} not in BACKENDS")
+            continue
+        if BACKEND_OPS[name] != BACKEND_OPS[lean]:
+            problems.append(f"LEAN_VARIANTS {name!r} -> {lean!r} crosses op families")
+        if backend_stages(name) != 2 or backend_stages(lean) != 1:
+            problems.append(
+                f"LEAN_VARIANTS {name!r} -> {lean!r} must map a two-stage "
+                "entry to a one-stage one"
+            )
+    from repro_torch.kernels.gemm import GEMM_KERNELS
+
+    for name in GEMM_KERNELS:
+        if name not in BACKENDS:
+            problems.append(f"GEMM_KERNELS entry {name!r} not in BACKENDS")
+        elif BACKEND_OPS[name] != "gemm":
+            problems.append(f"GEMM_KERNELS entry {name!r} is not a GEMM backend")
+        elif PLAIN_TWIN[name] == name:
+            problems.append(
+                f"GEMM_KERNELS entry {name!r} is a plain twin — the variant "
+                "registry holds kernels only"
+            )
+    return problems
+
+
+def on_cuda() -> bool:
+    """The auto-probe: is there a CUDA card?"""
+
+    return torch.cuda.is_available()
+
+
+def resolve_backend(name: str) -> str:
+    """Collapse a GEMM ``"auto"`` to a concrete table entry; validate the rest."""
+
+    if name == "auto":
+        return "cuda" if on_cuda() else "matmul"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}")
+    if BACKEND_OPS[name] != "gemm":
+        raise ValueError(
+            f"backend {name!r} is a {BACKEND_OPS[name]!r} kernel, not a GEMM"
+        )
+    return name
+
+
+def resolve_paged_attn_backend(name: str) -> str:
+    """Collapse a paged-attention ``"auto"``; validate the op family."""
+
+    if name == "auto":
+        return "paged_attn_cuda" if on_cuda() else "paged_attn_torch"
+    if backend_op(name) != "paged_attn":
+        raise ValueError(
+            f"backend {name!r} is a {BACKEND_OPS[name]!r} kernel, not a "
+            f"paged-attention kernel"
+        )
+    return name
+
+
+def dispatch_gemm(a2, b, *, config=None, backend: str = "auto", out_dtype=None):
+    """Route a 2-D GEMM through the backend table (the kernels' funnel)."""
+
+    out_dtype = out_dtype or a2.dtype
+    return BACKENDS[resolve_backend(backend)](a2, b, config, out_dtype)
+
+
+def dispatch_paged_attention(
+    q, pages_k, pages_v, page_table, pos, *, backend: str = "auto"
+):
+    """Route a paged decode-attention call through the backend table."""
+
+    return BACKENDS[resolve_paged_attn_backend(backend)](
+        q, pages_k, pages_v, page_table, pos
+    )
+
+
+# ---------------------------------------------------------------------------
+# Block-config resolution (analytical; the tuning cache is a later slice)
+# ---------------------------------------------------------------------------
+
+_DTYPE_NAMES = {1: "int8", 2: "bfloat16", 4: "float32"}
+
+
+def dtype_name_for_bytes(dtype_bytes: int) -> str:
+    return _DTYPE_NAMES.get(dtype_bytes, f"bytes{dtype_bytes}")
+
+
+def tuned_block_config(m, k, n, *, spec=None, dtype_name="bfloat16",
+                       dtype_bytes=2) -> Optional[BlockConfig]:
+    """The tuning-cache entry for this shape — none until the port has a
+    tuning cache."""
+
+    return None
+
+
+def tuned_kernel_backend(m, k, n, *, spec=None, dtype_name="bfloat16") -> Optional[str]:
+    """The kernel variant the tuner recorded — none until the port has a
+    tuning cache."""
+
+    return None
+
+
+def resolve_block_config(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    spec: Optional[HopperClassSpec] = None,
+    dtype_name: str = "bfloat16",
+    dtype_bytes: int = 2,
+    stages: int = 2,
+) -> tuple[BlockConfig, str]:
+    """``(config, source)``: the analytical derivation under ``spec`` for
+    a kernel with a ``stages``-deep ring (source ``"analytical"``)."""
+
+    return (
+        derive_block_config(
+            m, k, n, spec=spec or H100, dtype_bytes=dtype_bytes, stages=stages
+        ),
+        "analytical",
+    )
+
+
+# ---------------------------------------------------------------------------
+# The execution context itself
+# ---------------------------------------------------------------------------
+
+
+def _same_bucket(a: tuple[int, int, int], b: tuple[int, int, int], align: int) -> bool:
+    """Do two problem shapes round up to the same tile-aligned dims?"""
+
+    bucket = lambda d: max(align, _round_up(d, align))  # noqa: E731
+    return all(bucket(x) == bucket(y) for x, y in zip(a, b))
+
+
+_ACTIVE: contextvars.ContextVar[Optional["ExecutionContext"]] = contextvars.ContextVar(
+    "repro_torch_execution_context", default=None
+)
+# LIFO of reset tokens for the enters made in the current thread/task, so
+# one shared context object may be entered concurrently everywhere.
+_TOKENS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "repro_torch_execution_tokens", default=()
+)
+
+
+@dataclasses.dataclass
+class ExecutionContext:
+    """Ambient per-device-class execution configuration (a context manager).
+
+    Binds one class's control tree: ``ops.gemm`` calls under it take their
+    backend from ``tree.backend`` and resolve their block shapes per call
+    shape under ``tree.spec``.  ``tree.block`` is the canonical-shape
+    config carrying the Section-5.3 shared-panel structure; calls in its
+    shape bucket reuse it, others re-derive for the class.
+    """
+
+    device_class: str
+    tree: "ControlTree"
+
+    def __enter__(self) -> "ExecutionContext":
+        token = _ACTIVE.set(self)
+        _TOKENS.set(_TOKENS.get() + (token,))
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        stack = _TOKENS.get()
+        _TOKENS.set(stack[:-1])
+        _ACTIVE.reset(stack[-1])
+        return False
+
+    @property
+    def spec(self) -> HopperClassSpec:
+        return self.tree.spec
+
+    def backend(self) -> str:
+        """The concrete dispatch-table entry this context routes to."""
+
+        return resolve_backend(self.tree.backend)
+
+    def block_config(
+        self, m: int, k: int, n: int, dtype_name: str, dtype_bytes: int
+    ) -> BlockConfig:
+        """Per-call-shape block config for this class.
+
+        Hand-built trees (no ``problem_shape``) are authoritative: their
+        block is used on every call, clamped to the call's tile-rounded
+        dims, re-labelled to the call's operand bytes when that still
+        fits.  Mesh-built trees reuse ``tree.block`` for calls in the
+        bucket they were built for (re-labelled if it fits); every other
+        call re-derives under this class's spec and the tree kernel's
+        staging depth.
+        """
+
+        tree = self.tree
+        stages = backend_stages(self.backend())
+        hand_built = tree.problem_shape is None
+        align = tree.spec.align
+
+        def _clamp(blk: BlockConfig) -> BlockConfig:
+            pad = lambda d: max(align, _round_up(d, align))  # noqa: E731
+            return dataclasses.replace(
+                blk,
+                bm=min(blk.bm, largest_tile(BM_TILES, pad(m))),
+                bk=min(blk.bk, pad(k)),
+                bn=min(blk.bn, largest_tile(BN_TILES, pad(n))),
+            )
+
+        reuse = hand_built or _same_bucket((m, k, n), tree.problem_shape, align)
+        if reuse and tree.block.dtype_bytes == dtype_bytes:
+            return _clamp(tree.block) if hand_built else tree.block
+        if reuse:
+            relabeled = dataclasses.replace(tree.block, dtype_bytes=dtype_bytes)
+            if relabeled.fits(tree.spec, stages=stages):
+                return _clamp(relabeled) if hand_built else relabeled
+        return derive_block_config(
+            m, k, n, spec=tree.spec, dtype_bytes=dtype_bytes, stages=stages
+        )
+
+
+def current_context() -> Optional[ExecutionContext]:
+    """The innermost active context, or None (→ pre-context defaults)."""
+
+    return _ACTIVE.get()
+
+
+def context_for_tree(tree: "ControlTree") -> ExecutionContext:
+    """Wrap an existing control tree (e.g. one of ``build_control_trees``)."""
+
+    return ExecutionContext(device_class=tree.device_class, tree=tree)
+
+
+def default_context(
+    *,
+    spec: Optional[HopperClassSpec] = None,
+    shape: tuple[int, int, int] = (1024, 1024, 1024),
+    backend: str = "auto",
+    device_class: Optional[str] = None,
+) -> ExecutionContext:
+    """A single-class context for homogeneous runs."""
+
+    from repro_torch.core.control_tree import build_control_trees
+
+    spec = spec or H100
+    name = device_class or spec.name
+    trees = build_control_trees({name: spec}, *shape, backend=resolve_backend(backend))
+    return ExecutionContext(device_class=name, tree=trees[name])
+
+
+__all__ = [
+    "Backend",
+    "BACKENDS",
+    "BACKEND_OPS",
+    "PLAIN_TWIN",
+    "LEAN_VARIANTS",
+    "ExecutionContext",
+    "backend_op",
+    "backend_stages",
+    "context_for_tree",
+    "current_context",
+    "default_context",
+    "dispatch_gemm",
+    "dispatch_paged_attention",
+    "dtype_name_for_bytes",
+    "on_cuda",
+    "plain_twin",
+    "resolve_backend",
+    "resolve_block_config",
+    "resolve_paged_attn_backend",
+    "tuned_block_config",
+    "tuned_kernel_backend",
+    "validate_registry",
+]

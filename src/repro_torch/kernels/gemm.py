@@ -1,0 +1,237 @@
+"""Blocked GEMM kernels for Hopper — per-class variants (CUDA C++).
+
+The port's counterpart of ``repro.kernels.gemm``.  Two kernels share one
+source (``csrc/gemm.cu``) and one tile loop, as the reference's two
+Pallas kernels share their scaffolding:
+
+  * :func:`gemm_cuda` — replaces ``gemm_pallas``: each block owns a
+    (bm, bn) output tile and streams K in bk slices through a two-stage
+    ``cp.async`` ring in shared memory (``BlockConfig.smem_bytes(2)``).
+  * :func:`gemm_cuda_lean` — replaces ``gemm_pallas_lean``: the same
+    loop with one stage (load, wait, multiply), so the same shared memory
+    holds a larger panel (``BlockConfig.smem_bytes(1)``).  Both run the
+    same per-element FMA sequence, so at equal blocks the lean result is
+    bitwise equal to the pipelined one.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (:func:`gemm_plain` / :func:`gemm_lean_plain`) for CPU
+tensors; there is no fallback from one to the other.  The plain versions
+copy the kernels' K-slice order with fp32 accumulation.  ``LAUNCHES``
+counts kernel launches per wrapper (plain runs are not counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.blocking import (
+    BM_TILES,
+    BN_TILES,
+    MAX_BK,
+    BlockConfig,
+    H100,
+    _round_up,
+)
+
+# Blocks may not exceed the problem rounded up to this tile alignment
+# (nor, for bm/bn, the smallest compiled tile): a bigger block only
+# multiplies masked work.
+ALIGN = H100.align
+
+LAUNCHES: dict[str, int] = {"gemm_cuda": 0, "gemm_cuda_lean": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def resolve_block_config(m: int, k: int, n: int, dtype: torch.dtype, *, stages: int = 2) -> BlockConfig:
+    """Config used when the caller passes ``cfg=None``: the analytical
+    derivation for the big class (``execution.resolve_block_config``)."""
+
+    from repro_torch.core.execution import dtype_name_for_bytes, resolve_block_config as _resolve
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    cfg, _ = _resolve(m, k, n, dtype_name=dtype_name_for_bytes(itemsize),
+                      dtype_bytes=itemsize, stages=stages)
+    return cfg
+
+
+def validate_block_config(m: int, k: int, n: int, cfg: BlockConfig) -> None:
+    """Reject blocks that exceed the tile-rounded problem, loudly.
+
+    A block larger than the problem rounded up to the tile alignment (or
+    than the smallest compiled tile, for bm/bn) is a misconfiguration — a
+    config from another shape, a hand-typed one — and raises a
+    :class:`ValueError` naming the offending dimension.
+    """
+
+    floors = {"bm": min(BM_TILES), "bk": ALIGN, "bn": min(BN_TILES)}
+    for name, dim, blk in (("bm", m, cfg.bm), ("bk", k, cfg.bk), ("bn", n, cfg.bn)):
+        padded = max(_round_up(dim, ALIGN), floors[name])
+        if blk > padded:
+            axis = {"bm": "M", "bk": "K", "bn": "N"}[name]
+            raise ValueError(
+                f"block config {name}={blk} exceeds padded {axis}={padded} "
+                f"(problem {m}x{k}x{n}, tile alignment {ALIGN}); blocks larger "
+                f"than the padded problem only multiply masked work"
+            )
+
+
+def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"gemm kernels are 2-D: got {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+
+
+def _prepare(a, b, cfg, stages):
+    _check_operands(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if cfg is None:
+        cfg = resolve_block_config(m, k, n, a.dtype, stages=stages)
+    validate_block_config(m, k, n, cfg)
+    return m, k, n, cfg
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU route and the kernels' yardstick)
+# ---------------------------------------------------------------------------
+
+
+def _tile_loop(a, b, cfg: BlockConfig, out_dtype) -> torch.Tensor:
+    """fp32 accumulation over K in ``bk`` slices, cast once at the end —
+    the kernels' accumulation order at slice granularity."""
+
+    k = a.shape[1]
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    for k0 in range(0, k, cfg.bk):
+        acc += a[:, k0:k0 + cfg.bk].float() @ b[k0:k0 + cfg.bk].float()
+    return acc.to(out_dtype)
+
+
+def gemm_plain(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
+    """Plain version of :func:`gemm_cuda` (two-stage block model)."""
+
+    _, _, _, cfg = _prepare(a, b, cfg, 2)
+    return _tile_loop(a, b, cfg, out_dtype or a.dtype)
+
+
+def gemm_lean_plain(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
+    """Plain version of :func:`gemm_cuda_lean` (one-stage block model);
+    the same arithmetic as :func:`gemm_plain` at equal blocks."""
+
+    _, _, _, cfg = _prepare(a, b, cfg, 1)
+    return _tile_loop(a, b, cfg, out_dtype or a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        from repro_torch.kernels import build
+
+        fn = build.load("gemm").repro_gemm
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> torch.Tensor:
+    from repro_torch.kernels import build
+
+    if a.device != b.device or a.device.type != "cuda":
+        raise ValueError(f"operands on {a.device} / {b.device}; the kernel needs one CUDA device")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA GEMM takes bf16 operands, got {a.dtype} @ {b.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the CUDA GEMM writes bf16 or fp32, not {out_dtype}")
+    if cfg.bm not in BM_TILES or cfg.bn not in BN_TILES or cfg.bk % 8 or not 0 < cfg.bk <= MAX_BK:
+        raise ValueError(f"{cfg} is not a compiled tile shape")
+    if cfg.smem_bytes(stages) > H100.smem_bytes:
+        raise ValueError(
+            f"{cfg} needs {cfg.smem_bytes(stages)} B of shared memory in a {stages}-stage "
+            f"ring; a block may claim {H100.smem_bytes} B"
+        )
+    a = a.contiguous()
+    b = b.contiguous()
+    m, k = a.shape
+    n = b.shape[1]
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    if m == 0 or n == 0:
+        return c
+    if k == 0:
+        return c.zero_()
+    a_vec = int(k % 8 == 0 and a.data_ptr() % 16 == 0)
+    b_vec = int(n % 8 == 0 and b.data_ptr() % 16 == 0)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        status = _kernel()(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n,
+            cfg.bm, cfg.bk, cfg.bn, stages, int(out_dtype == torch.float32),
+            a_vec, b_vec, stream,
+        )
+    build.check(status, f"{counter} {m}x{k}x{n} {cfg}")
+    LAUNCHES[counter] += 1
+    return c
+
+
+def gemm_cuda(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
+    """``C = A @ B`` through the pipelined (two-stage) CUDA kernel.
+
+    CPU tensors run :func:`gemm_plain`; CUDA tensors launch the kernel or
+    raise.
+    """
+
+    _, _, _, cfg = _prepare(a, b, cfg, 2)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return _tile_loop(a, b, cfg, out_dtype)
+    return _launch(a, b, cfg, out_dtype, 2, "gemm_cuda")
+
+
+def gemm_cuda_lean(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
+    """``C = A @ B`` through the lean (one-stage) CUDA kernel.
+
+    With ``cfg=None`` the blocks resolve under the one-stage shared-memory
+    model.  CPU tensors run :func:`gemm_lean_plain`.
+    """
+
+    _, _, _, cfg = _prepare(a, b, cfg, 1)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return _tile_loop(a, b, cfg, out_dtype)
+    return _launch(a, b, cfg, out_dtype, 1, "gemm_cuda_lean")
+
+
+# The kernel variant registry: variant name -> kernel entry point.
+GEMM_KERNELS = {
+    "cuda": gemm_cuda,
+    "cuda_lean": gemm_cuda_lean,
+}
+
+
+__all__ = [
+    "ALIGN",
+    "GEMM_KERNELS",
+    "LAUNCHES",
+    "gemm_cuda",
+    "gemm_cuda_lean",
+    "gemm_lean_plain",
+    "gemm_plain",
+    "reset_launches",
+    "resolve_block_config",
+    "validate_block_config",
+]

@@ -1,0 +1,230 @@
+"""Serving driver: a thin CLI over the persistent slot-table engine.
+
+The port's counterpart of ``repro.launch.serve``.  The default path is
+:class:`repro_torch.runtime.serving.ServingEngine`; ``--one-shot`` keeps
+the legacy path (a per-call batch, prompt replayed through the decode
+recurrence, token-by-token decode) as the comparison baseline, and
+``--device-class`` serves it under one class's control tree.  Both run on
+the CUDA card unless ``--device cpu`` is given (the kernels' plain
+versions then run).  The fleet, tracing/metrics and class-sharded
+branches of the reference's CLI arrive with later slices.
+
+Example (one H100)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --batch 8 --prompt-len 16 --gen-len 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+from repro_torch.models import model_zoo as Z
+from repro_torch.runtime.serving import resolve_device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda"):
+    """Greedy decode: bulk prefill through the decode recurrence, then
+    token by token, updating one cache in place.
+
+    Returns ``(tokens, timings)``; ``timings`` splits warm-up (the prefill
+    and the first decode call) from steady-state decode.
+    """
+
+    device = resolve_device(device)
+    prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(device)
+    b, plen = prompts.shape
+    decode = Z.make_decode_fn(cfg)
+    prefill = Z.make_prefill_fn(cfg)
+    state = Z.init_decode_state(cfg, b, seq_cap, device=device)
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, state = prefill(params, {"tokens": prompts}, state, 0)
+        _sync(device)
+        timings = {"compile_s": time.perf_counter() - t0, "decode_s": 0.0, "decode_steps": 0}
+        out = [prompts.cpu().numpy()]
+        for t in range(plen, plen + gen_len):
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            out.append(nxt.cpu().numpy())
+            t1 = time.perf_counter()
+            logits, state = decode(params, {"tokens": nxt}, state, t)
+            _sync(device)
+            dt = time.perf_counter() - t1
+            if t == plen:  # first decode call warms up
+                timings["compile_s"] += dt
+            else:
+                timings["decode_s"] += dt
+                timings["decode_steps"] += 1
+    return np.concatenate(out, axis=1), timings
+
+
+def _one_shot(cfg, params, asym, prompts, args, seq_cap, device):
+    """The legacy path under one class's control tree."""
+
+    layout = asym.batch_layout(args.batch)
+    print("request split across classes:", layout.sizes)
+    exec_ctx = asym.execution_context(args.device_class)
+    with exec_ctx:
+        out, timings = generate(cfg, params, prompts, args.gen_len, seq_cap, device=device)
+    return out, timings, exec_ctx.device_class, exec_ctx.backend(), None
+
+
+def truncate_at_eos(out: np.ndarray, prompt_len: int, eos_id: int):
+    """EOS-aware stop for the one-shot path's dense output (the EOS token
+    is kept, the tail zeroed).  Returns ``(out, n_eos, n_budget)``."""
+
+    out = out.copy()
+    gen = out[:, prompt_len:]
+    hit = gen == eos_id
+    n_eos = 0
+    for r in range(out.shape[0]):
+        idx = np.nonzero(hit[r])[0]
+        if len(idx):
+            gen[r, idx[0] + 1:] = 0
+            n_eos += 1
+    return out, n_eos, out.shape[0] - n_eos
+
+
+def _engine(cfg, params, asym, prompts, args, seq_cap, device):
+    """The persistent slot-table engine path (the default)."""
+
+    from repro_torch.runtime.serving import ServingEngine
+
+    layout = asym.batch_layout(args.batch)
+    print("request split across classes:", layout.sizes)
+    eng = ServingEngine(
+        cfg, params, asym,
+        seq_cap=seq_cap,
+        slots_per_pod=args.slots_per_pod or layout.c_max,
+        paged=args.paged,
+        page_size=args.page_size,
+        pool_pages=args.pool_pages,
+        eos_id=args.eos_id,
+        device=device,
+    )
+    out = eng.generate(prompts, args.gen_len)
+    st = eng.stats
+    timings = {"compile_s": st.compile_s, "decode_s": st.decode_s,
+               "decode_steps": st.decode_steps, "tokens": st.tokens}
+    ctx = asym.execution_context()
+    return out, timings, ctx.device_class, ctx.backend(), eng
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (runs the kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=8)
+    ap.add_argument("--strategy", default="ca-das")
+    ap.add_argument("--device-class", default=None,
+                    help="one-shot: serve under this class's control tree "
+                         "(default: fastest)")
+    ap.add_argument("--one-shot", action="store_true",
+                    help="legacy path: per-call batch + token-by-token decode")
+    ap.add_argument("--slots-per-pod", type=int, default=None,
+                    help="engine slot-region size (default: the layout's c_max)")
+    ap.add_argument("--paged", default="off", choices=["auto", "on", "off"],
+                    help="engine KV storage: paged page pool instead of dense lanes")
+    ap.add_argument("--page-size", type=int, default=None)
+    ap.add_argument("--pool-pages", type=int, default=None)
+    ap.add_argument("--eos-id", type=int, default=None)
+    return ap
+
+
+def serve(args, *, params=None):
+    """Run one serving session from parsed CLI ``args``.
+
+    Returns ``(summary, tokens, engine)``: the JSON summary, the ``(batch,
+    prompt + generated)`` tokens, and the
+    :class:`~repro_torch.runtime.serving.ServingEngine` that served
+    (``None`` on the one-shot path).  ``params`` defaults to the random weights of
+    ``--seed``.
+    """
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.embed_inputs or cfg.family == "encdec":
+        raise SystemExit(f"{cfg.name}: serving demo targets token-in archs")
+    if not args.one_shot and args.device_class is not None:
+        raise SystemExit("--device-class applies to the --one-shot path only")
+    if args.one_shot and args.paged != "off":
+        raise SystemExit("--paged applies to the engine path only")
+
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = Z.init_params(cfg, gen, device)
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), strategy=args.strategy,
+                          batch_tile=1)
+
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
+    seq_cap = args.prompt_len + args.gen_len
+
+    t0 = time.time()
+    run = _one_shot if args.one_shot else _engine
+    out, timings, device_class, exec_backend, engine = run(
+        cfg, params, asym, prompts, args, seq_cap, device
+    )
+    dt = time.time() - t0
+    stop_counts = None
+    if args.eos_id is not None:
+        if engine is not None:
+            stop_counts = {"eos": engine.stats.completed_eos,
+                           "budget": engine.stats.completed_budget}
+        else:
+            out, n_eos, n_budget = truncate_at_eos(out, args.prompt_len, args.eos_id)
+            stop_counts = {"eos": n_eos, "budget": n_budget}
+    tokens = timings.get("tokens", args.batch * timings["decode_steps"])
+    steady = tokens / timings["decode_s"] if timings["decode_s"] > 0 else 0.0
+    summary = {
+        "arch": cfg.name,
+        "path": "one-shot" if args.one_shot else "engine",
+        "objective": "perf",  # the energy/EDP objectives are not ported yet
+        "device_class": device_class,
+        "exec_backend": exec_backend,
+        "class_sharded": False,  # one program: the class-sharded step is not ported yet
+        "shard_classes": None,
+        "batch": args.batch,
+        "generated": out.shape[1] - args.prompt_len,
+        "wall_s": round(dt, 2),
+        "compile_s": round(timings["compile_s"], 3),
+        "tokens_per_s": round(steady, 1),
+        "sample": out[0, -8:].tolist(),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+    if stop_counts is not None:
+        summary["stop_counts"] = stop_counts
+    if engine is not None:
+        summary["engine"] = {"slots": [engine.n_pods, engine.c_max],
+                             **engine.stats.snapshot(), "kv_pool": engine.kv_stats()}
+    return summary, out, engine
+
+
+def main(argv=None) -> dict:
+    summary, _, _ = serve(build_parser().parse_args(argv))
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,251 @@
+"""Shared neural-net layers (plain functions on tensors, explicit params).
+
+The port's counterpart of ``repro.models.layers`` (its decode half).
+Conventions, as in the reference:
+
+  * projection weights keep the JAX ``(in, out)`` layout, because the
+    GEMM kernels compute ``A · B``; they may be stored in bf16 once (the
+    reference casts fp32 masters to bf16 at every use — the same values),
+  * norm weights and biases stay fp32, normalizations and softmax run in
+    fp32, the residual stream stays bf16,
+  * every dense projection routes through :func:`repro_torch.kernels.ops.gemm`
+    so the class's control tree governs the hot loops.
+
+Decode updates the KV caches **in place** (the reference threads them
+through donated jit arguments; here the tensors are simply written).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.paged_attention import grouped_attention, valid_mask
+
+COMPUTE_DTYPE = torch.bfloat16
+PARAM_DTYPE = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Initializers (same scales as the reference; torch's own random numbers)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator, shape, scale: Optional[float] = None, *, device, dtype=PARAM_DTYPE):
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def embed_init(generator, shape, *, device, dtype=PARAM_DTYPE):
+    w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalization and rotary embedding
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * w.float()
+    return y.to(x.dtype)
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, D); positions: (..., S) int."""
+
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.pow(
+        torch.tensor(theta, dtype=torch.float32, device=x.device),
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half,
+    )
+    ang = positions[..., None].float() * freqs  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (decode)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    window: Optional[int] = None      # sliding-window attention (not ported yet)
+    causal: bool = True
+    use_rope: bool = True
+
+
+def init_attention(generator, cfg: AttnConfig, *, device, dtype=COMPUTE_DTYPE):
+    mk = lambda shape: dense_init(generator, shape, device=device, dtype=dtype)  # noqa: E731
+    p = {
+        "wq": mk((cfg.d_model, cfg.n_heads * cfg.d_head)),
+        "wk": mk((cfg.d_model, cfg.n_kv_heads * cfg.d_head)),
+        "wv": mk((cfg.d_model, cfg.n_kv_heads * cfg.d_head)),
+        "wo": mk((cfg.n_heads * cfg.d_head, cfg.d_model)),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((width * cfg.d_head,), dtype=PARAM_DTYPE, device=device)
+    return p
+
+
+def _w(w):
+    return w.to(COMPUTE_DTYPE)
+
+
+def _qkv(p, x, cfg: AttnConfig, positions):
+    b, s, _ = x.shape
+    q = ops.linear(x, _w(p["wq"]), p.get("bq"))
+    k = ops.linear(x, _w(p["wk"]), p.get("bk"))
+    v = ops.linear(x, _w(p["wv"]), p.get("bv"))
+    q = q.reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _per_row(pos, b: int, device) -> torch.Tensor:
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return pos.expand(b).contiguous() if pos.ndim == 0 else pos
+
+
+def _require_linear(cfg: AttnConfig):
+    if cfg.window is not None:
+        raise NotImplementedError(
+            "sliding-window (ring) decode is not ported yet; this slice serves "
+            "full-attention configurations"
+        )
+
+
+def _finish(p, o, live, x, cfg: AttnConfig):
+    """Zero dead rows, flatten the heads and project out."""
+
+    b = x.shape[0]
+    if live is not None:
+        o = torch.where(live[:, None, None], o, torch.zeros((), dtype=o.dtype, device=o.device))
+    o = o.to(x.dtype).reshape(b, 1, cfg.n_heads * cfg.d_head)
+    return ops.linear(o, _w(p["wo"]))
+
+
+def decode_attention(p, x, cfg: AttnConfig, cache_k, cache_v, pos, *, live=None):
+    """Single-token decode against a linear KV cache, written in place.
+
+    x: (B, 1, D); cache_k/v: (B, S_cache, Hkv, Dh); pos: the new token's
+    absolute position — a scalar or a ``(B,)`` vector of per-row positions
+    (the engine's slot table).  A row whose position is past the cache
+    writes nothing (the reference's ``mode="drop"``).  ``live`` (``(B,)``
+    bool) zeroes the attention output of dead rows.
+    """
+
+    _require_linear(cfg)
+    b = x.shape[0]
+    s_cache = cache_k.shape[1]
+    pos = _per_row(pos, b, x.device)
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+
+    rows = torch.arange(b, device=x.device)
+    slot = pos.long()
+    ok = pos < s_cache
+    if not bool(ok.all()):
+        rows, slot, k, v = rows[ok], slot[ok], k[ok], v[ok]
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+
+    o = grouped_attention(q[:, 0], cache_k, cache_v, valid_mask(pos, s_cache))
+    return _finish(p, o, live, x, cfg), (cache_k, cache_v)
+
+
+def decode_attention_paged(
+    p, x, cfg: AttnConfig, pages_k, pages_v, page_table, pos, *,
+    live=None, backend: str = "auto",
+):
+    """Single-token decode against a paged KV arena (one layer's).
+
+    pages_k/v: (P, page_size, Hkv, Dh); page_table: (B, W) int32 with
+    ``W · page_size == S_cache``; pos: (B,) int32.  The new K/V lands at
+    logical slot ``pos`` inside the row's page for it, in place; rows whose
+    table entry is unallocated (SENTINEL) or whose position is past the
+    cache write nothing.  The read side routes through
+    ``execution.dispatch_paged_attention``.
+    """
+
+    from repro_torch.core.execution import dispatch_paged_attention
+
+    _require_linear(cfg)
+    b = x.shape[0]
+    n_pages, page_size = pages_k.shape[0], pages_k.shape[1]
+    w = page_table.shape[1]
+    s_cache = w * page_size
+    pos = _per_row(pos, b, x.device)
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+
+    rows = torch.arange(b, device=x.device)
+    col = torch.clamp(pos.long() // page_size, 0, w - 1)
+    page = page_table[rows, col].long()
+    ok = (pos < s_cache) & (page >= 0) & (page < n_pages)
+    off = pos.long() % page_size
+    if not bool(ok.all()):
+        page, off, k, v = page[ok], off[ok], k[ok], v[ok]
+    pages_k[page, off] = k[:, 0].to(pages_k.dtype)
+    pages_v[page, off] = v[:, 0].to(pages_v.dtype)
+
+    o = dispatch_paged_attention(q[:, 0], pages_k, pages_v, page_table, pos, backend=backend)
+    return _finish(p, o, live, x, cfg), (pages_k, pages_v)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_glu(generator, d_model: int, d_ff: int, *, device, dtype=COMPUTE_DTYPE):
+    return {
+        "w1": dense_init(generator, (d_model, d_ff), device=device, dtype=dtype),
+        "w3": dense_init(generator, (d_model, d_ff), device=device, dtype=dtype),
+        "w2": dense_init(generator, (d_ff, d_model), device=device, dtype=dtype),
+    }
+
+
+def apply_glu(p, x):
+    h = F.silu(ops.gemm(x, _w(p["w1"])).float()).to(COMPUTE_DTYPE)
+    h = h * ops.gemm(x, _w(p["w3"]))
+    return ops.gemm(h, _w(p["w2"]))
+
+
+__all__ = [
+    "COMPUTE_DTYPE",
+    "PARAM_DTYPE",
+    "AttnConfig",
+    "apply_glu",
+    "decode_attention",
+    "decode_attention_paged",
+    "dense_init",
+    "embed_init",
+    "init_attention",
+    "init_glu",
+    "rms_norm",
+    "rope",
+]

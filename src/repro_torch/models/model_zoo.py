@@ -1,0 +1,92 @@
+"""Family dispatch (the port's ``repro.models.model_zoo``), decode half.
+
+  * ``init_params(cfg, generator, device)``
+  * ``make_decode_fn(cfg)``      -> (params, batch, state, pos) -> (logits, state)
+  * ``bulk_prefill_from_decode(decode_fn)`` -> the prompt-consuming prefill
+  * ``init_decode_state(cfg, batch, seq_len, device=...)`` and its paged twin
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models import transformer as T
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
+    if cfg.family == "encdec":
+        raise NotImplementedError("the encoder-decoder family is not ported yet")
+    return T.init_lm(generator, cfg, device=device)
+
+
+def bulk_prefill_from_decode(decode_fn):
+    """Build the prefill from any decode-step-compatible fn.
+
+    ``decode_fn(params, {"tokens": (B,1), ...}, state, pos)`` becomes
+    ``(params, {"tokens": (B,P), ...}, state, pos0, plens=None) -> (logits,
+    state)``: a loop over prompt positions in place of the reference's
+    ``lax.scan``.  The loop body *is* the decode recurrence, so the cache
+    it writes is bitwise equal to the token-by-token replay.  Every batch
+    key besides ``"tokens"`` is passed to each step unchanged.
+
+    ``plens`` ((B,) int32, optional) supports mixed-length prompts in one
+    call: prompts are right-padded, every row runs every padded step, and
+    each row's returned logits are those of its own last real token
+    ``t == plens[row] - 1``.
+    """
+
+    def f(params, batch, state, pos0, plens=None):
+        if "tokens" not in batch:
+            raise ValueError("bulk prefill needs a token-in batch ({'tokens': (B,P)})")
+        tokens = batch["tokens"]
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        plen = tokens.shape[1]
+        if plens is not None:
+            last = torch.as_tensor(plens, dtype=torch.int32, device=tokens.device) - 1
+        logits = None
+        for t in range(plen):
+            lg, state = decode_fn(params, dict(extras, tokens=tokens[:, t:t + 1]), state, pos0 + t)
+            if logits is None or plens is None:
+                logits = lg
+            else:
+                logits = torch.where((last == t)[:, None, None], lg, logits)
+        return logits, state
+
+    return f
+
+
+def make_decode_fn(cfg: ArchConfig):
+    def f(params, batch, state, pos):
+        return T.decode_step(params, cfg, batch, state, pos)
+
+    return f
+
+
+def make_prefill_fn(cfg: ArchConfig):
+    """The prefill the serving stack uses: the bulk prefill over
+    :func:`make_decode_fn` (the reference's ``with_cache=True`` form)."""
+
+    return bulk_prefill_from_decode(make_decode_fn(cfg))
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
+    return T.init_decode_state(cfg, batch, seq_len, device=device)
+
+
+def init_decode_state_paged(cfg: ArchConfig, n_pages: int, page_size: int, *, device="cuda"):
+    """Paged decode cache (pure KV-cache families only; see transformer)."""
+
+    if cfg.family == "encdec":
+        raise ValueError("paged KV state does not cover the encdec cross-KV cache")
+    return T.init_decode_state_paged(cfg, n_pages, page_size, device=device)
+
+
+__all__ = [
+    "bulk_prefill_from_decode",
+    "init_decode_state",
+    "init_decode_state_paged",
+    "init_params",
+    "make_decode_fn",
+    "make_prefill_fn",
+]

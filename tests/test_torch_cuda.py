@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a card (the kernels
+have no CPU mode; ``test_torch_kernels.py`` holds the plain versions
+against the JAX package here).  The file imports neither ``jax`` nor the
+JAX package, so it also runs on a machine with only PyTorch and ``nvcc``;
+``tests/conftest.py`` imports jax, so run it there without the conftest::
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: bf16 outputs rtol = atol = 2e-2 and fp32 outputs 1e-4, as in
+``tests/test_backend_parity.py`` (the kernels and the plain versions both
+accumulate in fp32, in other orders).  The lean GEMM equals the pipelined
+one bitwise at equal blocks.
+"""
+
+import math
+
+import pytest
+import torch
+
+from repro_torch.core.blocking import BlockConfig
+from repro_torch.kernels import gemm as G
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.runtime.paging import SENTINEL
+
+BF16 = dict(rtol=2e-2, atol=2e-2)
+FP32 = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
+    return torch.device("cuda")
+
+
+def _operands(cuda, m, k, n, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = (torch.randn((k, n), generator=gen, device=cuda) / math.sqrt(k)).bfloat16()
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 2048, 2048), (12, 8192, 2048), (12, 2048, 92544),
+                                   (13, 100, 77), (300, 200, 180), (1, 8, 1)])
+def test_cuda_gemms_match_plain_and_each_other(cuda, shape):
+    m, k, n = shape
+    a, b = _operands(cuda, m, k, n)
+    G.reset_launches()
+    for stages, fn, plain in ((2, G.gemm_cuda, G.gemm_plain), (1, G.gemm_cuda_lean, G.gemm_lean_plain)):
+        cfg = G.resolve_block_config(m, k, n, torch.bfloat16, stages=stages)
+        got = fn(a, b, cfg)
+        torch.testing.assert_close(got.float(), plain(a, b, cfg).float(), **BF16)
+        f32 = fn(a, b, cfg, out_dtype=torch.float32)
+        torch.testing.assert_close(f32, plain(a, b, cfg, out_dtype=torch.float32), **FP32)
+        if stages == 2:  # the pipelined kernel's blocks fit both rings
+            assert torch.equal(G.gemm_cuda_lean(a, b, cfg), got)  # bitwise at equal blocks
+    torch.cuda.synchronize()
+    assert G.LAUNCHES == {"gemm_cuda": 2, "gemm_cuda_lean": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(16, 16, 32), (32, 64, 64), (64, 256, 128), (128, 128, 128)])
+def test_cuda_gemm_every_tile_family(cuda, block):
+    a, b = _operands(cuda, 200, 300, 260, seed=1)
+    cfg = BlockConfig(*block)
+    got = G.gemm_cuda(a, b, cfg)
+    torch.testing.assert_close(got.float(), G.gemm_plain(a, b, cfg).float(), **BF16)
+    assert torch.equal(G.gemm_cuda_lean(a, b, cfg), got)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_rejects_what_it_cannot_run(cuda):
+    a, b = _operands(cuda, 64, 32, 32)
+    with pytest.raises(ValueError, match="compiled tile"):
+        G.gemm_cuda(a, b, BlockConfig(bm=24, bk=16, bn=32))
+    with pytest.raises(TypeError, match="bf16"):
+        G.gemm_cuda(a.float(), b.float(), BlockConfig(16, 16, 32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        G.gemm_cuda(a, b.cpu(), BlockConfig(16, 16, 32))
+    # A panel only the one-stage ring holds: the pipelined kernel refuses it
+    # before launching, and a launch after that still succeeds.
+    a, b = _operands(cuda, 12, 2048, 4096)
+    lean_only = BlockConfig(bm=16, bk=256, bn=256)
+    with pytest.raises(ValueError, match="shared memory"):
+        G.gemm_cuda(a, b, lean_only)
+    got = G.gemm_cuda_lean(a, b, lean_only)
+    torch.testing.assert_close(got.float(), G.gemm_lean_plain(a, b, lean_only).float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,w", [(24, 1), (16, 4), (64, 64)])
+def test_cuda_paged_attention_matches_plain(cuda, ps, w):
+    b, hq, hkv, d = 12, 16, 8, 128
+    n_pages = b * w + 3
+    gen = torch.Generator(device=cuda).manual_seed(ps)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
+    pk = torch.randn((n_pages, ps, hkv, d), generator=gen, device=cuda).bfloat16()
+    pv = torch.randn((n_pages, ps, hkv, d), generator=gen, device=cuda).bfloat16()
+    table = torch.randint(0, n_pages, (b, w), generator=gen, device=cuda, dtype=torch.int32)
+    pos = torch.randint(0, w * ps, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    table[0] = SENTINEL            # a dead row
+    pos[1] = w * ps + 9            # a row aged past its cache
+    PA.reset_launches()
+    got = PA.paged_attention_cuda(q, pk, pv, table, pos)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attention_cuda"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), PA.paged_attention_torch(q, pk, pv, table, pos).float(), **BF16)

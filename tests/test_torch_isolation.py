@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone: no ``jax``, nothing of ``repro``.
+
+Every module under ``src/repro_torch/``, the root ``chip_smoke.py`` and
+the card-only ``tests/test_torch_cuda.py`` are scanned (AST) for imports
+of ``jax``/``jaxlib`` or the JAX package ``repro``; then a fresh
+interpreter imports every port module and checks that neither ended up in
+``sys.modules``.  No tolerances: these are
+structural checks.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            roots.add(node.args[0].value.split(".")[0])
+    return roots
+
+
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_repro(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_covers_the_slice_modules():
+    mods = set(_port_modules())
+    for name in (
+        "repro_torch.util.atomic", "repro_torch.observability.trace",
+        "repro_torch.core.blocking", "repro_torch.core.schedule",
+        "repro_torch.core.execution", "repro_torch.core.control_tree",
+        "repro_torch.core.asymmetric", "repro_torch.kernels.ref",
+        "repro_torch.kernels.gemm", "repro_torch.kernels.paged_attention",
+        "repro_torch.kernels.ops", "repro_torch.configs",
+        "repro_torch.configs.internlm2_1p8b", "repro_torch.models.layers",
+        "repro_torch.models.transformer", "repro_torch.models.model_zoo",
+        "repro_torch.runtime.paging", "repro_torch.runtime.serving",
+        "repro_torch.launch.serve", "repro_torch.convert",
+    ):
+        assert name in mods, name
+    for src in ("gemm.cu", "paged_attention.cu"):
+        assert (PORT / "csrc" / src).is_file(), src
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
