@@ -8,12 +8,14 @@ Run from the root of a checkout, on a machine with a CUDA card::
 Phases (any failed check exits non-zero and prints no result line):
 
   0. setup — the card's name and power limit, torch/CUDA versions, and the
-     build of every kernel under ``src/repro_torch/csrc`` (one ``nvcc`` per
-     source, all started together);
-  1. kernels vs their plain PyTorch versions at the serving path's shapes
+     build of every kernel under ``src/repro_torch/csrc`` (gemm,
+     paged_attention, flash_attention: one ``nvcc`` per source, all
+     started together);
+  1. kernels vs their plain PyTorch versions at the main paths' shapes
      (bf16; tolerance below), the lean GEMM bitwise equal to the pipelined
      one at equal blocks, each timed with CUDA events beside its plain
-     version, its bound and (GEMM) ``torch.matmul``;
+     version, its bound and the library call (``torch.matmul`` for the
+     GEMMs, ``scaled_dot_product_attention`` for flash attention);
   2. the dense serving engine on the full-width 24-layer internlm2-1.8b
      (random weights from a fixed seed), through ``repro_torch.launch.serve``:
      every GEMM of the decode recurrence must launch ``gemm_cuda``;
@@ -25,11 +27,19 @@ Phases (any failed check exits non-zero and prints no result line):
      big-class path on the same inputs (random weights make greedy decode
      collapse onto a repeated token, so equal tokens prove little);
   6. the reduced model's prefill logits on the card (both classes, dense
-     and paged) against the same code's plain versions on the CPU.
+     and paged) against the same code's plain versions on the CPU;
+  7. the full-sequence forward on the full-width 32-layer minitron-4b
+     (random weights from seed 0) over 2 random prompts of 2048 tokens:
+     the logits-only prefill (32 ``flash_attention_cuda`` launches a
+     forward, every GEMM through ``gemm_cuda``) and the eval loss on the
+     tokens shifted by one; the same forward with its attention through
+     ``chunked_attention`` (logits within ``LOGIT_TOL``); row 0's first 32
+     positions replayed token by token through the dense decode step
+     (logits within ``LOGIT_TOL`` at every position).
 
-Each of phases 2-4 resets the kernels' launch counters just before it
-and reads them just after; the launches of phases 1, 5 and 6 count for
-no path.  The engines' tokens/s are smoke readings over a few steps, not
+Each of phases 2-4 and the forward of phase 7 resets the kernels' launch
+counters just before it and reads them just after; the launches of phases
+1, 5, 6 and phase 7's comparisons count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -38,6 +48,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -54,7 +65,12 @@ BF16_TOL = 2e-2
 FP32_TOL = 1e-4
 # Logits of the paged path (CUDA kernel, online softmax) or the little
 # class against the dense big-class path: bf16 residual streams through
-# 24 layers; logits have a standard deviation near 0.9.
+# 24 layers; logits have a standard deviation near 0.9.  The same bound
+# holds the forward's flash kernel against chunked_attention and against
+# the decode step (phase 7): those attentions differ in where they round
+# p to bf16 (before or after normalising), a bf16 ulp of the attention
+# output, which 32 layers of bf16 residual stream carry to the logits
+# (standard deviation near 1.1 at minitron-4b's width).
 LOGIT_TOL = 0.25
 
 PEAK_BF16 = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
@@ -62,6 +78,8 @@ HBM_BW = 3.35e12     # bytes/s, H100 SXM data sheet
 
 ARCH = "internlm2-1.8b"
 BATCH, PROMPT_LEN, GEN_LEN = 8, 16, 8
+# The forward of phase 7: full-width minitron-4b over 2 x 2048 tokens.
+FWD_ARCH, FWD_BATCH, FWD_SEQ, REPLAY_LEN = "minitron-4b", 2, 2048, 32
 # Tokens per KV page of the paged engine: three pages per 24-token slot, so
 # the kernel walks a real page table (the default, min block.bm = 64, would
 # give each slot a single page).
@@ -221,6 +239,35 @@ def phase1(torch, detail: dict) -> dict:
         print(f"  {name} tree 1024^3 block {blk.bm}x{blk.bk}x{blk.bn}: err {err:.3g} "
               f"kernel {t_k:.4f} ms matmul {t_l:.4f} bound {b_ms:.4f} ({by})", flush=True)
 
+    # The GEMMs of one forward of phase 7 (M = B x S rows), big class.
+    fcfg = get_config(FWD_ARCH)
+    fm, fd, ff, fl = FWD_BATCH * FWD_SEQ, fcfg.d_model, fcfg.d_ff, fcfg.n_layers
+    fq, fkv = fcfg.n_heads * fcfg.head_dim, fcfg.n_kv_heads * fcfg.head_dim
+    fwd = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (k, n), count in (((fd, fq), fl), ((fd, fkv), 2 * fl), ((fq, fd), fl),
+                          ((fd, ff), 2 * fl), ((ff, fd), fl), ((fd, fcfg.vocab), 1)):
+        cfgb = big.block_config(fm, k, n, "bfloat16", 2)
+        a, bs = operands(fm, k, n)
+        got = G.gemm_cuda(a, bs[0], cfgb)
+        torch.cuda.synchronize()
+        ok, err = within(torch, got, torch.matmul(a.float(), bs[0].float()), BF16_TOL)
+        check(ok, f"gemm_cuda {fm}x{k}x{n} {cfgb}: max err {err} over tol {BF16_TOL}")
+        iters = 2 if n > 50000 else 5
+        t_k = time_ms(torch, lambda x, y: G.gemm_cuda(x, y, cfgb), [(a, b) for b in bs], iters, 1)
+        t_l = time_ms(torch, torch.matmul, [(a, b) for b in bs], iters, 1)
+        b_ms, by = bound_ms((fm * k + k * n + fm * n) * 2, 2 * fm * k * n)
+        rows.append({"kernel": "gemm_cuda", "shape": [fm, k, n], "block": [cfgb.bm, cfgb.bk, cfgb.bn],
+                     "calls_per_forward": count, "ms": t_k, "library_ms": t_l, "bound_ms": b_ms,
+                     "bound_by": by, "max_abs_err": err})
+        print(f"  gemm_cuda forward {fm}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: err {err:.3g} "
+              f"kernel {t_k:.4f} ms matmul {t_l:.4f} bound {b_ms:.4f} ({by})", flush=True)
+        for key, val in (("ms", t_k), ("library_ms", t_l), ("bound_ms", b_ms)):
+            fwd[key] += count * val
+        del a, bs, got
+    detail["gemm_cuda_forward"] = fwd
+    print(f"  gemm_cuda over one {FWD_ARCH} forward ({7 * fl + 1} GEMMs): kernel {fwd['ms']:.1f} ms, "
+          f"matmul {fwd['library_ms']:.1f} ms, bound {fwd['bound_ms']:.1f} ms", flush=True)
+
     # fp32 output of the pipelined kernel at one decode shape.
     cfgb = big.block_config(m, d, d, "bfloat16", 2)
     a, bs = operands(m, d, d)
@@ -270,6 +317,210 @@ def phase1(torch, detail: dict) -> dict:
     paged_case(m, m * 64 + 1, 64, 64, "long-4096")  # a long cache, for the record only
     detail["phase1"] = rows
     return records
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask leaves visible, per (batch row, head)."""
+
+    n = 0
+    for i in range(sq):
+        qi = i + sk - sq
+        hi = min(sk, qi + 1) if causal else sk
+        lo = max(0, qi - window + 1) if window is not None else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def phase1_flash(torch, detail: dict) -> dict:
+    """flash_attention_cuda against its plain version: the forward's layer
+    shape, a ragged suffix, a window and a non-causal call."""
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg = get_config(FWD_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, record = [], None
+    for label, b, sq, sk, causal, window in (
+        ("layer", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, None),
+        ("suffix", FWD_BATCH, 100, 300, True, None),
+        ("window", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, 256),
+        ("non-causal", FWD_BATCH, FWD_SEQ, FWD_SEQ, False, None),
+    ):
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        kern = lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=causal, window=window)  # noqa: E731
+        plain = lambda q, k, v: FA.flash_attention_torch(q, k, v, causal=causal, window=window)  # noqa: E731
+        got, ref = kern(q, k, v), plain(q, k, v)
+        torch.cuda.synchronize()
+        ok, err = within(torch, got, ref, BF16_TOL)
+        check(ok and got.shape == q.shape, f"flash_attention_cuda {label}: max err {err} over tol {BF16_TOL}")
+        t_k = time_ms(torch, kern, [(q, k, v)], 10)
+        t_p = time_ms(torch, plain, [(q, k, v)], 3)
+        # The library's call on its own (B, H, S, D) layout; its causal mask
+        # is top-left aligned, so the suffix and the window pass theirs.
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        qi = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+        ki = torch.arange(sk, device="cuda")[None, :]
+        mask = None
+        if causal and (sq != sk or window is not None):
+            mask = qi >= ki
+            if window is not None:
+                mask &= (qi - ki) < window
+        is_causal = causal and mask is None
+        sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+        lib = sdpa(qt, kt, vt).transpose(1, 2)
+        torch.cuda.synchronize()
+        _, lib_err = within(torch, lib, ref, BF16_TOL)
+        t_l = time_ms(torch, sdpa, [(qt, kt, vt)], 10)
+        pairs = visible_pairs(sq, sk, causal, window)
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        b_ms, by = bound_ms(n_bytes, 4 * b * hq * d * pairs)
+        row = {"kernel": "flash_attention_cuda", "label": label, "shape": [b, sq, sk, hq, hkv, d],
+               "causal": causal, "window": window, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+               "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by,
+               "visible_pairs": pairs, "max_abs_err": err}
+        rows.append(row)
+        print(f"  flash_attention_cuda {label} B={b} Sq={sq} Sk={sk} H={hq}/{hkv} D={d} "
+              f"causal={causal} window={window}: err {err:.3g} kernel {t_k:.4f} ms plain {t_p:.4f} "
+              f"sdpa {t_l:.4f} (err {lib_err:.3g}) bound {b_ms:.4f} ({by})", flush=True)
+        if label == "layer":
+            record = row
+    detail["phase1_flash"] = rows
+    n = cfg.n_layers  # one call a layer: the kernels line counts one forward
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), "ms": n * record["ms"],
+            "plain_ms": n * record["plain_ms"], "library_ms": n * record["library_ms"],
+            "bound_ms": n * record["bound_ms"], "bound_by": record["bound_by"]}
+
+
+def phase7(torch, counts, reset) -> dict:
+    """The full-sequence forward at full width: prefill logits, eval loss,
+    the kernel against chunked_attention in place, and the decode replay."""
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.models import model_zoo as Z
+
+    cfg = get_config(FWD_ARCH)
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (FWD_BATCH, FWD_SEQ), dtype=np.int32), device="cuda")
+    big = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    check(big.backend() == "cuda", f"big class GEMM backend {big.backend()}")
+    prefill, loss_fn = Z.make_prefill_fn(cfg), Z.make_loss_fn(cfg)
+    per_fwd = {"gemm_cuda": 7 * cfg.n_layers + 1, "flash_attention_cuda": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+
+    # The main path: one warm-up and three timed forwards, then the loss.
+    reset()
+    walls = []
+    with big:
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t0)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = loss_fn(params, batch)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall = sorted(walls)[1]
+    print(f"phase 7: {cfg.name} forward logits {tuple(logits.shape)} {logits.dtype}; wall "
+          f"{[round(w, 4) for w in walls]} s (median {wall:.4f} s, {FWD_BATCH * FWD_SEQ / wall:.0f} "
+          f"tokens/s); loss {float(loss):.6f} (ln V = {math.log(cfg.vocab):.4f}) in {loss_s:.4f} s; "
+          f"launches over 5 forwards {launches}; peak {peak_gb:.2f} GB; init {init_s:.1f} s",
+          flush=True)
+    for name, n in per_fwd.items():
+        check(launches[name] == 5 * n, f"{name} launches {launches[name]} != 5 x {n}")
+    check(launches["paged_attention_cuda"] == 0 and launches["gemm_cuda_lean"] == 0,
+          f"the forward launched other kernels: {launches}")
+    check(tuple(logits.shape) == (FWD_BATCH, FWD_SEQ, cfg.vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "forward logits not finite")
+    check(math.isfinite(float(loss)) and abs(float(loss) - math.log(cfg.vocab)) < 3.0,
+          f"eval loss {float(loss)} far from ln V = {math.log(cfg.vocab):.3f} for random weights")
+    split = profile_forward(torch, lambda: prefill(params, {"tokens": toks}), big)
+    print(f"  one traced forward: wall {split['wall_ms']:.1f} ms, device busy {split['busy_ms']:.1f} ms "
+          f"(idle {split['idle_share']:.3f}); device ms by kernel: "
+          f"{ {k: round(v, 2) for k, v in split['ms'].items()} }; launches {split['count']}", flush=True)
+
+    # The kernel in place: the same forward with chunked_attention.
+    with big:
+        t0 = time.perf_counter()
+        ref = Z.make_prefill_fn(cfg, attn_backend="flash_attn_torch")(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        chunked_s = time.perf_counter() - t0
+    diff = (logits.float() - ref.float()).abs()
+    dmax, dmean = float(diff.max()), float(diff.mean())
+    argmax_eq = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    del diff, ref
+    print(f"  flash vs chunked_attention forward: max |logit diff| {dmax:.4f} (tol {LOGIT_TOL}), "
+          f"mean {dmean:.5f}, equal argmax {argmax_eq:.4f}; chunked forward {chunked_s:.3f} s",
+          flush=True)
+    check(dmax <= LOGIT_TOL, f"flash vs chunked logits differ by {dmax}")
+
+    # Forward against decode: row 0's first positions, token by token.
+    state = Z.init_decode_state(cfg, 1, REPLAY_LEN, device="cuda")
+    decode = Z.make_decode_fn(cfg)
+    steps = []
+    with torch.no_grad(), big:
+        for t in range(REPLAY_LEN):
+            lg, state = decode(params, {"tokens": toks[:1, t:t + 1]}, state, t)
+            steps.append(float((lg[0, 0].float() - logits[0, t].float()).abs().max()))
+    print(f"  decode replay vs forward, max |logit diff| per position: "
+          f"{[round(x, 4) for x in steps]} (tol {LOGIT_TOL})", flush=True)
+    check(all(math.isfinite(x) and x <= LOGIT_TOL for x in steps),
+          f"decode vs forward logits differ by {max(steps)}")
+    return {"arch": cfg.name, "batch": FWD_BATCH, "seq": FWD_SEQ, "walls_s": walls,
+            "wall_s": wall, "tokens_per_s": FWD_BATCH * FWD_SEQ / wall, "loss": float(loss),
+            "ce": float(metrics["ce"]), "loss_s": loss_s, "launches_5_forwards": launches,
+            "launches_per_forward": per_fwd, "peak_gb": peak_gb, "init_s": init_s,
+            "chunked_forward_s": chunked_s, "flash_vs_chunked_max": dmax,
+            "flash_vs_chunked_mean": dmean, "flash_vs_chunked_argmax_equal": argmax_eq,
+            "decode_replay_max": steps, "traced_forward": split}
+
+
+def profile_forward(torch, forward, ctx) -> dict:
+    """One forward under ``torch.profiler``: its device busy time (the union
+    of kernel intervals) and the device time by kernel family."""
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_decode import _union_us
+
+    torch.cuda.synchronize()
+    with ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    check(bool(dev), "the profiler saw no device activity in the forward")
+    busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    ms, count = {}, {}
+    for e in dev:
+        fam = ("gemm_cuda" if "gemm_kernel" in e.name else
+               "flash_attention_cuda" if "flash_attention_kernel" in e.name else "other")
+        ms[fam] = ms.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+        count[fam] = count.get(fam, 0) + 1
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "ms": ms, "count": count}
 
 
 def phase5(torch, tokens) -> dict:
@@ -337,7 +588,7 @@ def phase6(torch) -> dict:
                             if isinstance(tree, dict) else tree.to(dev))
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (b, plen), dtype=np.int32)
     mesh = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1, backend="cuda")
-    prefill = Z.make_prefill_fn(cfg)
+    prefill = Z.make_prefill_fn(cfg, with_cache=True)
 
     def logits(device, cls, paged):
         batch = {"tokens": torch.as_tensor(prompts, device=device)}
@@ -387,6 +638,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import paged_attention as PA
 
@@ -397,13 +649,15 @@ def main() -> None:
     print("phase 1: kernels vs plain versions (bf16 tol "
           f"{BF16_TOL}, fp32 tol {FP32_TOL})", flush=True)
     records = phase1(torch, detail)
+    records["flash_attention_cuda"] = phase1_flash(torch, detail)
 
     def counts():
-        return {**G.LAUNCHES, **PA.LAUNCHES}
+        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES}
 
     def reset():
         G.reset_launches()
         PA.reset_launches()
+        FA.reset_launches()
 
     base = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
             "--gen-len", str(GEN_LEN), "--seed", "0"]
@@ -466,11 +720,32 @@ def main() -> None:
           flush=True)
     detail["phase6"] = phase6(torch)
 
+    del eng2, eng3, lg2, lg3
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 7: the full-sequence forward, {FWD_ARCH} at full width, "
+          f"{FWD_BATCH} x {FWD_SEQ} tokens", flush=True)
+    fwd = phase7(torch, counts, reset)
+    detail["forward"] = fwd
+    launches["flash_attention_cuda"] = fwd["launches_5_forwards"]["flash_attention_cuda"]
+
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),
         "gemm_cuda_lean": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:273"),
         "paged_attention_cuda": ("src/repro_torch/csrc/paged_attention.cu",
                                  "src/repro/kernels/paged_attention.py:176"),
+        "flash_attention_cuda": ("src/repro_torch/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:80"),
+    }
+    per = {
+        "gemm_cuda": "ms: one decode step of the serving path (169 GEMMs at M = 12); "
+                     "launches: the dense engine run",
+        "gemm_cuda_lean": "ms: one decode step under the little class (169 GEMMs); "
+                          "launches: the one-shot run",
+        "paged_attention_cuda": "ms: one decode step (24 calls); launches: the paged engine run",
+        "flash_attention_cuda": f"ms: one forward of {FWD_ARCH} at {FWD_BATCH} x {FWD_SEQ} "
+                                f"(32 calls, one a layer); launches: 4 prefill forwards and "
+                                f"one loss forward",
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -479,9 +754,9 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "per": "one decode step of the serving path (169 GEMMs / 24 attention calls)",
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "per": per[name],
         })
+    kernels[0]["launches_forward"] = fwd["launches_5_forwards"]["gemm_cuda"]
     detail["engines"] = {"dense": s2, "paged": s3, "one_shot_little": s4,
                          "paged_vs_dense_logit_diff": dlog, "paged_token_agreement": agree,
                          "little_token_agreement": agree4, "replay_logit_diff": replay}

@@ -209,11 +209,14 @@ class ArchConfig:
         return ArchConfig(**kw)
 
 
-# The architectures the port serves so far (one module per id under
-# ``repro_torch/configs``); the rest of the reference's zoo follows with the
-# model families it needs.
+# The architectures the port runs so far, the dense family (one module per
+# id under ``repro_torch/configs``); the rest of the reference's zoo follows
+# with the model families it needs.
 _REGISTRY = {
     "internlm2-1.8b": "internlm2_1p8b",
+    "qwen2.5-32b": "qwen2p5_32b",
+    "minitron-4b": "minitron_4b",
+    "deepseek-7b": "deepseek_7b",
 }
 
 

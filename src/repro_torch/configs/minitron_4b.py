@@ -1,0 +1,16 @@
+"""Minitron-4B [arXiv:2407.14679; hf]. Pruned Nemotron dense GQA decoder."""
+
+from repro_torch.configs import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=9216,
+    vocab=256000,
+    notes="full attention -> long_500k skipped",
+)

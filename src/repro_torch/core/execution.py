@@ -24,12 +24,16 @@ Names against the reference's vocabulary:
   ``torch_ref`` / ``_lean``     ``pallas_interpret`` / ``pallas_lean_interpret``
   ``paged_attn_torch``          ``paged_attn_xla`` (the gather route)
   ``paged_attn_cuda``           ``paged_attn_pallas``
+  ``flash_attn_torch``          ``chunked_attention`` (the portable path)
+  ``flash_attn_cuda``           ``flash_attention`` (the Pallas kernel)
   ============================  ===========================================
 
 The ``cuda`` entries launch their kernel for CUDA tensors and run the
 kernel's plain PyTorch version for CPU tensors; the ``torch_ref`` twins
 run the plain version on any device (the role the reference's
-interpret-mode twins play).
+interpret-mode twins play).  ``flash_attn_cuda`` raises for CPU tensors:
+the forward's CPU route is ``flash_attn_torch`` (``chunked_attention``),
+which ``"auto"`` picks for them.
 """
 
 from __future__ import annotations
@@ -105,10 +109,23 @@ def _paged_attn_cuda(q, pages_k, pages_v, page_table, pos):
     return paged_attention_cuda(q, pages_k, pages_v, page_table, pos)
 
 
+def _flash_attn_torch(q, k, v, causal, window, scale):
+    from repro_torch.models.layers import chunked_attention
+
+    return chunked_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _flash_attn_cuda(q, k, v, causal, window, scale):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+
+
 # name -> kernel callable.  GEMM entries take ``(a2, b, config,
 # out_dtype)``; paged-attention entries take ``(q, pages_k, pages_v,
-# page_table, pos)`` — :data:`BACKEND_OPS` tags each name with its family
-# and the dispatch funnels validate the tag.
+# page_table, pos)``; full-sequence attention entries take ``(q, k, v,
+# causal, window, scale)`` — :data:`BACKEND_OPS` tags each name with its
+# family and the dispatch funnels validate the tag.
 BACKENDS: dict[str, Callable] = {
     "matmul": _matmul_gemm,
     "cuda": _cuda_gemm,
@@ -117,9 +134,11 @@ BACKENDS: dict[str, Callable] = {
     "torch_ref_lean": _torch_ref_lean_gemm,
     "paged_attn_torch": _paged_attn_torch,
     "paged_attn_cuda": _paged_attn_cuda,
+    "flash_attn_torch": _flash_attn_torch,
+    "flash_attn_cuda": _flash_attn_cuda,
 }
 
-# name -> op family ("gemm" | "paged_attn").
+# name -> op family ("gemm" | "paged_attn" | "flash_attn").
 BACKEND_OPS: dict[str, str] = {
     "matmul": "gemm",
     "cuda": "gemm",
@@ -128,6 +147,8 @@ BACKEND_OPS: dict[str, str] = {
     "torch_ref_lean": "gemm",
     "paged_attn_torch": "paged_attn",
     "paged_attn_cuda": "paged_attn",
+    "flash_attn_torch": "flash_attn",
+    "flash_attn_cuda": "flash_attn",
 }
 
 
@@ -150,6 +171,8 @@ PLAIN_TWIN: dict[str, str] = {
     "torch_ref_lean": "torch_ref_lean",
     "paged_attn_torch": "paged_attn_torch",
     "paged_attn_cuda": "paged_attn_torch",
+    "flash_attn_torch": "flash_attn_torch",
+    "flash_attn_cuda": "flash_attn_torch",
 }
 
 # Pipelined backend -> the shared-memory-lean variant of the same family.
@@ -194,7 +217,7 @@ def validate_registry() -> list[str]:
     """
 
     problems: list[str] = []
-    known_ops = {"gemm", "paged_attn"}
+    known_ops = {"gemm", "paged_attn", "flash_attn"}
     if set(BACKENDS) != set(BACKEND_OPS):
         problems.append(
             f"BACKENDS/BACKEND_OPS disagree: "
@@ -275,6 +298,21 @@ def resolve_paged_attn_backend(name: str) -> str:
     return name
 
 
+def resolve_flash_attn_backend(name: str, device) -> str:
+    """Collapse a full-sequence attention ``"auto"`` by where the tensors
+    lie (the kernel for CUDA tensors, ``chunked_attention`` for CPU ones);
+    validate the op family."""
+
+    if name == "auto":
+        return "flash_attn_cuda" if torch.device(device).type == "cuda" else "flash_attn_torch"
+    if backend_op(name) != "flash_attn":
+        raise ValueError(
+            f"backend {name!r} is a {BACKEND_OPS[name]!r} kernel, not a "
+            f"full-sequence attention kernel"
+        )
+    return name
+
+
 def dispatch_gemm(a2, b, *, config=None, backend: str = "auto", out_dtype=None):
     """Route a 2-D GEMM through the backend table (the kernels' funnel)."""
 
@@ -290,6 +328,15 @@ def dispatch_paged_attention(
     return BACKENDS[resolve_paged_attn_backend(backend)](
         q, pages_k, pages_v, page_table, pos
     )
+
+
+def dispatch_flash_attention(
+    q, k, v, *, causal: bool = True, window=None, scale=None, backend: str = "auto"
+):
+    """Route a full-sequence (prefill / scoring) attention call through the
+    backend table."""
+
+    return BACKENDS[resolve_flash_attn_backend(backend, q.device)](q, k, v, causal, window, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +523,7 @@ __all__ = [
     "context_for_tree",
     "current_context",
     "default_context",
+    "dispatch_flash_attention",
     "dispatch_gemm",
     "dispatch_paged_attention",
     "dtype_name_for_bytes",
@@ -483,6 +531,7 @@ __all__ = [
     "plain_twin",
     "resolve_backend",
     "resolve_block_config",
+    "resolve_flash_attn_backend",
     "resolve_paged_attn_backend",
     "tuned_block_config",
     "tuned_kernel_backend",

@@ -1,0 +1,91 @@
+"""Scoring CLI: the full-sequence forward on random prompts.
+
+A thin CLI over ``model_zoo.make_prefill_fn`` (logits-only prefill) and
+``model_zoo.make_loss_fn`` (the eval loss of each prompt's next tokens),
+under the big class's control tree.  On the CUDA card every GEMM runs
+the class's kernel and every layer's attention ``flash_attention_cuda``;
+``--device cpu`` runs the kernels' plain versions and ``chunked_attention``.
+Weights are random, from ``--seed``.
+
+Example (one H100)::
+
+    PYTHONPATH=src python -m repro_torch.launch.score --arch minitron-4b \\
+        --batch 2 --seq-len 2048
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import execution as X
+from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+from repro_torch.models import model_zoo as Z
+from repro_torch.runtime.serving import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="minitron-4b")
+    ap.add_argument("--reduced", action="store_true", help="the config's tiny CPU-test variant")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq-len", type=int, default=2048)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def score(args, *, params=None) -> dict:
+    """One forward and one eval loss from parsed CLI ``args``; returns the
+    JSON summary.  ``params`` defaults to the random weights of ``--seed``."""
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if params is None:
+        params = Z.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    rng = np.random.default_rng(args.seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(args.batch, args.seq_len + 1),
+                                        dtype=np.int32), device=device)
+    ctx = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    with ctx:
+        _sync(device)
+        t0 = time.perf_counter()
+        logits = Z.make_prefill_fn(cfg)(params, {"tokens": toks[:, :-1]})
+        _sync(device)
+        forward_s = time.perf_counter() - t0
+        loss, metrics = Z.make_loss_fn(cfg)(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return {
+        "arch": cfg.name,
+        "exec_backend": ctx.backend(),
+        "attn_backend": X.resolve_flash_attn_backend("auto", device),
+        "batch": args.batch,
+        "seq_len": args.seq_len,
+        "logits": list(logits.shape),
+        "forward_s": round(forward_s, 4),
+        "tokens_per_s": round(args.batch * args.seq_len / forward_s, 1),
+        "loss": float(loss),
+        "ce": float(metrics["ce"]),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+
+
+def main(argv=None) -> dict:
+    summary = score(build_parser().parse_args(argv))
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

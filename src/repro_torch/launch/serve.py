@@ -47,7 +47,7 @@ def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda")
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(device)
     b, plen = prompts.shape
     decode = Z.make_decode_fn(cfg)
-    prefill = Z.make_prefill_fn(cfg)
+    prefill = Z.make_prefill_fn(cfg, with_cache=True)
     state = Z.init_decode_state(cfg, b, seq_cap, device=device)
 
     with torch.no_grad():

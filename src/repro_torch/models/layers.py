@@ -1,6 +1,7 @@
 """Shared neural-net layers (plain functions on tensors, explicit params).
 
-The port's counterpart of ``repro.models.layers`` (its decode half).
+The port's counterpart of ``repro.models.layers``: the full-sequence
+attention of the prefill / scoring forward and the decode attention.
 Conventions, as in the reference:
 
   * projection weights keep the JAX ``(in, out)`` layout, because the
@@ -78,8 +79,70 @@ def rope(x, positions, theta: float = 10000.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention (decode)
+# Attention
 # ---------------------------------------------------------------------------
+
+
+def repeat_kv(k, n_rep: int):
+    """(B, S, Hkv, D) -> (B, S, Hkv * n_rep, D), each KV head repeated for
+    the query heads of its group."""
+
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                      q_chunk: int = 512, scale: Optional[float] = None):
+    """GQA-native attention, chunked over queries (scores <= q_chunk x Sk).
+
+    The reference's portable path, op for op: q, k, v rounded to bf16, fp32
+    scores, ``-1e30`` masking, an fp32 softmax normalised *before* the
+    probabilities are rounded to bf16 for ``p · V`` (the kernel normalises
+    after, so the two differ by bf16 rounding), output in q's dtype.
+    q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D); queries are the suffix of
+    the keys.  With a causal window each q-chunk reads only the trailing
+    ``q_chunk + window`` keys it can see.
+    """
+
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q_chunk = min(q_chunk, sq)
+    n_chunks = -(-sq // q_chunk)
+    kT = k.permute(0, 2, 3, 1).to(COMPUTE_DTYPE).float()  # (B, Hkv, D, Sk)
+    vT = v.permute(0, 2, 1, 3).to(COMPUTE_DTYPE).float()  # (B, Hkv, Sk, D)
+    span = min(sk, q_chunk + window) if window is not None and causal else sk
+    neg = torch.full((), -1e30, device=q.device)
+
+    outs = []
+    for i in range(n_chunks):
+        qc = q[:, i * q_chunk:(i + 1) * q_chunk]
+        n = qc.shape[1]
+        if n < q_chunk:  # the reference pads the last chunk with zero queries
+            qc = F.pad(qc, (0, 0, 0, 0, 0, q_chunk - n))
+        qc = qc.reshape(b, q_chunk, hkv, g, d).permute(0, 2, 3, 1, 4).to(COMPUTE_DTYPE).float()
+        q_idx = (sk - sq) + i * q_chunk + torch.arange(q_chunk, device=q.device)
+        if span < sk:
+            start = min(max((sk - sq) + i * q_chunk + q_chunk - span, 0), sk - span)
+            kc, vc = kT[..., start:start + span], vT[:, :, start:start + span]
+            k_idx = start + torch.arange(span, device=q.device)
+        else:
+            kc, vc = kT, vT
+            k_idx = torch.arange(sk, device=q.device)
+        s = torch.einsum("bhgqd,bhds->bhgqs", qc, kc) * scale
+        mask = torch.ones((q_chunk, span), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_idx[:, None] >= k_idx[None, :]
+        if window is not None:
+            mask &= (q_idx[:, None] - k_idx[None, :]) < window
+        s = torch.where(mask, s, neg)
+        p = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE).float()
+        o = torch.einsum("bhgqs,bhsd->bhgqd", p, vc)  # (B, Hkv, G, qc, D)
+        outs.append(o.to(q.dtype).permute(0, 3, 1, 2, 4)[:, :n])
+    return torch.cat(outs, dim=1).reshape(b, sq, hq, d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +153,7 @@ class AttnConfig:
     d_head: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    window: Optional[int] = None      # sliding-window attention (not ported yet)
+    window: Optional[int] = None      # sliding window (forward only: ring decode is not ported)
     causal: bool = True
     use_rope: bool = True
 
@@ -125,6 +188,25 @@ def _qkv(p, x, cfg: AttnConfig, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def apply_attention(p, x, cfg: AttnConfig, *, positions=None, backend: str = "auto"):
+    """Full-sequence attention (prefill / scoring / eval). x: (B, S, D).
+
+    The attention itself routes through ``execution.dispatch_flash_attention``:
+    ``"auto"`` launches ``flash_attention_cuda`` for CUDA tensors and runs
+    :func:`chunked_attention` for CPU tensors.  Returns ``(out, (k, v))``.
+    """
+
+    from repro_torch.core.execution import dispatch_flash_attention
+
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = dispatch_flash_attention(q, k, v, causal=cfg.causal, window=cfg.window, backend=backend)
+    o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
+    return ops.linear(o, _w(p["wo"])), (k, v)
 
 
 def _per_row(pos, b: int, device) -> torch.Tensor:
@@ -239,13 +321,16 @@ __all__ = [
     "COMPUTE_DTYPE",
     "PARAM_DTYPE",
     "AttnConfig",
+    "apply_attention",
     "apply_glu",
+    "chunked_attention",
     "decode_attention",
     "decode_attention_paged",
     "dense_init",
     "embed_init",
     "init_attention",
     "init_glu",
+    "repeat_kv",
     "rms_norm",
     "rope",
 ]

@@ -1,9 +1,17 @@
-"""Family dispatch (the port's ``repro.models.model_zoo``), decode half.
+"""Family dispatch (the port's ``repro.models.model_zoo``), dense family.
 
   * ``init_params(cfg, generator, device)``
+  * ``make_loss_fn(cfg)``        -> (params, batch) -> (loss, metrics), no gradient
+  * ``make_prefill_fn(cfg)``     -> (params, batch) -> logits
+    (``with_cache=True``: the bulk prefill from decode,
+    (params, batch, state, pos0) -> (last_logits, state))
   * ``make_decode_fn(cfg)``      -> (params, batch, state, pos) -> (logits, state)
   * ``bulk_prefill_from_decode(decode_fn)`` -> the prompt-consuming prefill
   * ``init_decode_state(cfg, batch, seq_len, device=...)`` and its paged twin
+
+``make_prefill_fn``'s ``attn_backend`` names the forward's attention route
+(``"auto"``: the CUDA kernel for tensors on a card, ``chunked_attention``
+for tensors on the CPU).
 """
 
 from __future__ import annotations
@@ -63,11 +71,36 @@ def make_decode_fn(cfg: ArchConfig):
     return f
 
 
-def make_prefill_fn(cfg: ArchConfig):
-    """The prefill the serving stack uses: the bulk prefill over
-    :func:`make_decode_fn` (the reference's ``with_cache=True`` form)."""
+def make_loss_fn(cfg: ArchConfig):
+    """The eval loss, ``(params, batch) -> (loss, {"ce", "aux"})``, under
+    ``torch.inference_mode()``: no gradient (training is not ported yet)."""
 
-    return bulk_prefill_from_decode(make_decode_fn(cfg))
+    def f(params, batch):
+        with torch.inference_mode():
+            return T.loss_fn(params, cfg, batch)
+
+    return f
+
+
+def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: str = "auto"):
+    """Prefill forward.
+
+    ``with_cache=False`` (default): the full-sequence forward,
+    ``(params, batch) -> logits`` — logits-only prefill (scoring).
+
+    ``with_cache=True``: the bulk prefill the serving stack uses,
+    ``(params, batch, state, pos0) -> (last_logits, state)``, a loop of
+    :func:`make_decode_fn` steps (see :func:`bulk_prefill_from_decode`).
+    """
+
+    if with_cache:
+        return bulk_prefill_from_decode(make_decode_fn(cfg))
+
+    def f(params, batch):
+        with torch.inference_mode():
+            return T.prefill(params, cfg, batch, attn_backend=attn_backend)
+
+    return f
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
@@ -88,5 +121,6 @@ __all__ = [
     "init_decode_state_paged",
     "init_params",
     "make_decode_fn",
+    "make_loss_fn",
     "make_prefill_fn",
 ]

@@ -1,11 +1,13 @@
-"""Decoder-only LM, dense family, decode path (the port's ``repro.models.transformer``).
+"""Decoder-only LM, dense family (the port's ``repro.models.transformer``).
 
-Layer params are stacked along a leading ``L`` axis, as in the reference;
-where the reference scans over that axis, the port loops over it.  Decode
-caches are written in place (dense ``(L, B, S_cache, Hkv, Dh)`` lanes or
-paged ``(L, n_pages, page_size, Hkv, Dh)`` arenas).  The MoE, SSM and
-hybrid families, the training forward and sliding-window decode follow
-in later slices.
+Two paths: the full-sequence forward (prefill logits, scoring, the eval
+loss; no gradient yet) and the decode step.  Layer params are stacked
+along a leading ``L`` axis, as in the reference; where the reference scans
+over that axis, the port loops over it (no remat: nothing is kept for a
+backward pass).  Decode caches are written in place (dense ``(L, B,
+S_cache, Hkv, Dh)`` lanes or paged ``(L, n_pages, page_size, Hkv, Dh)``
+arenas).  The MoE, SSM and hybrid families, training and sliding-window
+ring decode are not ported yet.
 """
 
 from __future__ import annotations
@@ -96,6 +98,93 @@ def layer_params(blocks, i: int):
 
 
 # ---------------------------------------------------------------------------
+# Forward (prefill / scoring / eval)
+# ---------------------------------------------------------------------------
+
+
+def _apply_attn_block(p, x, cfg: ArchConfig, positions, *, attn_backend: str = "auto"):
+    h, kv = L.apply_attention(p["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), attn_config(cfg),
+                              positions=positions, backend=attn_backend)
+    x = x + h
+    h = L.apply_glu(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + h, kv
+
+
+def _layer_fn(cfg: ArchConfig, kind: str, positions, *, attn_backend: str = "auto"):
+    """One layer's body, ``(x, p) -> x``; the dense family's blocks carry
+    no auxiliary loss (the reference's MoE router loss arrives with MoE)."""
+
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"{cfg.name}: the {kind!r} block is not ported yet")
+
+    def f(x, p):
+        return _apply_attn_block(p, x, cfg, positions, attn_backend=attn_backend)[0]
+
+    return f
+
+
+def _cast_params(tree):
+    """The reference's compute cast: every fp32 leaf to bf16 (norm weights
+    and qkv biases too), as its forward does before the layers run."""
+
+    if isinstance(tree, dict):
+        return {k: _cast_params(v) for k, v in tree.items()}
+    return tree.to(L.COMPUTE_DTYPE) if tree.dtype == torch.float32 else tree
+
+
+def forward_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto"):
+    """Returns ``(logits (B, S, V) bf16, aux_loss)``; ``batch["tokens"]``
+    is (B, S).  ``attn_backend`` names the attention route (an
+    ``execution.BACKENDS`` entry of the ``flash_attn`` family)."""
+
+    _require_dense(cfg)
+    x = embed_tokens(params, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    body = _layer_fn(cfg, block_kind(cfg), positions, attn_backend=attn_backend)
+    blocks = _cast_params(params["blocks"])
+    for i in range(cfg.n_layers):
+        x = body(x, layer_params(blocks, i))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean softmax cross-entropy in fp32 over (B, S, V) logits.
+
+    The reference sums ``shifted * one_hot(labels)`` so that the vocab axis
+    stays sharded; on one card a gather reads the same element (every other
+    term of that sum is an exact zero) without a (B, S, V) one-hot.
+    """
+
+    lf = logits.float()
+    shifted = lf - lf.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    ll = shifted.gather(-1, labels.long()[..., None])[..., 0] - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """``(loss, {"ce", "aux"})`` on ``batch["tokens"]`` against
+    ``batch["labels"]`` (optionally weighted by ``batch["mask"]``)."""
+
+    logits, aux = forward_lm(params, cfg, batch)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def prefill(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto"):
+    """Full-sequence inference forward; returns the logits."""
+
+    logits, _ = forward_lm(params, cfg, batch, attn_backend=attn_backend)
+    return logits
+
+
+# ---------------------------------------------------------------------------
 # Decode (serve_step)
 # ---------------------------------------------------------------------------
 
@@ -176,10 +265,14 @@ __all__ = [
     "attn_config",
     "block_kind",
     "cache_len",
+    "cross_entropy",
     "decode_step",
     "embed_tokens",
+    "forward_lm",
     "init_decode_state",
     "init_decode_state_paged",
     "init_lm",
     "layer_params",
+    "loss_fn",
+    "prefill",
 ]

@@ -11,7 +11,9 @@ JAX package, so it also runs on a machine with only PyTorch and ``nvcc``;
 Tolerances: bf16 outputs rtol = atol = 2e-2 and fp32 outputs 1e-4, as in
 ``tests/test_backend_parity.py`` (the kernels and the plain versions both
 accumulate in fp32, in other orders).  The lean GEMM equals the pipelined
-one bitwise at equal blocks.
+one bitwise at equal blocks.  Flash attention is held to its plain version
+at the bf16 tolerance: both round ``p`` to bf16 before ``p · V`` and sum in
+fp32, in other orders.
 """
 
 import math
@@ -19,9 +21,14 @@ import math
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.core import execution as X
 from repro_torch.core.blocking import BlockConfig
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.runtime.paging import SENTINEL
 
 BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -110,3 +117,69 @@ def test_cuda_paged_attention_matches_plain(cuda, ps, w):
     assert PA.LAUNCHES["paged_attention_cuda"] == 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     torch.testing.assert_close(got.float(), PA.paged_attention_torch(q, pk, pv, table, pos).float(), **BF16)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, causal, window): the forward's layer shape at full
+# width of minitron-4b, a ragged suffix, a window, a non-causal call, and
+# small heads.
+FLASH_CASES = [
+    (2, 2048, 2048, 24, 8, 128, True, None),
+    (2, 100, 300, 24, 8, 128, True, None),
+    (1, 1000, 1000, 24, 8, 128, True, 256),
+    (2, 300, 300, 24, 8, 128, False, None),
+    (3, 77, 77, 4, 2, 16, True, None),
+    (1, 130, 200, 6, 2, 64, False, 50),
+    (1, 64, 64, 2, 2, 256, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_attention_matches_plain(cuda, case):
+    b, sq, sk, hq, hkv, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, hkv, d), generator=gen, device=cuda).bfloat16()
+    FA.reset_launches()
+    got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_cuda"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = FA.flash_attention_torch(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_cannot_run(cuda):
+    q = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        FA.flash_attention_cuda(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="suffix"):
+        FA.flash_attention_cuda(q, q[:, :4], q[:, :4], causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_cuda(q[..., :12], q[..., :12], q[..., :12])
+    with pytest.raises(ValueError, match="CUDA device"):
+        FA.flash_attention_cuda(q, q.cpu(), q.cpu())
+    assert X.resolve_flash_attn_backend("auto", q.device) == "flash_attn_cuda"
+
+
+@pytest.mark.cuda
+def test_full_width_layer_attention_launches_the_kernel_once(cuda):
+    """One layer of minitron-4b at full width (24 query heads over 8 KV
+    heads of 128) on a 256-token sequence: its attention is one launch."""
+
+    cfg = get_config("minitron-4b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    acfg = T.attn_config(cfg)
+    p = L.init_attention(gen, acfg, device=cuda)
+    x = (torch.randn((1, 256, cfg.d_model), generator=gen, device=cuda)).bfloat16()
+    FA.reset_launches()
+    with torch.no_grad():
+        out, (k, _) = L.apply_attention(p, x, acfg)
+        plain, _ = L.apply_attention(p, x, acfg, backend="flash_attn_torch")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_cuda"] == 1
+    assert out.shape == x.shape and tuple(k.shape) == (1, 256, 8, 128)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), plain.float(), **BF16)

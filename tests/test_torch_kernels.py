@@ -91,6 +91,25 @@ def test_gemm_plain_versions_match_pallas_interpret(shape, block, dt):
     _close(R.gemm_ref(ta, tb), JR.gemm_ref(ja, jb), dt)
 
 
+@pytest.mark.parametrize("goto", [(152, 952, 4096, 4, 4), (32, 40, 24, 4, 4), (8, 16, 12, 2, 3)],
+                         ids=lambda v: "x".join(map(str, v)))
+def test_blocked_gemm_ref_matches_reference(goto):
+    """The paper's Figure 1 loop nest: the same numpy loops in both
+    packages, so equal bitwise; and within fp32 rounding of one product."""
+
+    from repro.core.blocking import GotoBlocking as JGoto
+    from repro_torch.core.blocking import GotoBlocking
+
+    mc, kc, nc, mr, nr = goto
+    rng = np.random.default_rng(mc + kc)
+    a = rng.normal(size=(70, 90)).astype(np.float32)
+    b = rng.normal(size=(90, 50)).astype(np.float32)
+    got = R.blocked_gemm_ref(a, b, GotoBlocking(mc=mc, kc=kc, nc=nc, mr=mr, nr=nr))
+    want = JR.blocked_gemm_ref(a, b, JGoto(mc=mc, kc=kc, nc=nc, mr=mr, nr=nr))
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+    np.testing.assert_allclose(got, a @ b, **TOLS["float32"])
+
+
 @pytest.mark.parametrize("shape,block", GEMM_CASES, ids=lambda v: "x".join(map(str, v)))
 def test_lean_equals_pipelined_bitwise_at_equal_blocks(shape, block):
     m, k, n = shape
