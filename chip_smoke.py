@@ -10,12 +10,18 @@ Phases (any failed check exits non-zero and prints no result line):
   0. setup — the card's name and power limit, torch/CUDA versions, and the
      build of every kernel under ``src/repro_torch/csrc`` (gemm,
      paged_attention, flash_attention: one ``nvcc`` per source, all
-     started together);
+     started together); ``cuobjdump -sass`` must find the tensor cores'
+     instructions in the built libraries: ``HGMMA`` (wgmma) in the GEMM's,
+     ``HMMA`` (mma.sync) in flash attention's;
   1. kernels vs their plain PyTorch versions at the main paths' shapes
-     (bf16; tolerance below), the lean GEMM bitwise equal to the pipelined
-     one at equal blocks, each timed with CUDA events beside its plain
-     version, its bound and the library call (``torch.matmul`` for the
-     GEMMs, ``scaled_dot_product_attention`` for flash attention);
+     (bf16; tolerances below; flash attention's rows also in L2), the lean
+     GEMM bitwise equal to the pipelined one at equal blocks (at every GEMM
+     shape), each timed with CUDA events beside its plain version, its
+     bound and the library call (``torch.matmul`` for the GEMMs,
+     ``scaled_dot_product_attention`` for flash attention); at the
+     forward's GEMM shapes also the one-stage kernel at its own block (what
+     the ring buys), and at the decode shapes the host's microseconds a
+     GEMM call beside ``torch.matmul``'s;
   2. the dense serving engine on the full-width 24-layer internlm2-1.8b
      (random weights from a fixed seed), through ``repro_torch.launch.serve``:
      every GEMM of the decode recurrence must launch ``gemm_cuda``;
@@ -72,6 +78,11 @@ FP32_TOL = 1e-4
 # output, which 32 layers of bf16 residual stream carry to the logits
 # (standard deviation near 1.1 at minitron-4b's width).
 LOGIT_TOL = 0.25
+# Flash attention's rows, in L2 relative to the row's own norm: late causal
+# rows average up to 2048 values of v down to a few hundredths, where
+# BF16_TOL's absolute 0.02 is wide; a row that lost a key block moves by
+# tens of percent, the kernel's own rounding by well under one.
+FLASH_ROW_TOL = 2e-2
 
 PEAK_BF16 = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 HBM_BW = 3.35e12     # bytes/s, H100 SXM data sheet
@@ -117,6 +128,28 @@ def time_ms(torch, fn, args_list, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, args, calls: int = 200) -> float:
+    """Host microseconds per call: back-to-back calls on the host clock,
+    before the card is waited on (at decode shapes each kernel is shorter
+    than its call, so the launch queue stays short)."""
+
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def row_rel_err(got, ref) -> float:
+    """The largest ``|got - ref| / |ref|`` over the rows (last axis) in L2."""
+
+    diff = (got.float() - ref.float()).norm(dim=-1)
+    return float((diff / ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def within(torch, got, ref, tol: float) -> tuple[bool, float]:
     g, r = got.float(), ref.float()
     err = (g - r).abs()
@@ -144,7 +177,18 @@ def phase0(torch):
     for name, log in logs.items():
         with open(os.path.join(OUT_DIR, f"nvcc_{name}.log"), "w") as f:
             f.write(log)
-    return card
+    # The redesigned kernels must reach the tensor cores: wgmma compiles to
+    # HGMMA, mma.sync to HMMA.
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass_counts = {}
+    for name, ins in (("gemm", "HGMMA"), ("flash_attention", "HMMA")):
+        sass = subprocess.run([cuobjdump, "-sass", build.library_path(name)],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass {name} failed: {sass.stderr.strip()[-500:]}")
+        sass_counts[name] = {ins: sass.stdout.count(ins)}
+        check(sass_counts[name][ins] > 0, f"no {ins} instruction in the {name} library")
+    print(f"phase 0: tensor-core instructions in the SASS {sass_counts}", flush=True)
+    return card, sass_counts
 
 
 def phase1(torch, detail: dict) -> dict:
@@ -184,7 +228,7 @@ def phase1(torch, detail: dict) -> dict:
         ("gemm_cuda_lean", little, G.gemm_cuda_lean, G.gemm_lean_plain),
     ):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "bytes_s": 0.0, "ops_s": 0.0}
+               "bytes_s": 0.0, "ops_s": 0.0, "host_ms": 0.0, "library_host_ms": 0.0}
         max_err = 0.0
         for (k, n), count in step_shapes:
             cfgb = ctx.block_config(m, k, n, "bfloat16", 2)
@@ -200,18 +244,26 @@ def phase1(torch, detail: dict) -> dict:
             t_k = time_ms(torch, lambda x, y: fn(x, y, cfgb), [(a, b) for b in bs], iters)
             t_p = time_ms(torch, lambda x, y: plain(x, y, cfgb), [(a, b) for b in bs], max(3, iters // 5))
             t_l = time_ms(torch, torch.matmul, [(a, b) for b in bs], iters)
+            h_k = host_us(torch, lambda x, y: fn(x, y, cfgb), (a, bs[0]))
+            h_l = host_us(torch, torch.matmul, (a, bs[0]))
             n_bytes = (m * k + k * n + m * n) * 2
             b_ms, by = bound_ms(n_bytes, 2 * m * k * n)
             rows.append({"kernel": name, "shape": [m, k, n], "block": [cfgb.bm, cfgb.bk, cfgb.bn],
                          "calls_per_step": count, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                         "host_us": h_k, "library_host_us": h_l,
                          "bound_ms": b_ms, "bound_by": by, "max_abs_err": err})
             print(f"  {name} {m}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: err {err:.3g} "
-                  f"kernel {t_k:.4f} ms plain {t_p:.4f} matmul {t_l:.4f} bound {b_ms:.4f} ({by})",
-                  flush=True)
-            for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+                  f"kernel {t_k:.4f} ms plain {t_p:.4f} matmul {t_l:.4f} bound {b_ms:.4f} ({by}); "
+                  f"host {h_k:.1f} us a call, matmul {h_l:.1f} us", flush=True)
+            for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms),
+                             ("host_ms", h_k / 1e3), ("library_host_ms", h_l / 1e3)):
                 tot[key] += count * val
             tot["bytes_s"] += count * n_bytes / HBM_BW
             tot["ops_s"] += count * 2 * m * k * n / PEAK_BF16
+        print(f"  {name} over one decode step ({sum(c for _, c in step_shapes)} GEMMs): kernel "
+              f"{tot['ms']:.2f} ms, matmul {tot['library_ms']:.2f} ms; host {tot['host_ms']:.2f} ms, "
+              f"matmul's {tot['library_host_ms']:.2f} ms", flush=True)
+        detail[f"{name}_decode_step"] = tot
         records[name] = {
             "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
@@ -243,7 +295,7 @@ def phase1(torch, detail: dict) -> dict:
     fcfg = get_config(FWD_ARCH)
     fm, fd, ff, fl = FWD_BATCH * FWD_SEQ, fcfg.d_model, fcfg.d_ff, fcfg.n_layers
     fq, fkv = fcfg.n_heads * fcfg.head_dim, fcfg.n_kv_heads * fcfg.head_dim
-    fwd = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    fwd = {"ms": 0.0, "lean_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for (k, n), count in (((fd, fq), fl), ((fd, fkv), 2 * fl), ((fq, fd), fl),
                           ((fd, ff), 2 * fl), ((ff, fd), fl), ((fd, fcfg.vocab), 1)):
         cfgb = big.block_config(fm, k, n, "bfloat16", 2)
@@ -252,28 +304,42 @@ def phase1(torch, detail: dict) -> dict:
         torch.cuda.synchronize()
         ok, err = within(torch, got, torch.matmul(a.float(), bs[0].float()), BF16_TOL)
         check(ok, f"gemm_cuda {fm}x{k}x{n} {cfgb}: max err {err} over tol {BF16_TOL}")
+        check(torch.equal(got, G.gemm_cuda_lean(a, bs[0], cfgb)),
+              f"lean != pipelined bitwise at {fm}x{k}x{n} {cfgb}")
+        # The one-stage kernel at the block its model derives: what the
+        # ring of PIPELINE_STAGES buys at these shapes.
+        lean_blk = G.resolve_block_config(fm, k, n, torch.bfloat16, stages=1)
+        ok, lean_err = within(torch, G.gemm_cuda_lean(a, bs[0], lean_blk),
+                              torch.matmul(a.float(), bs[0].float()), BF16_TOL)
+        check(ok, f"gemm_cuda_lean {fm}x{k}x{n} {lean_blk}: max err {lean_err} over tol {BF16_TOL}")
         iters = 2 if n > 50000 else 5
         t_k = time_ms(torch, lambda x, y: G.gemm_cuda(x, y, cfgb), [(a, b) for b in bs], iters, 1)
+        t_one = time_ms(torch, lambda x, y: G.gemm_cuda_lean(x, y, lean_blk), [(a, b) for b in bs], iters, 1)
         t_l = time_ms(torch, torch.matmul, [(a, b) for b in bs], iters, 1)
         b_ms, by = bound_ms((fm * k + k * n + fm * n) * 2, 2 * fm * k * n)
         rows.append({"kernel": "gemm_cuda", "shape": [fm, k, n], "block": [cfgb.bm, cfgb.bk, cfgb.bn],
                      "calls_per_forward": count, "ms": t_k, "library_ms": t_l, "bound_ms": b_ms,
-                     "bound_by": by, "max_abs_err": err})
+                     "bound_by": by, "max_abs_err": err,
+                     "lean_block": [lean_blk.bm, lean_blk.bk, lean_blk.bn], "lean_ms": t_one})
         print(f"  gemm_cuda forward {fm}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: err {err:.3g} "
-              f"kernel {t_k:.4f} ms matmul {t_l:.4f} bound {b_ms:.4f} ({by})", flush=True)
-        for key, val in (("ms", t_k), ("library_ms", t_l), ("bound_ms", b_ms)):
+              f"kernel {t_k:.4f} ms (one stage at {lean_blk.bm}x{lean_blk.bk}x{lean_blk.bn}: "
+              f"{t_one:.4f}) matmul {t_l:.4f} bound {b_ms:.4f} ({by})", flush=True)
+        for key, val in (("ms", t_k), ("lean_ms", t_one), ("library_ms", t_l), ("bound_ms", b_ms)):
             fwd[key] += count * val
         del a, bs, got
     detail["gemm_cuda_forward"] = fwd
-    print(f"  gemm_cuda over one {FWD_ARCH} forward ({7 * fl + 1} GEMMs): kernel {fwd['ms']:.1f} ms, "
-          f"matmul {fwd['library_ms']:.1f} ms, bound {fwd['bound_ms']:.1f} ms", flush=True)
+    print(f"  gemm_cuda over one {FWD_ARCH} forward ({7 * fl + 1} GEMMs): kernel {fwd['ms']:.1f} ms "
+          f"(one stage {fwd['lean_ms']:.1f} ms), matmul {fwd['library_ms']:.1f} ms, "
+          f"bound {fwd['bound_ms']:.1f} ms", flush=True)
 
     # fp32 output of the pipelined kernel at one decode shape.
     cfgb = big.block_config(m, d, d, "bfloat16", 2)
     a, bs = operands(m, d, d)
-    ok, err = within(torch, G.gemm_cuda(a, bs[0], cfgb, out_dtype=torch.float32),
-                     G.gemm_plain(a, bs[0], cfgb, out_dtype=torch.float32), FP32_TOL)
+    got = G.gemm_cuda(a, bs[0], cfgb, out_dtype=torch.float32)
+    ok, err = within(torch, got, G.gemm_plain(a, bs[0], cfgb, out_dtype=torch.float32), FP32_TOL)
     check(ok, f"gemm_cuda fp32 output: max err {err} over tol {FP32_TOL}")
+    check(torch.equal(got, G.gemm_cuda_lean(a, bs[0], cfgb, out_dtype=torch.float32)),
+          "lean != pipelined bitwise in fp32")
     print(f"  gemm_cuda fp32 out {m}x{d}x{d}: err {err:.3g}", flush=True)
 
     # Paged attention at the paged engine's shapes (phase 3).
@@ -359,6 +425,9 @@ def phase1_flash(torch, detail: dict) -> dict:
         torch.cuda.synchronize()
         ok, err = within(torch, got, ref, BF16_TOL)
         check(ok and got.shape == q.shape, f"flash_attention_cuda {label}: max err {err} over tol {BF16_TOL}")
+        row_err = row_rel_err(got, ref)
+        check(row_err <= FLASH_ROW_TOL,
+              f"flash_attention_cuda {label}: a row off by {row_err:.3g} of its norm, over {FLASH_ROW_TOL}")
         t_k = time_ms(torch, kern, [(q, k, v)], 10)
         t_p = time_ms(torch, plain, [(q, k, v)], 3)
         # The library's call on its own (B, H, S, D) layout; its causal mask
@@ -384,10 +453,11 @@ def phase1_flash(torch, detail: dict) -> dict:
         row = {"kernel": "flash_attention_cuda", "label": label, "shape": [b, sq, sk, hq, hkv, d],
                "causal": causal, "window": window, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": by,
-               "visible_pairs": pairs, "max_abs_err": err}
+               "visible_pairs": pairs, "max_abs_err": err, "max_row_rel_err": row_err}
         rows.append(row)
         print(f"  flash_attention_cuda {label} B={b} Sq={sq} Sk={sk} H={hq}/{hkv} D={d} "
-              f"causal={causal} window={window}: err {err:.3g} kernel {t_k:.4f} ms plain {t_p:.4f} "
+              f"causal={causal} window={window}: err {err:.3g} (row {row_err:.3g}) kernel {t_k:.4f} ms "
+              f"plain {t_p:.4f} "
               f"sdpa {t_l:.4f} (err {lib_err:.3g}) bound {b_ms:.4f} ({by})", flush=True)
         if label == "layer":
             record = row
@@ -643,7 +713,7 @@ def main() -> None:
     from repro_torch.kernels import paged_attention as PA
 
     detail: dict = {}
-    card = phase0(torch)
+    card, detail["sass"] = phase0(torch)
     detail["card"] = card
 
     print("phase 1: kernels vs plain versions (bf16 tol "
@@ -757,6 +827,9 @@ def main() -> None:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "per": per[name],
         })
     kernels[0]["launches_forward"] = fwd["launches_5_forwards"]["gemm_cuda"]
+    for row in kernels:  # the kernels moved to the tensor cores (wgmma + TMA, mma.sync)
+        if row["name"] != "paged_attention_cuda":
+            row["redesigned_in"] = 13
     detail["engines"] = {"dense": s2, "paged": s3, "one_shot_little": s4,
                          "paged_vs_dense_logit_diff": dlog, "paged_token_agreement": agree,
                          "little_token_agreement": agree4, "replay_logit_diff": replay}

@@ -7,11 +7,16 @@ NVIDIA H100 instead of a TPU core:
 
   * the fast memory a block's staged A/B tiles live in is the SM's
     shared memory (232,448 bytes a block can claim), not 16 MiB of VMEM;
-  * the fp32 accumulator lives in registers, so it is checked against a
+    TMA writes the tiles in the 128-byte swizzle that ``wgmma`` reads
+    without bank conflicts, so a stage is exactly its A and B tiles plus
+    a full and an empty ``mbarrier``, with no padding;
+  * the fp32 accumulator lives in the registers of the consumer
+    warpgroups (one per 64 rows of the tile), so it is checked against a
     per-thread register budget instead of the fast-memory budget;
   * the Pallas pipeline's double-buffered BlockSpec staging becomes a
-    ``stages``-deep ``cp.async`` ring (2 for the pipelined kernel, 1 for
-    the lean kernel);
+    ``stages``-deep TMA ring (``PIPELINE_STAGES`` = 4 for the pipelined
+    kernel, 1 for the lean kernel), in depth slices ``bk`` that are whole
+    64-value swizzle rows;
   * blocks run in parallel on 132 SMs instead of in order on one core,
     so the derivation first fills one wave of SMs with output tiles and
     only then maximizes arithmetic intensity.
@@ -107,13 +112,17 @@ class HopperClassSpec:
     n_sm: int = 132
     regs_per_thread: int = 255
     regs_per_sm: int = 65_536
-    threads_per_block: int = 256       # the GEMM kernels' block size
-    acc_regs_per_thread: int = 64      # fp32 accumulator share of the 255
-    align: int = 16                    # tile alignment (mma/wgmma bf16 depth)
+    # The GEMM kernel's largest block: two consumer warpgroups (bm = 128)
+    # and one producer warpgroup.
+    threads_per_block: int = 384
+    # fp32 accumulators a consumer thread may hold: a 64 x 256 wgmma tile
+    # over 128 threads (the consumers raise their share to 232 registers).
+    acc_regs_per_thread: int = 128
+    align: int = 16                    # M/N alignment of the derivation's shape buckets
     peak_flops: float = 989e12         # dense bf16 tensor-core peak
     hbm_bw: float = 3.35e12
-    # Fraction of shared memory the A/B ring may claim (the rest holds the
-    # row padding slack and the driver's per-block reservation).
+    # Fraction of shared memory the A/B ring may claim (the rest is left
+    # to the driver's per-block reservation).
     smem_fill: float = 0.9
     power: PowerModel = HOPPER_POWER
 
@@ -180,23 +189,35 @@ class GotoBlocking:
         return self.kc * self.nr * dtype_bytes
 
 
-# Output-tile shapes the CUDA GEMM kernels are compiled for (one template
-# instance per pair); ``bk`` is a runtime multiple of ``align``.
-BM_TILES = (16, 32, 64, 128)
+# Output-tile shapes the CUDA GEMM kernel is compiled for (one template
+# instance per pair): bm is one or two 64-row wgmma warpgroups; bn a wgmma
+# width (32 and 64 keep the decode step's M = 12 tiles filling the SMs).
+BM_TILES = (64, 128)
 BN_TILES = (32, 64, 128, 256)
+# ``bk`` is a runtime multiple of one 128-byte swizzle row of bf16.
+BK_ALIGN = 64
 MAX_BK = 256
-# Shared-memory row padding of the A tile (elements): keeps the rows of
-# the staged A tile on different banks and 16-byte aligned for cp.async.
-A_ROW_PAD = 8
+# A full and an empty mbarrier (8 bytes each) guard every stage of the ring.
+BARRIER_BYTES = 16
+# Ring depth of the pipelined kernel: with four stages the producer's loads
+# run three stages ahead of the products, with two only one.  Every block
+# derived for the pipelined kernel fits four stages; a wider block derived
+# under the lean model runs the deepest ring of at least two that fits
+# (``kernels/gemm.ring_depth``).  ``chip_smoke.py`` phase 1 times the ring
+# against the one-stage kernel at the forward's shapes.
+PIPELINE_STAGES = 4
+WARPGROUP = 128       # threads of one warpgroup
+WGMMA_M = 64          # rows of one wgmma tile, one consumer warpgroup
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
     """CUDA GEMM block shapes (the Hopper analogue of ``GotoBlocking``).
 
-    Each block owns a ``bm x bn`` output tile, accumulated in fp32
-    registers, and streams K in ``bk`` slices: a ``bm x bk`` A tile and a
-    ``bk x bn`` B tile per stage of a ``cp.async`` ring in shared memory.
+    Each block owns a ``bm x bn`` output tile, accumulated in the fp32
+    registers of ``bm / 64`` consumer warpgroups, and streams K in ``bk``
+    slices: a ``bm x bk`` A tile and a ``bk x bn`` B tile per stage of a
+    TMA ring in shared memory.
     """
 
     bm: int
@@ -205,26 +226,36 @@ class BlockConfig:
     dtype_bytes: int = 2          # bf16 operands
     acc_bytes: int = 4            # fp32 accumulator
 
-    def smem_bytes(self, stages: int = 2) -> int:
-        """Shared memory of the staging ring: ``stages x (A + B)`` tiles
-        (the A tile with its bank-conflict row padding).  ``stages=1`` is
-        the lean kernel (``gemm_cuda_lean``), which stages one A/B pair at
-        a time — half the footprint, so larger (bm, bn) panels fit."""
+    def smem_bytes(self, stages: int = PIPELINE_STAGES) -> int:
+        """Shared memory of the staging ring: ``stages x (A + B)`` swizzled
+        tiles and each stage's two barriers.  ``stages=1`` is the lean
+        kernel (``gemm_cuda_lean``), which stages one A/B pair at a time —
+        half the footprint, so larger (bm, bn) panels fit."""
 
-        a = self.bm * (self.bk + A_ROW_PAD) * self.dtype_bytes
+        a = self.bm * self.bk * self.dtype_bytes
         b = self.bk * self.bn * self.dtype_bytes
-        return stages * (a + b)
+        return stages * (a + b + BARRIER_BYTES)
 
-    def acc_regs_per_thread(self, threads: int = H100.threads_per_block) -> int:
-        """fp32 accumulator registers each thread holds for the tile."""
+    def consumer_warpgroups(self) -> int:
+        return -(-self.bm // WGMMA_M)
 
-        return -(-self.bm * self.bn * self.acc_bytes // (4 * threads))
+    def threads(self) -> int:
+        """Threads of the kernel's block: the consumers and one producer
+        warpgroup."""
 
-    def fits(self, spec: HopperClassSpec = H100, *, stages: int = 2) -> bool:
+        return WARPGROUP * (self.consumer_warpgroups() + 1)
+
+    def acc_regs_per_thread(self) -> int:
+        """fp32 accumulator registers each consumer thread holds: its
+        warpgroup's 64 x bn share of the tile over 128 threads."""
+
+        return -(-self.bm * self.bn * self.acc_bytes // (4 * WARPGROUP * self.consumer_warpgroups()))
+
+    def fits(self, spec: HopperClassSpec = H100, *, stages: int = PIPELINE_STAGES) -> bool:
         return (
             self.smem_bytes(stages) <= spec.smem_bytes * spec.smem_fill
-            and self.acc_regs_per_thread(spec.threads_per_block)
-            <= spec.acc_regs_per_thread
+            and self.acc_regs_per_thread() <= spec.acc_regs_per_thread
+            and self.threads() <= spec.threads_per_block
         )
 
     def arithmetic_intensity(self) -> float:
@@ -329,7 +360,7 @@ def derive_block_config(
     spec: HopperClassSpec = H100,
     dtype_bytes: int = 2,
     max_bk: int = MAX_BK,
-    stages: int = 2,
+    stages: int = PIPELINE_STAGES,
 ) -> BlockConfig:
     """Pick ``(bm, bk, bn)`` for the CUDA GEMM kernels of one class.
 
@@ -342,17 +373,18 @@ def derive_block_config(
 
     ``bm``/``bn`` come from the compiled tile sets, clamped to the
     tile-rounded problem; ``bm x bn`` must keep its fp32 accumulator
-    within the per-thread register budget; ``bk`` is the largest aligned
-    depth whose ``stages``-deep ring fits the class's shared memory
-    (``stages=1`` derives for the lean kernel: the same budget admits a
-    deeper or wider panel).
+    within the consumer threads' register budget; ``bk`` is the largest
+    depth, in whole swizzle rows of ``BK_ALIGN`` values, whose
+    ``stages``-deep ring fits the class's shared memory (``stages=1``
+    derives for the lean kernel: the same budget admits a deeper or wider
+    panel).
     """
 
     budget = int(spec.smem_bytes * spec.smem_fill)
     align = spec.align
     pm = _round_up(m, align)
     pn = _round_up(n, align)
-    pk = _round_up(min(k, max_bk), align)
+    pk = _round_up(min(k, max_bk), BK_ALIGN)
 
     best: Optional[BlockConfig] = None
     best_key = None
@@ -361,10 +393,10 @@ def derive_block_config(
     for bm in reversed(bms):
         for bn in reversed(bns):
             per_k = stages * (bm + bn) * dtype_bytes
-            fixed = stages * bm * A_ROW_PAD * dtype_bytes
-            if fixed + per_k * align > budget:
+            fixed = stages * BARRIER_BYTES
+            if fixed + per_k * BK_ALIGN > budget:
                 continue
-            bk = _round_down(min(pk, (budget - fixed) // per_k), align)
+            bk = _round_down(min(pk, (budget - fixed) // per_k), BK_ALIGN)
             cfg = BlockConfig(bm=bm, bk=bk, bn=bn, dtype_bytes=dtype_bytes)
             if not cfg.fits(spec, stages=stages):
                 continue
@@ -384,10 +416,14 @@ def pad_to_blocks(m: int, k: int, n: int, cfg: BlockConfig) -> tuple[int, int, i
 
 
 __all__ = [
-    "A_ROW_PAD",
+    "BARRIER_BYTES",
+    "BK_ALIGN",
     "BM_TILES",
     "BN_TILES",
     "MAX_BK",
+    "PIPELINE_STAGES",
+    "WARPGROUP",
+    "WGMMA_M",
     "CacheHierarchy",
     "HopperClassSpec",
     "GotoBlocking",

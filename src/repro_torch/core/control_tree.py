@@ -12,8 +12,9 @@ choice, and the kernel selection (a name in
 :func:`build_control_trees` reproduces the Section 5.3 dependency on
 Hopper's shared memory: under Loop 3 (``coarse_loop="rows"``) the staged
 B panel is shared, forcing a common ``bk``; a class whose shared memory
-cannot hold the shared panel with a two-stage ring keeps the full panel
-on the one-stage lean kernel when that fits, instead of shrinking ``bm``.
+cannot hold the shared panel in the pipelined ring keeps the full panel
+on the one-stage lean kernel when that fits, instead of shrinking ``bm``
+(which stops at the 64-row wgmma floor).
 """
 
 from __future__ import annotations
@@ -69,8 +70,9 @@ def build_control_trees(
     holds at that ``bk`` — the structure of the paper's
     ``k_c = 952 -> m_c = 32`` adjustment.  When ``backend`` has a lean
     variant (``execution.LEAN_VARIANTS``), a class whose lean (one-stage)
-    ring holds a larger panel than its pipelined ring keeps that larger
-    panel on the lean kernel.
+    ring holds a larger panel than its pipelined ring (or the only panel
+    that fits, when the pipelined ring cannot hold even the 64-row floor)
+    keeps that panel on the lean kernel.
     """
 
     names = list(specs)
@@ -97,7 +99,10 @@ def build_control_trees(
             blk = _rederive_bm(specs[name], base, dtype_bytes, stages=stages)
             if lean_backend is not None:
                 lean_blk = _rederive_bm(specs[name], base, dtype_bytes, stages=1)
-                if lean_blk.bm > blk.bm:
+                # The lean kernel keeps the wider panel — or the only one
+                # that fits, once bm is at the wgmma floor.
+                if (lean_blk.fits(specs[name], stages=1), lean_blk.bm) > (
+                        blk.fits(specs[name], stages=stages), blk.bm):
                     blk, class_backend = lean_blk, lean_backend
         else:
             # Independent panels (Loop 1): fully independent resolution.
@@ -120,10 +125,11 @@ def _rederive_bm(
     base: B.BlockConfig,
     dtype_bytes: int,
     *,
-    stages: int = 2,
+    stages: int = B.PIPELINE_STAGES,
 ) -> B.BlockConfig:
-    """The largest ``bm`` (halving from the anchor's) whose ring fits this
-    class's shared memory at the shared ``(bk, bn)``."""
+    """The largest ``bm`` (halving from the anchor's, down to the smallest
+    compiled tile) whose ring fits this class's shared memory at the shared
+    ``(bk, bn)``; the floor when none does."""
 
     bk, bn = base.bk, base.bn
     bm = base.bm

@@ -46,11 +46,13 @@ import torch
 
 from repro_torch.core.blocking import (
     H100,
+    PIPELINE_STAGES,
     BlockConfig,
     HopperClassSpec,
     _round_up,
     derive_block_config,
     largest_tile,
+    BK_ALIGN,
     BM_TILES,
     BN_TILES,
 )
@@ -199,11 +201,11 @@ def plain_twin(name: str) -> str:
 
 
 def backend_stages(name: str) -> int:
-    """Depth of the ``cp.async`` staging ring this backend's kernel uses:
-    2 for the pipelined kernel, 1 for the lean variant.  Decides which
-    shared-memory model governs block feasibility."""
+    """Depth of the TMA staging ring this backend's kernel uses:
+    ``PIPELINE_STAGES`` for the pipelined kernel, 1 for the lean variant.
+    Decides which shared-memory model governs block feasibility."""
 
-    return 1 if name in _LEAN_BACKENDS else 2
+    return 1 if name in _LEAN_BACKENDS else PIPELINE_STAGES
 
 
 def validate_registry() -> list[str]:
@@ -211,7 +213,7 @@ def validate_registry() -> list[str]:
 
     Returns human-readable violations (empty == healthy): ``BACKENDS`` and
     ``BACKEND_OPS`` agree; ``PLAIN_TWIN`` covers every entry, stays in the
-    op family and is idempotent; ``LEAN_VARIANTS`` maps two-stage entries
+    op family and is idempotent; ``LEAN_VARIANTS`` maps pipelined entries
     to one-stage entries of the same family; ``GEMM_KERNELS`` names only
     kernel (non-twin) GEMM entries.
     """
@@ -245,9 +247,9 @@ def validate_registry() -> list[str]:
             continue
         if BACKEND_OPS[name] != BACKEND_OPS[lean]:
             problems.append(f"LEAN_VARIANTS {name!r} -> {lean!r} crosses op families")
-        if backend_stages(name) != 2 or backend_stages(lean) != 1:
+        if backend_stages(name) < 2 or backend_stages(lean) != 1:
             problems.append(
-                f"LEAN_VARIANTS {name!r} -> {lean!r} must map a two-stage "
+                f"LEAN_VARIANTS {name!r} -> {lean!r} must map a pipelined "
                 "entry to a one-stage one"
             )
     from repro_torch.kernels.gemm import GEMM_KERNELS
@@ -373,7 +375,7 @@ def resolve_block_config(
     spec: Optional[HopperClassSpec] = None,
     dtype_name: str = "bfloat16",
     dtype_bytes: int = 2,
-    stages: int = 2,
+    stages: int = PIPELINE_STAGES,
 ) -> tuple[BlockConfig, str]:
     """``(config, source)``: the analytical derivation under ``spec`` for
     a kernel with a ``stages``-deep ring (source ``"analytical"``)."""
@@ -466,7 +468,7 @@ class ExecutionContext:
             return dataclasses.replace(
                 blk,
                 bm=min(blk.bm, largest_tile(BM_TILES, pad(m))),
-                bk=min(blk.bk, pad(k)),
+                bk=min(blk.bk, max(BK_ALIGN, _round_up(k, BK_ALIGN))),
                 bn=min(blk.bn, largest_tile(BN_TILES, pad(n))),
             )
 

@@ -20,22 +20,34 @@
 // What bounds it on this card.  At the forward's shape (B 2, S 2048, 24
 // query heads over 8 KV heads of 128) a causal call does 4 B Hq D S(S+1)/2
 // = 51.6 GFLOP on 67 MB of q, k, v and out: about 770 operations per byte,
-// so it is bound by arithmetic, by the tensor cores' rate in the bound.
-// This first kernel runs the two products on the CUDA cores (fp32 FMA,
-// 67 TFLOP/s at most), so it cannot come near that bound; mma/wgmma
-// fragments, TMA and a producer warp are later work.  What the design does
-// about the arithmetic it has: it never computes a key block that lies
-// wholly past the causal diagonal or wholly before the window (about half
-// the blocks of a causal call), each thread keeps a 4 x 4 tile of scores
-// and a 4 x D/16 tile of the output in registers, so every value read from
-// shared memory feeds 4 FMAs, and the shared-memory rows are padded so
-// that no read conflicts on a bank.
+// so it is bound by arithmetic, at the tensor cores' rate.  The design
+// puts both products on the tensor cores with mma.sync m16n8k16 (bf16 in,
+// fp32 sums in registers) and keeps every intermediate out of device
+// memory:
+//   * each of the block's 4 warps owns 16 query rows; their Q is loaded
+//     once with ldmatrix into the A fragments of S = Q . K^T (for D <= 128;
+//     at D = 256 the fragments are re-read from shared memory, so that the
+//     128 output accumulators fit the registers);
+//   * K and V come in blocks of 64 keys through a two-stage cp.async ring:
+//     the next block is in flight while this one is multiplied.  Rows are
+//     stored in 16-byte chunks XOR-swizzled by row, so the ldmatrix reads
+//     of 8 rows hit 8 different banks;
+//   * the scale, the mask and the online softmax run on the S fragments in
+//     registers: row max and row sum over the 4 lanes of a quad, by
+//     shuffles; scores in base 2, so that each exponential is one exp2; the
+//     mask tested only on blocks that straddle the diagonal, the window or
+//     the end of the keys.  p is rounded to bf16 straight into the A
+//     fragments of O += P . V (the m16n8k16 C layout of two adjacent 8-key
+//     tiles is the A layout of one 16-key step), so P never touches shared
+//     memory;
+//   * key blocks wholly past the causal diagonal or wholly before the
+//     window are skipped, for the block and, within a block, per warp.
+// Warp-specialised wgmma with TMA (FlashAttention-3) is later work.
 //
 // Grid: one block per (q-block of 64 rows, query head, batch row), the
 // heaviest causal q-blocks first.  The TPU grid's sequential K dimension
-// becomes a loop inside the block: Q is staged once, then each 64-key
-// block of K and V (of KV head h / (Hq / Hkv): GQA is read in place, not
-// repeated) is staged, scored, folded into (m, l, acc) and dropped.
+// becomes the loop over key blocks inside the block; K and V are read from
+// KV head h / (Hq / Hkv) in place (GQA costs no repeated K/V).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,55 +55,97 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16: tx over columns, ty over rows
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per staged block
-constexpr int kRows = kBQ / 16;  // query rows a thread owns (ty + 16 i)
-constexpr int kCols = kBK / 16;  // score columns a thread owns (tx + 16 j)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // query rows per block
+constexpr int kBK = 64;           // keys per staged block
 constexpr float kNegInf = -1e30f;
 
-// Shared-memory layout, in bytes, for head dim D:
-//   Qs float [kBQ][D + 1]   queries in fp32 (padded: two rows per warp)
-//   Ks bf16  [kBK][D + 2]   keys (padded: 16 rows per warp read at once)
-//   Vs bf16  [kBK][D]       values
-//   Ps float [kBQ][kBK + 1] probabilities, rounded to bf16
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return static_cast<size_t>(kBQ) * (D + 1) * 4 + static_cast<size_t>(kBK) * (D + 2) * 2 +
-         static_cast<size_t>(kBK) * D * 2 + static_cast<size_t>(kBQ) * (kBK + 1) * 4;
+// Shared memory for a head dim padded to kD: Q [kBQ][kD], then K and V in
+// two stages each [kBK][kD], all bf16 with swizzled 16-byte chunks.
+__host__ __device__ constexpr size_t smem_bytes(int kD) {
+  return static_cast<size_t>(kBQ + 4 * kBK) * kD * 2;
 }
 
-// Stage rows [r0, r0 + n) of a (rows x D) slice with row stride `ld`
-// elements; rows at or past `limit` are zero.  Eight elements (16 bytes)
-// per load.
-template <typename Store>
-__device__ __forceinline__ void stage_rows(const __nv_bfloat16* src, size_t ld, int r0, int n,
-                                           int limit, int D, Store store) {
-  const int per_row = D / 8;
-  for (int c = threadIdx.x; c < n * per_row; c += kThreads) {
-    const int r = c / per_row;
-    const int d = (c % per_row) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit) {
-      raw = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * ld + d);
-    }
-    store(r, d, raw);
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of rows kD wide.
+template <int kD>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * kD * 2 + ((c ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // Fills the 16 bytes with zeros when !valid (src-size 0 reads nothing).
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                                  uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                    uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Stage rows [r0, r0 + rows) of a (limit x D) slice with row stride `ld`
+// elements into a swizzled tile kD wide; rows past `limit` and columns
+// past D are zero.
+template <int kD>
+__device__ __forceinline__ void stage_rows(uint32_t tile, const __nv_bfloat16* src, size_t ld,
+                                           int r0, int rows, int limit, int D) {
+  constexpr int kChunks = kD / 8;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool valid = r0 + r < limit && c * 8 < D;
+    const __nv_bfloat16* g = valid ? src + static_cast<size_t>(r0 + r) * ld + c * 8 : src;
+    cp_async16(tile + swz<kD>(r, c), g, valid);
   }
 }
 
-template <int kMaxD>
-__global__ void __launch_bounds__(kThreads)
+template <int kD>
+__global__ void __launch_bounds__(kThreads, kD <= 128 ? 2 : 1)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                        int Sq, int Sk, int Hq, int Hkv, int D, int causal, int window,
                        float scale) {
-  constexpr int kDCols = kMaxD / 16;  // output columns a thread owns (tx + 16 j)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldq = D + 1;
-  const int ldk = D + 2;
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(Qs + kBQ * ldq);
-  __nv_bfloat16* Vs = Ks + kBK * ldk;
-  float* Ps = reinterpret_cast<float*>(Vs + kBK * D);
+  constexpr bool kQInRegs = kD <= 128;
+  constexpr int kDK = kD / 16;   // 16-wide steps over the head dim
+  constexpr int kDN = kD / 8;    // 8-wide output tiles
+  constexpr int kSN = kBK / 8;   // 8-key score tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t q_tile = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t k_tile = q_tile + kBQ * kD * 2;       // [2][kBK][kD]
+  const uint32_t v_tile = k_tile + 2 * kBK * kD * 2;   // [2][kBK][kD]
+  constexpr uint32_t kv_stage = kBK * kD * 2;
 
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -99,20 +153,15 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int hk = h / (Hq / Hkv);
   const int q0 = qb * kBQ;
   const int q_offset = Sk - Sq;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
 
   const size_t q_ld = static_cast<size_t>(Hq) * D;
   const size_t kv_ld = static_cast<size_t>(Hkv) * D;
   const __nv_bfloat16* q_base = q + (static_cast<size_t>(b) * Sq * Hq + h) * D;
   const __nv_bfloat16* k_base = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const __nv_bfloat16* v_base = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
-
-  stage_rows(q_base, q_ld, q0, kBQ, Sq, D, [&](int r, int d, uint4 raw) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) Qs[r * ldq + d + i] = __bfloat162float(e[i]);
-  });
 
   // The key blocks this q-block can see; the others are wholly masked for
   // every row, and the TPU kernel's visits to them change nothing (see
@@ -126,123 +175,186 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     if (lo > 0) kb_begin = lo / kBK;
   }
 
-  float m[kRows], l[kRows], acc[kRows][kDCols];
+  // Q, then the first K/V block: one cp.async group.
+  stage_rows<kD>(q_tile, q_base, q_ld, q0, kBQ, Sq, D);
+  stage_rows<kD>(k_tile, k_base, kv_ld, kb_begin * kBK, kBK, Sk, D);
+  stage_rows<kD>(v_tile, v_base, kv_ld, kb_begin * kBK, kBK, Sk, D);
+  cp_async_commit();
+
+  // This thread's rows of the warp's 16: g and g + 8 (fragment layout).
+  const int g = lane / 4;
+  const int qd = lane % 4;
+  const int row_lo = 16 * warp;                      // first row of the warp in the q-block
+  const int pos0 = q_offset + q0 + row_lo + g;       // key position of row g
+  const int warp_first = q_offset + q0 + row_lo;     // of the warp's rows
+  const int warp_last = q_offset + min(q0 + row_lo + 15, Sq - 1);
+
+  uint32_t qf[kQInRegs ? kDK : 1][4];
+  float o[kDN][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kDCols; ++j) acc[i][j] = 0.0f;
-  }
+  for (int j = 0; j < kDN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+
+  // ldmatrix row addresses: lane -> (row within the 16, chunk offset).
+  const int a_row = row_lo + (lane % 8) + 8 * ((lane / 8) % 2);  // Q: A fragments
+  const int a_chunk = lane / 16;
+  const int k_row = (lane % 8) + 8 * (lane / 16);                // K: B fragments of 2 tiles
+  const int k_chunk = (lane / 8) % 2;
+  const int v_row = (lane % 8) + 8 * ((lane / 8) % 2);           // V: transposed B fragments
+  const int v_chunk = lane / 16;
 
   for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous block's K, V and P are consumed
-    stage_rows(k_base, kv_ld, k0, kBK, Sk, D, [&](int r, int d, uint4 raw) {
-      const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(Ks + r * ldk + d + 2 * i) = e[i];
-    });
-    stage_rows(v_base, kv_ld, k0, kBK, Sk, D, [&](int r, int d, uint4 raw) {
-      *reinterpret_cast<uint4*>(Vs + r * D + d) = raw;
-    });
-    __syncthreads();
-
-    // Scores s = (q . k) * scale for rows ty + 16 i, keys tx + 16 j.
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty + 16 * i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = __bfloat162float(Ks[(tx + 16 * j) * ldk + d]);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // Mask, then fold the block into each row's (m, l, acc).  The 16
-    // threads of a row are the lanes of one half-warp.
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q_offset + q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        bool ok = kj < Sk;
-        if (causal) ok = ok && qi >= kj;
-        if (window > 0) ok = ok && (qi - kj) < window;
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = __bfloat162float(__float2bfloat16(p));
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha * l[i] + sum;
-#pragma unroll
-      for (int j = 0; j < kDCols; ++j) acc[i][j] *= alpha;
+    const int stage = (kb - kb_begin) & 1;
+    if (kb + 1 < kb_end) {
+      const uint32_t next = (stage ^ 1) * kv_stage;
+      stage_rows<kD>(k_tile + next, k_base, kv_ld, (kb + 1) * kBK, kBK, Sk, D);
+      stage_rows<kD>(v_tile + next, v_base, kv_ld, (kb + 1) * kBK, kBK, Sk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // acc += P . V for rows ty + 16 i, columns tx + 16 j.
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[kRows];
+    if constexpr (kQInRegs) {
+      if (kb == kb_begin) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < kDCols; ++j) {
-        const int col = tx + 16 * j;
-        if (col < D) {
-          const float vv = __bfloat162float(Vs[kk * D + col]);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        for (int c = 0; c < kDK; ++c) {
+          ldmatrix_x4(q_tile + swz<kD>(a_row, 2 * c + a_chunk), qf[c][0], qf[c][1], qf[c][2],
+                      qf[c][3]);
         }
       }
     }
+
+    const int k0 = kb * kBK;
+    // A warp whose rows see none of this block's keys skips it: past the
+    // diagonal it would add p = 0 at alpha = 1; before the window what it
+    // adds is wiped by alpha = 0 at the row's first visible key.
+    const bool visible = !(causal && warp_last < k0) &&
+                         !(window > 0 && warp_first - (k0 + kBK - 1) >= window) &&
+                         row_lo + q0 < Sq;
+    if (visible) {
+      const uint32_t ks = k_tile + stage * kv_stage;
+      const uint32_t vs = v_tile + stage * kv_stage;
+
+      // S = Q . K^T: 16 rows x 64 keys a warp, fp32.
+      float s[kSN][4];
+#pragma unroll
+      for (int j = 0; j < kSN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kDK; ++c) {
+        uint32_t a0, a1, a2, a3;
+        if constexpr (kQInRegs) {
+          a0 = qf[c][0]; a1 = qf[c][1]; a2 = qf[c][2]; a3 = qf[c][3];
+        } else {
+          ldmatrix_x4(q_tile + swz<kD>(a_row, 2 * c + a_chunk), a0, a1, a2, a3);
+        }
+#pragma unroll
+        for (int j = 0; j < kSN; j += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4(ks + swz<kD>(8 * j + k_row, 2 * c + k_chunk), b0, b1, b2, b3);
+          mma(s[j], a0, a1, a2, a3, b0, b1);
+          mma(s[j + 1], a0, a1, a2, a3, b2, b3);
+        }
+      }
+
+      // Scale and mask, then fold the block into (m, l, o) row by row.  The
+      // scores are kept in base 2 (scaled by log2 e), so each exponential is
+      // one exp2; masks are tested only where the block straddles a bound.
+      const bool whole = k0 + kBK <= Sk && !(causal && warp_first < k0 + kBK - 1) &&
+                         !(window > 0 && warp_last - k0 >= window);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qi = pos0 + 8 * i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kSN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * i + e];
+            if (whole) {
+              x *= scale_log2;
+            } else {
+              const int kj = k0 + 8 * j + 2 * qd + e;
+              bool ok = kj < Sk;
+              if (causal) ok = ok && qi >= kj;
+              if (window > 0) ok = ok && (qi - kj) < window;
+              x = ok ? x * scale_log2 : kNegInf;
+            }
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kSN; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[j][2 * i + e];
+            x = exp2f(x - m_new);
+            sum += x;
+          }
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[i] = alpha * l[i] + sum;
+#pragma unroll
+        for (int j = 0; j < kDN; ++j) {
+          o[j][2 * i] *= alpha;
+          o[j][2 * i + 1] *= alpha;
+        }
+      }
+
+      // O += P . V, p rounded to bf16 into the A fragments of each 16-key step.
+#pragma unroll
+      for (int c = 0; c < kBK / 16; ++c) {
+        const uint32_t a0 = pack_bf16(s[2 * c][0], s[2 * c][1]);
+        const uint32_t a1 = pack_bf16(s[2 * c][2], s[2 * c][3]);
+        const uint32_t a2 = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
+        const uint32_t a3 = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
+#pragma unroll
+        for (int t = 0; t < kDN; t += 2) {
+          uint32_t b0, b1, b2, b3;
+          ldmatrix_x4_trans(vs + swz<kD>(16 * c + v_row, t + v_chunk), b0, b1, b2, b3);
+          mma(o[t], a0, a1, a2, a3, b0, b1);
+          mma(o[t + 1], a0, a1, a2, a3, b2, b3);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next load refills it
   }
 
   __nv_bfloat16* o_base = out + (static_cast<size_t>(b) * Sq * Hq + h) * D;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row_lo + g + 8 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < kDCols; ++j) {
-      const int col = tx + 16 * j;
-      if (col < D) o_base[static_cast<size_t>(row) * q_ld + col] = __float2bfloat16(acc[i][j] / denom);
+    for (int t = 0; t < kDN; ++t) {
+      const int col = 8 * t + 2 * qd;
+      if (col < D) {
+        *reinterpret_cast<__nv_bfloat162*>(o_base + static_cast<size_t>(row) * q_ld + col) =
+            __floats2bfloat162_rn(o[t][2 * i] / denom, o[t][2 * i + 1] / denom);
+      }
     }
   }
 }
 
-template <int kMaxD>
+template <int kD>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
            int Hq, int Hkv, int D, int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<kMaxD>,
+  const size_t smem = smem_bytes(kD);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<kD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-  flash_attention_kernel<kMaxD><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv,
       D, causal, window, scale);

@@ -52,7 +52,9 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set $NVCC or $CUDA_HOME to build the kernels")
 
 
-def _target(name: str) -> str:
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return os.path.join(build_dir(), f"{name}-{digest}.so")
@@ -61,7 +63,7 @@ def _target(name: str) -> str:
 def _start(name: str) -> Optional[subprocess.Popen]:
     """Start ``nvcc`` for one source unless its library is already built."""
 
-    out = _target(name)
+    out = library_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(build_dir(), exist_ok=True)
@@ -96,7 +98,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
 
 
 def _cached_log(name: str) -> str:
-    path = _target(name) + ".log"
+    path = library_path(name) + ".log"
     if os.path.exists(path):
         with open(path) as f:
             return f.read()
@@ -110,7 +112,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build_all((name,))
-            lib = ctypes.CDLL(_target(name))
+            lib = ctypes.CDLL(library_path(name))
             _LIBS[name] = lib
         return lib
 
@@ -122,4 +124,5 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
-__all__ = ["CSRC", "SOURCES", "build_all", "build_dir", "check", "load", "nvcc_path"]
+__all__ = ["CSRC", "SOURCES", "build_all", "build_dir", "check", "library_path", "load",
+           "nvcc_path"]

@@ -1,17 +1,26 @@
 """Blocked GEMM kernels for Hopper — per-class variants (CUDA C++).
 
 The port's counterpart of ``repro.kernels.gemm``.  Two kernels share one
-source (``csrc/gemm.cu``) and one tile loop, as the reference's two
-Pallas kernels share their scaffolding:
+source (``csrc/gemm.cu``) and one template, as the reference's two Pallas
+kernels share their scaffolding:
 
   * :func:`gemm_cuda` — replaces ``gemm_pallas``: each block owns a
-    (bm, bn) output tile and streams K in bk slices through a two-stage
-    ``cp.async`` ring in shared memory (``BlockConfig.smem_bytes(2)``).
+    (bm, bn) output tile (bm / 64 consumer warpgroups running ``wgmma``
+    on the tensor cores) and a producer warpgroup streams K in bk slices
+    through a TMA ring in shared memory, ``PIPELINE_STAGES`` (4) deep or
+    as deep as the block's stages fit, at least 2
+    (``BlockConfig.smem_bytes(stages)``).
   * :func:`gemm_cuda_lean` — replaces ``gemm_pallas_lean``: the same
-    loop with one stage (load, wait, multiply), so the same shared memory
-    holds a larger panel (``BlockConfig.smem_bytes(1)``).  Both run the
-    same per-element FMA sequence, so at equal blocks the lean result is
-    bitwise equal to the pipelined one.
+    kernel with one stage (load, wait, multiply, release), so the same
+    shared memory holds a larger panel (``BlockConfig.smem_bytes(1)``).
+    Both issue the same ``wgmma`` sequence, so at equal blocks the lean
+    result is bitwise equal to the pipelined one.
+
+TMA reads rows whose byte strides are multiples of 16 from 16-byte
+aligned bases.  Every weight of the supported models meets that; an
+operand whose K or N is not a multiple of 8, or whose base is not
+aligned, is copied (zero-padded to the next multiple of 8) by the wrapper
+before the launch, and the kernel stores only the real N columns.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_plain` / :func:`gemm_lean_plain`) for CPU
@@ -28,9 +37,11 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blocking import (
+    BK_ALIGN,
     BM_TILES,
     BN_TILES,
     MAX_BK,
+    PIPELINE_STAGES,
     BlockConfig,
     H100,
     _round_up,
@@ -49,7 +60,8 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def resolve_block_config(m: int, k: int, n: int, dtype: torch.dtype, *, stages: int = 2) -> BlockConfig:
+def resolve_block_config(m: int, k: int, n: int, dtype: torch.dtype, *,
+                         stages: int = PIPELINE_STAGES) -> BlockConfig:
     """Config used when the caller passes ``cfg=None``: the analytical
     derivation for the big class (``execution.resolve_block_config``)."""
 
@@ -64,21 +76,23 @@ def resolve_block_config(m: int, k: int, n: int, dtype: torch.dtype, *, stages: 
 def validate_block_config(m: int, k: int, n: int, cfg: BlockConfig) -> None:
     """Reject blocks that exceed the tile-rounded problem, loudly.
 
-    A block larger than the problem rounded up to the tile alignment (or
-    than the smallest compiled tile, for bm/bn) is a misconfiguration — a
-    config from another shape, a hand-typed one — and raises a
-    :class:`ValueError` naming the offending dimension.
+    A block larger than the problem rounded up to the tile alignment (16
+    for M/N, one 64-value swizzle row for K), or than the smallest
+    compiled tile, is a misconfiguration — a config from another shape, a
+    hand-typed one — and raises a :class:`ValueError` naming the offending
+    dimension.
     """
 
-    floors = {"bm": min(BM_TILES), "bk": ALIGN, "bn": min(BN_TILES)}
+    floors = {"bm": min(BM_TILES), "bk": BK_ALIGN, "bn": min(BN_TILES)}
+    aligns = {"bm": ALIGN, "bk": BK_ALIGN, "bn": ALIGN}
     for name, dim, blk in (("bm", m, cfg.bm), ("bk", k, cfg.bk), ("bn", n, cfg.bn)):
-        padded = max(_round_up(dim, ALIGN), floors[name])
+        padded = max(_round_up(dim, aligns[name]), floors[name])
         if blk > padded:
             axis = {"bm": "M", "bk": "K", "bn": "N"}[name]
             raise ValueError(
                 f"block config {name}={blk} exceeds padded {axis}={padded} "
-                f"(problem {m}x{k}x{n}, tile alignment {ALIGN}); blocks larger "
-                f"than the padded problem only multiply masked work"
+                f"(problem {m}x{k}x{n}, tile alignment {aligns[name]}); blocks "
+                f"larger than the padded problem only multiply masked work"
             )
 
 
@@ -116,9 +130,9 @@ def _tile_loop(a, b, cfg: BlockConfig, out_dtype) -> torch.Tensor:
 
 
 def gemm_plain(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
-    """Plain version of :func:`gemm_cuda` (two-stage block model)."""
+    """Plain version of :func:`gemm_cuda` (pipelined block model)."""
 
-    _, _, _, cfg = _prepare(a, b, cfg, 2)
+    _, _, _, cfg = _prepare(a, b, cfg, PIPELINE_STAGES)
     return _tile_loop(a, b, cfg, out_dtype or a.dtype)
 
 
@@ -143,10 +157,35 @@ def _kernel():
         from repro_torch.kernels import build
 
         fn = build.load("gemm").repro_gemm
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _tma_ready(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``x`` as TMA reads it: contiguous, 16-byte aligned, ``cols`` wide
+    (zero-padded when ``cols`` exceeds its width) and ``rows`` tall."""
+
+    x = x.contiguous()
+    if x.shape == (rows, cols) and x.data_ptr() % 16 == 0:
+        return x
+    out = torch.zeros((rows, cols), dtype=x.dtype, device=x.device)
+    out[: x.shape[0], : x.shape[1]] = x
+    return out
+
+
+def ring_depth(cfg: BlockConfig) -> int:
+    """Stages of the pipelined kernel's ring for ``cfg``: ``PIPELINE_STAGES``,
+    or as many (at least 2) as fit the shared memory a block may claim."""
+
+    for stages in range(PIPELINE_STAGES, 1, -1):
+        if cfg.smem_bytes(stages) <= H100.smem_bytes:
+            return stages
+    raise ValueError(
+        f"{cfg} needs {cfg.smem_bytes(2)} B of shared memory in a 2-stage ring; a block "
+        f"may claim {H100.smem_bytes} B"
+    )
 
 
 def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> torch.Tensor:
@@ -158,15 +197,14 @@ def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> tor
         raise TypeError(f"the CUDA GEMM takes bf16 operands, got {a.dtype} @ {b.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA GEMM writes bf16 or fp32, not {out_dtype}")
-    if cfg.bm not in BM_TILES or cfg.bn not in BN_TILES or cfg.bk % 8 or not 0 < cfg.bk <= MAX_BK:
+    if (cfg.bm not in BM_TILES or cfg.bn not in BN_TILES or cfg.bk % BK_ALIGN
+            or not 0 < cfg.bk <= MAX_BK):
         raise ValueError(f"{cfg} is not a compiled tile shape")
     if cfg.smem_bytes(stages) > H100.smem_bytes:
         raise ValueError(
             f"{cfg} needs {cfg.smem_bytes(stages)} B of shared memory in a {stages}-stage "
             f"ring; a block may claim {H100.smem_bytes} B"
         )
-    a = a.contiguous()
-    b = b.contiguous()
     m, k = a.shape
     n = b.shape[1]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -174,14 +212,15 @@ def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> tor
         return c
     if k == 0:
         return c.zero_()
-    a_vec = int(k % 8 == 0 and a.data_ptr() % 16 == 0)
-    b_vec = int(n % 8 == 0 and b.data_ptr() % 16 == 0)
+    # TMA's 16-byte row strides: K and B's row pitch rounded up to 8 values.
+    kp, ldb = _round_up(k, 8), _round_up(n, 8)
+    a = _tma_ready(a, m, kp)
+    b = _tma_ready(b, kp, ldb)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         status = _kernel()(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, k, n,
-            cfg.bm, cfg.bk, cfg.bn, stages, int(out_dtype == torch.float32),
-            a_vec, b_vec, stream,
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), m, kp, n, ldb,
+            cfg.bm, cfg.bk, cfg.bn, stages, int(out_dtype == torch.float32), stream,
         )
     build.check(status, f"{counter} {m}x{k}x{n} {cfg}")
     LAUNCHES[counter] += 1
@@ -189,17 +228,18 @@ def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> tor
 
 
 def gemm_cuda(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
-    """``C = A @ B`` through the pipelined (two-stage) CUDA kernel.
+    """``C = A @ B`` through the pipelined CUDA kernel (a ring of
+    :func:`ring_depth` stages).
 
     CPU tensors run :func:`gemm_plain`; CUDA tensors launch the kernel or
     raise.
     """
 
-    _, _, _, cfg = _prepare(a, b, cfg, 2)
+    _, _, _, cfg = _prepare(a, b, cfg, PIPELINE_STAGES)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu" and b.device.type == "cpu":
         return _tile_loop(a, b, cfg, out_dtype)
-    return _launch(a, b, cfg, out_dtype, 2, "gemm_cuda")
+    return _launch(a, b, cfg, out_dtype, ring_depth(cfg), "gemm_cuda")
 
 
 def gemm_cuda_lean(a, b, cfg: Optional[BlockConfig] = None, *, out_dtype=None) -> torch.Tensor:
@@ -233,5 +273,6 @@ __all__ = [
     "gemm_plain",
     "reset_launches",
     "resolve_block_config",
+    "ring_depth",
     "validate_block_config",
 ]

@@ -91,6 +91,29 @@ def test_flash_attention_torch_matches_pallas_interpret_and_oracles(case, dt):
     _close(got, ref, dt)
 
 
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernel_walk_skips_only_wholly_masked_key_blocks(case):
+    """The (q-block, key-block) walk the kernel and its plain version share:
+    every key block it leaves out is masked for every row of the q-block,
+    and every block it visits is seen by some row (the causal and window
+    bounds are tight at block granularity)."""
+
+    _, sq, sk, _, _, _, causal, window = case
+    q_pos = np.arange(sq)[:, None] + (sk - sq)
+    k_pos = np.arange(sk)[None, :]
+    vis = np.ones((sq, sk), dtype=bool)
+    if causal:
+        vis &= q_pos >= k_pos
+    if window is not None:
+        vis &= (q_pos - k_pos) < window
+    for q0 in range(0, sq, FA.BLOCK_Q):
+        walk = FA.key_blocks(q0, sq, sk, causal, window)
+        rows = vis[q0:q0 + FA.BLOCK_Q]
+        for kb in range(-(-sk // FA.BLOCK_K)):
+            seen = rows[:, kb * FA.BLOCK_K:(kb + 1) * FA.BLOCK_K].any()
+            assert seen == (kb in walk), (q0, kb)
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_chunked_attention_matches_reference(case, dt):

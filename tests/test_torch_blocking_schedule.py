@@ -236,30 +236,53 @@ def test_little_spec_halves_big():
 
 
 def test_smem_model_counts_stages_of_a_and_b():
-    cfg = TB.BlockConfig(bm=32, bk=64, bn=128)
-    one = 32 * (64 + TB.A_ROW_PAD) * 2 + 64 * 128 * 2
+    # A stage is its swizzled A and B tiles (no padding) and a full and an
+    # empty mbarrier of 8 bytes each.
+    cfg = TB.BlockConfig(bm=64, bk=64, bn=128)
+    one = 64 * 64 * 2 + 64 * 128 * 2 + 16
+    assert TB.BARRIER_BYTES == 16
     assert cfg.smem_bytes(1) == one and cfg.smem_bytes(2) == 2 * one
-    # The fp32 accumulator is held in registers: 32 x 128 x 4 B over 256 threads.
-    assert cfg.acc_regs_per_thread() == 16
+    assert TB.BlockConfig(bm=128, bk=128, bn=256).smem_bytes(2) == 2 * (128 * 128 * 2 + 128 * 256 * 2 + 16)
+
+
+@pytest.mark.parametrize("bm,bn,regs,threads", [(64, 32, 16, 256), (64, 128, 64, 256),
+                                                (128, 128, 64, 384), (128, 256, 128, 384)])
+def test_accumulators_per_consumer_thread(bm, bn, regs, threads):
+    """The fp32 sum lives in the consumer warpgroups' registers: one
+    warpgroup of 128 threads per 64 rows, each holding bm x bn / (128 x
+    bm / 64) values; one producer warpgroup on top."""
+
+    cfg = TB.BlockConfig(bm=bm, bk=64, bn=bn)
+    assert cfg.acc_regs_per_thread() == regs == bm * bn // (128 * (bm // 64))
+    assert cfg.consumer_warpgroups() == bm // 64 and cfg.threads() == threads
+    assert cfg.fits(TB.H100, stages=TB.PIPELINE_STAGES)
+    assert TB.H100.acc_regs_per_thread == 128 and TB.H100.threads_per_block == 384
+
+
+def test_compiled_tiles_are_wgmma_shapes():
+    assert TB.BM_TILES == (64, 128)                       # one or two 64-row warpgroups
+    assert all(bn % 8 == 0 and bn <= 256 for bn in TB.BN_TILES)
+    assert {32, 64} <= set(TB.BN_TILES)                   # decode's M = 12 fills the SMs
+    assert TB.BK_ALIGN == 64 and TB.MAX_BK % TB.BK_ALIGN == 0  # one 128-byte swizzle row
 
 
 @pytest.mark.parametrize("shape", [(12, 2048, 2048), (12, 8192, 2048), (12, 2048, 92544),
                                    (1024, 1024, 1024), (300, 200, 180), (1, 16, 1)])
-@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("stages", [1, 2, 4])
 @pytest.mark.parametrize("spec", [TB.H100, TB.H100_LITTLE], ids=["big", "little"])
 def test_derived_blocks_fit_and_are_compiled_tiles(shape, stages, spec):
     m, k, n = shape
     cfg = TB.derive_block_config(m, k, n, spec=spec, stages=stages)
     assert cfg.fits(spec, stages=stages)
     assert cfg.bm in TB.BM_TILES and cfg.bn in TB.BN_TILES
-    assert cfg.bk % spec.align == 0 and 0 < cfg.bk <= TB.MAX_BK
+    assert cfg.bk % 64 == 0 and 0 < cfg.bk <= TB.MAX_BK
     TG.validate_block_config(m, k, n, cfg)  # never oversized
     assert TB.pad_to_blocks(m, k, n, cfg) == tuple(
         -(-d // b) * b for d, b in zip(shape, (cfg.bm, cfg.bk, cfg.bn)))
 
 
 def test_lean_model_admits_a_larger_panel():
-    big2 = TB.derive_block_config(1024, 1024, 1024, spec=TB.H100_LITTLE, stages=2)
+    big2 = TB.derive_block_config(1024, 1024, 1024, spec=TB.H100_LITTLE, stages=TB.PIPELINE_STAGES)
     lean = TB.derive_block_config(1024, 1024, 1024, spec=TB.H100_LITTLE, stages=1)
     assert lean.smem_bytes(1) <= TB.H100_LITTLE.smem_bytes
     assert lean.bm * lean.bn * lean.bk >= big2.bm * big2.bn * big2.bk
@@ -279,7 +302,7 @@ def test_default_trees_mirror_the_reference_structure():
     assert trees["big"].backend == "cuda" and trees["little"].backend == "cuda_lean"
     assert len({tr.block.bk for tr in trees.values()}) == 1          # Loop 3: shared bk
     assert trees["little"].block.fits(TB.H100_LITTLE, stages=1)
-    assert not trees["little"].block.fits(TB.H100_LITTLE, stages=2)
+    assert not trees["little"].block.fits(TB.H100_LITTLE, stages=TX.backend_stages("cuda"))
     assert t.class_backends() == {"big": "cuda", "little": "cuda_lean"}
 
 
@@ -299,9 +322,13 @@ def test_shared_bk_rederives_bm_and_loop1_is_independent():
     assert {tr.backend for tr in mm.values()} == {"matmul"}
 
 
-@pytest.mark.parametrize("bad", [dict(bm=64), dict(bk=64), dict(bn=64)])
+@pytest.mark.parametrize("bad", [dict(bm=128), dict(bk=128), dict(bn=64)])
 def test_oversized_blocks_are_rejected(bad):
-    cfg = TB.BlockConfig(**{**dict(bm=16, bk=16, bn=32), **bad})
+    # The floors are the smallest compiled tiles (bm 64, bn 32) and one
+    # swizzle row of depth (bk 64); anything past them on an 8^3 problem
+    # is oversized.
+    TG.validate_block_config(8, 8, 8, TB.BlockConfig(bm=64, bk=64, bn=32))
+    cfg = TB.BlockConfig(**{**dict(bm=64, bk=64, bn=32), **bad})
     with pytest.raises(ValueError, match="exceeds padded"):
         TG.validate_block_config(8, 8, 8, cfg)
     a = torch.zeros((8, 8), dtype=torch.bfloat16)
@@ -315,7 +342,7 @@ def test_execution_context_blocks_per_call_shape():
     assert t.execution_context().device_class == "big"
     assert big.block_config(1024, 1024, 1024, "bfloat16", 2) == big.tree.block
     assert little.block_config(1024, 1024, 1024, "bfloat16", 2) == little.tree.block
-    for ctx, stages in ((big, 2), (little, 1)):
+    for ctx, stages in ((big, TB.PIPELINE_STAGES), (little, 1)):
         cfg = ctx.block_config(12, 2048, 92544, "bfloat16", 2)
         assert cfg == TB.derive_block_config(12, 2048, 92544, spec=ctx.spec, stages=stages)
     with pytest.raises(KeyError):

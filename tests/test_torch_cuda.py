@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-Every test here is marked ``cuda`` and skips without a card (the kernels
-have no CPU mode; ``test_torch_kernels.py`` holds the plain versions
-against the JAX package here).  The file imports neither ``jax`` nor the
+Every kernel test here is marked ``cuda`` and skips without a card (the
+kernels have no CPU mode; ``test_torch_kernels.py`` holds the plain
+versions against the JAX package here); the one unmarked test calibrates
+flash attention's row check on the CPU.  The file imports neither ``jax`` nor the
 JAX package, so it also runs on a machine with only PyTorch and ``nvcc``;
 ``tests/conftest.py`` imports jax, so run it there without the conftest::
 
@@ -10,10 +11,14 @@ JAX package, so it also runs on a machine with only PyTorch and ``nvcc``;
 
 Tolerances: bf16 outputs rtol = atol = 2e-2 and fp32 outputs 1e-4, as in
 ``tests/test_backend_parity.py`` (the kernels and the plain versions both
-accumulate in fp32, in other orders).  The lean GEMM equals the pipelined
-one bitwise at equal blocks.  Flash attention is held to its plain version
-at the bf16 tolerance: both round ``p`` to bf16 before ``p · V`` and sum in
-fp32, in other orders.
+accumulate in fp32, in other orders: the kernels on the tensor cores).
+The lean GEMM equals the pipelined one bitwise at equal blocks.  Flash
+attention is held to its plain version at the bf16 tolerance: both round
+``p`` to bf16 before ``p · V`` and sum in fp32, in other orders.  Its rows
+must also lie within ``FLASH_ROW_TOL`` of the plain version's in L2,
+relative to the row's own norm: late causal rows average thousands of
+values down to a few hundredths, where the bf16 tolerance's absolute 0.02
+would pass a row that lost a key block.
 """
 
 import math
@@ -23,16 +28,25 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import execution as X
-from repro_torch.core.blocking import BlockConfig
+from repro_torch.core.blocking import BM_TILES, BN_TILES, BlockConfig
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gemm as G
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import ref as R
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.runtime.paging import SENTINEL
 
 BF16 = dict(rtol=2e-2, atol=2e-2)
 FP32 = dict(rtol=1e-4, atol=1e-4)
+FLASH_ROW_TOL = 2e-2
+
+
+def row_rel_err(got, ref):
+    """The largest ``|got - ref| / |ref|`` over the rows (last axis) in L2."""
+
+    diff = (got.float() - ref.float()).norm(dim=-1)
+    return float((diff / ref.float().norm(dim=-1).clamp_min(1e-30)).max())
 
 
 @pytest.fixture
@@ -50,48 +64,73 @@ def _operands(cuda, m, k, n, seed=0):
     return a, b
 
 
+# Decode shapes (M = 12), then ragged ones: M = 100 and 300 against the
+# 64/128-row tiles, N not a multiple of bn, K not a multiple of bk, and K
+# or N not a multiple of 8 (the wrapper's zero-padded copy for TMA).
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(12, 2048, 2048), (12, 8192, 2048), (12, 2048, 92544),
-                                   (13, 100, 77), (300, 200, 180), (1, 8, 1)])
+                                   (13, 100, 77), (300, 200, 180), (1, 8, 1),
+                                   (100, 320, 1000), (100, 1000, 515), (64, 96, 72)])
 def test_cuda_gemms_match_plain_and_each_other(cuda, shape):
     m, k, n = shape
     a, b = _operands(cuda, m, k, n)
     G.reset_launches()
-    for stages, fn, plain in ((2, G.gemm_cuda, G.gemm_plain), (1, G.gemm_cuda_lean, G.gemm_lean_plain)):
+    for stages, fn, plain in ((4, G.gemm_cuda, G.gemm_plain), (1, G.gemm_cuda_lean, G.gemm_lean_plain)):
         cfg = G.resolve_block_config(m, k, n, torch.bfloat16, stages=stages)
         got = fn(a, b, cfg)
         torch.testing.assert_close(got.float(), plain(a, b, cfg).float(), **BF16)
         f32 = fn(a, b, cfg, out_dtype=torch.float32)
         torch.testing.assert_close(f32, plain(a, b, cfg, out_dtype=torch.float32), **FP32)
-        if stages == 2:  # the pipelined kernel's blocks fit both rings
+        if stages == 4:  # the pipelined kernel's blocks fit both rings
             assert torch.equal(G.gemm_cuda_lean(a, b, cfg), got)  # bitwise at equal blocks
     torch.cuda.synchronize()
     assert G.LAUNCHES == {"gemm_cuda": 2, "gemm_cuda_lean": 3}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block", [(16, 16, 32), (32, 64, 64), (64, 256, 128), (128, 128, 128)])
-def test_cuda_gemm_every_tile_family(cuda, block):
-    a, b = _operands(cuda, 200, 300, 260, seed=1)
-    cfg = BlockConfig(*block)
-    got = G.gemm_cuda(a, b, cfg)
-    torch.testing.assert_close(got.float(), G.gemm_plain(a, b, cfg).float(), **BF16)
-    assert torch.equal(G.gemm_cuda_lean(a, b, cfg), got)
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("bm,bn", [(bm, bn) for bm in BM_TILES for bn in BN_TILES])
+def test_cuda_gemm_every_tile_family(cuda, bm, bn, bk):
+    """Every compiled (bm, bn) on a ragged problem: the plain version's
+    result, lean == pipelined bitwise, in bf16 and in fp32."""
+
+    a, b = _operands(cuda, 200, 300, 264, seed=1)
+    cfg = BlockConfig(bm, bk, bn)
+    for out_dtype, tol in ((torch.bfloat16, BF16), (torch.float32, FP32)):
+        got = G.gemm_cuda(a, b, cfg, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        torch.testing.assert_close(got.float(), G.gemm_plain(a, b, cfg, out_dtype=out_dtype).float(), **tol)
+        assert torch.equal(G.gemm_cuda_lean(a, b, cfg, out_dtype=out_dtype), got)
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_reads_a_known_product(cuda):
+    """A = I against a B of small integers: exact in bf16 and fp32, so any
+    misread of B's MN-major layout shows as a wrong element."""
+
+    a = torch.eye(128, 192, device=cuda).bfloat16()
+    b = (torch.arange(192 * 264, device=cuda) % 97).reshape(192, 264).float().bfloat16()
+    for bm in BM_TILES:
+        for bn in BN_TILES:
+            got = G.gemm_cuda(a, b, BlockConfig(bm, 64, bn), out_dtype=torch.float32)
+            assert torch.equal(got, b[:128].float()), (bm, bn)
 
 
 @pytest.mark.cuda
 def test_cuda_gemm_rejects_what_it_cannot_run(cuda):
-    a, b = _operands(cuda, 64, 32, 32)
+    a, b = _operands(cuda, 64, 64, 64)
     with pytest.raises(ValueError, match="compiled tile"):
-        G.gemm_cuda(a, b, BlockConfig(bm=24, bk=16, bn=32))
+        G.gemm_cuda(a, b, BlockConfig(bm=64, bk=32, bn=32))   # bk not a swizzle row
+    with pytest.raises(ValueError, match="compiled tile"):
+        G.gemm_cuda(a, b, BlockConfig(bm=64, bk=64, bn=48))
     with pytest.raises(TypeError, match="bf16"):
-        G.gemm_cuda(a.float(), b.float(), BlockConfig(16, 16, 32))
+        G.gemm_cuda(a.float(), b.float(), BlockConfig(64, 64, 32))
     with pytest.raises(ValueError, match="CUDA device"):
-        G.gemm_cuda(a, b.cpu(), BlockConfig(16, 16, 32))
+        G.gemm_cuda(a, b.cpu(), BlockConfig(64, 64, 32))
     # A panel only the one-stage ring holds: the pipelined kernel refuses it
     # before launching, and a launch after that still succeeds.
-    a, b = _operands(cuda, 12, 2048, 4096)
-    lean_only = BlockConfig(bm=16, bk=256, bn=256)
+    a, b = _operands(cuda, 128, 2048, 4096)
+    lean_only = BlockConfig(bm=128, bk=256, bn=256)
     with pytest.raises(ValueError, match="shared memory"):
         G.gemm_cuda(a, b, lean_only)
     got = G.gemm_cuda_lean(a, b, lean_only)
@@ -120,8 +159,8 @@ def test_cuda_paged_attention_matches_plain(cuda, ps, w):
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): the forward's layer shape at full
-# width of minitron-4b, a ragged suffix, a window, a non-causal call, and
-# small heads.
+# width of minitron-4b, a ragged suffix, a window, a non-causal call, small
+# heads, and GQA groups of 1, 2 and 3.
 FLASH_CASES = [
     (2, 2048, 2048, 24, 8, 128, True, None),
     (2, 100, 300, 24, 8, 128, True, None),
@@ -130,6 +169,9 @@ FLASH_CASES = [
     (3, 77, 77, 4, 2, 16, True, None),
     (1, 130, 200, 6, 2, 64, False, 50),
     (1, 64, 64, 2, 2, 256, True, None),
+    (2, 200, 200, 8, 8, 128, True, None),      # GQA group 1
+    (1, 300, 300, 16, 8, 128, True, 100),      # GQA group 2, window
+    (1, 200, 260, 6, 2, 72, False, None),      # GQA group 3, D padded to 128
 ]
 
 
@@ -148,6 +190,27 @@ def test_cuda_flash_attention_matches_plain(cuda, case):
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     want = FA.flash_attention_torch(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **BF16)
+    assert row_rel_err(got, want) <= FLASH_ROW_TOL
+
+
+def test_flash_row_check_separates_a_dropped_key_block(monkeypatch):
+    """On the CPU, at a causal shape with 1024 keys: an attention that
+    rounds p elsewhere (``attention_ref``, fp32 p) stays within
+    ``FLASH_ROW_TOL`` of the plain walk, while the plain walk with one key
+    block dropped for its last four q-blocks lies far outside it."""
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((1, 1024, 2, 64), generator=gen).bfloat16() for _ in range(3))
+    want = FA.flash_attention_torch(q, k, v, causal=True)
+    assert row_rel_err(R.attention_ref(q, k, v, causal=True), want) <= FLASH_ROW_TOL / 2
+
+    sound = FA.key_blocks
+
+    def drop_one(q0, sq, sk, causal, window):
+        return [kb for kb in sound(q0, sq, sk, causal, window) if not (q0 >= 768 and kb == 5)]
+
+    monkeypatch.setattr(FA, "key_blocks", drop_one)
+    assert row_rel_err(FA.flash_attention_torch(q, k, v, causal=True), want) > 5 * FLASH_ROW_TOL
 
 
 @pytest.mark.cuda

@@ -149,6 +149,44 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version():
         PA.paged_attention_cuda(q, pages, pages, table, pos)
 
 
+def test_pipelined_ring_is_as_deep_as_shared_memory_allows():
+    """The pipelined kernel keeps PIPELINE_STAGES stages, or the most (at
+    least two) that fit a block's shared memory; the lean kernel one."""
+
+    from repro_torch.core.blocking import PIPELINE_STAGES
+
+    assert PIPELINE_STAGES == 4
+    assert G.ring_depth(BlockConfig(128, 64, 256)) == 4       # 196,672 B
+    assert G.ring_depth(BlockConfig(128, 128, 128)) == 3      # 4 stages: 262,208 B
+    assert G.ring_depth(BlockConfig(128, 128, 256)) == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        G.ring_depth(BlockConfig(128, 256, 256))              # only the lean ring holds it
+
+
+@pytest.mark.parametrize("arch,rows", [("internlm2-1.8b", 12), ("minitron-4b", 4096)])
+def test_main_path_blocks_fit_the_pipelined_ring(arch, rows):
+    """The big class's blocks at every GEMM shape of the decode step
+    (M = 12) and of the forward (M = 4096) fit a ring of
+    ``PIPELINE_STAGES``.  The shallower rings of :func:`ring_depth` serve
+    only the little class's lean panels, where ``chip_smoke.py`` holds
+    lean == pipelined bitwise: each fits a ring of at least two."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.core.blocking import H100, PIPELINE_STAGES
+
+    assert PIPELINE_STAGES == 4
+    cfg = get_config(arch)
+    mesh = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1, backend="cuda")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
+    big, little = mesh.execution_context("big"), mesh.execution_context("little")
+    assert (big.backend(), little.backend()) == ("cuda", "cuda_lean")
+    d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    for k, n in ((d, hq), (d, hkv), (hq, d), (d, cfg.d_ff), (cfg.d_ff, d), (d, cfg.vocab)):
+        blk = big.block_config(rows, k, n, "bfloat16", 2)
+        assert blk.smem_bytes(PIPELINE_STAGES) <= H100.smem_bytes, (arch, rows, k, n, blk)
+        assert G.ring_depth(little.block_config(rows, k, n, "bfloat16", 2)) >= 2
+
+
 def test_gemm_rejects_bad_operands():
     a = torch.ones((4, 16))
     with pytest.raises(ValueError, match="inner dims"):
@@ -186,7 +224,7 @@ def test_registry_is_closed():
     assert X.validate_registry() == []
     assert set(G.GEMM_KERNELS) == {"cuda", "cuda_lean"}
     assert X.plain_twin("cuda") == "torch_ref" and X.plain_twin("paged_attn_cuda") == "paged_attn_torch"
-    assert X.backend_stages("cuda") == 2 and X.backend_stages("cuda_lean") == 1
+    assert X.backend_stages("cuda") == 4 and X.backend_stages("cuda_lean") == 1
     with pytest.raises(ValueError, match="not a GEMM"):
         X.resolve_backend("paged_attn_cuda")  # repro: noqa=RPR005 -- a negative test: a name of the other op family must raise
     with pytest.raises(ValueError, match="not a paged-attention"):
