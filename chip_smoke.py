@@ -21,7 +21,13 @@ Phases (any failed check exits non-zero and prints no result line):
      ``scaled_dot_product_attention`` for flash attention); at the
      forward's GEMM shapes also the one-stage kernel at its own block (what
      the ring buys), and at the decode shapes the host's microseconds a
-     GEMM call beside ``torch.matmul``'s;
+     GEMM call beside ``torch.matmul``'s; ``paged_attention_cuda`` at the
+     paged engine's shape and at serving's cache lengths (12 rows: 4,096
+     tokens full and ragged, 32,768 full, minitron-4b's and qwen2.5-32b's
+     head groups at 4,096 in pages of 16), each also held in L2 row by row,
+     bitwise equal to itself on a second call, and timed on the device
+     with ``torch.profiler`` beside the CUDA events, with the share of its
+     bytes bound and its number of splits;
   2. the dense serving engine on the full-width 24-layer internlm2-1.8b
      (random weights from a fixed seed), through ``repro_torch.launch.serve``:
      every GEMM of the decode recurrence must launch ``gemm_cuda``;
@@ -41,11 +47,19 @@ Phases (any failed check exits non-zero and prints no result line):
      tokens shifted by one; the same forward with its attention through
      ``chunked_attention`` (logits within ``LOGIT_TOL``); row 0's first 32
      positions replayed token by token through the dense decode step
-     (logits within ``LOGIT_TOL`` at every position).
+     (logits within ``LOGIT_TOL`` at every position);
+  8. one decode step of the full-width internlm2-1.8b at a long cache: a
+     paged state of 12 rows at the last position of a 4,096-token cache
+     (random bf16 K/V, built directly), timed over a few steps (24
+     ``paged_attention_cuda`` launches each), traced once with
+     ``torch.profiler`` (attention's device share of the step), and its
+     logits held within ``LOGIT_TOL`` of the same step through the gather
+     route.
 
-Each of phases 2-4 and the forward of phase 7 resets the kernels' launch
-counters just before it and reads them just after; the launches of phases
-1, 5, 6 and phase 7's comparisons count for no path.  The engines' tokens/s are smoke readings over a few steps, not
+Each of phases 2-4, the forward of phase 7 and the steps of phase 8 resets
+the kernels' launch counters just before it and reads them just after; the
+launches of phases 1, 5, 6 and the comparisons of phases 7 and 8 count for
+no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -95,6 +109,18 @@ FWD_ARCH, FWD_BATCH, FWD_SEQ, REPLAY_LEN = "minitron-4b", 2, 2048, 32
 # the kernel walks a real page table (the default, min block.bm = 64, would
 # give each slot a single page).
 PAGE_SIZE = 8
+# Paged attention at serving's cache lengths (phase 1), 12 rows each:
+# (label, the config whose heads it takes, page size, pages a row, rows).
+LONG_PAGED_CASES = (
+    ("4096-full", ARCH, 64, 64, "full"),
+    ("4096-ragged", ARCH, 64, 64, "random"),
+    ("32768-full", ARCH, 64, 512, "full"),
+    ("minitron-4b-4096-full", "minitron-4b", 16, 256, "full"),
+    ("qwen2.5-32b-4096-full", "qwen2.5-32b", 16, 256, "full"),
+)
+# The long-cache decode step (phase 8): full-width internlm2-1.8b, 12 rows
+# at the last position of a 4,096-token cache in pages of 64.
+LONG_ROWS, LONG_CACHE, LONG_PS, LONG_STEPS = 12, 4096, 64, 5
 
 
 def fail(msg: str) -> None:
@@ -198,7 +224,7 @@ def phase1(torch, detail: dict) -> dict:
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.configs import get_config
-    from repro_torch.runtime.paging import SENTINEL, divisor_page_size
+    from repro_torch.runtime.paging import divisor_page_size
 
     cfg = get_config(ARCH)
     asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
@@ -342,47 +368,113 @@ def phase1(torch, detail: dict) -> dict:
           "lean != pipelined bitwise in fp32")
     print(f"  gemm_cuda fp32 out {m}x{d}x{d}: err {err:.3g}", flush=True)
 
-    # Paged attention at the paged engine's shapes (phase 3).
+    # Paged attention at the paged engine's shape (phase 3), then at the
+    # cache lengths serving runs (12 rows, head dim 128; internlm2-1.8b's
+    # 16 / 8 heads, then minitron-4b's and qwen2.5-32b's groups).
     seq_cap = PROMPT_LEN + GEN_LEN
     ps = divisor_page_size(seq_cap, PAGE_SIZE)
     w = seq_cap // ps
     n_pages = asym.n_pods * (asym.batch_layout(BATCH).c_max + 1) * w
-    g_hq, g_hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    def paged_case(b_rows, n_p, page, width, label):
-        q = torch.randn((b_rows, g_hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
-        pk = torch.randn((n_p, page, g_hkv, dh), generator=gen, device="cuda").to(torch.bfloat16)
-        pv = torch.randn((n_p, page, g_hkv, dh), generator=gen, device="cuda").to(torch.bfloat16)
-        table = torch.randint(0, n_p, (b_rows, width), generator=gen, device="cuda", dtype=torch.int32)
-        pos = torch.randint(0, width * page, (b_rows,), generator=gen, device="cuda", dtype=torch.int32)
-        table[0] = int(SENTINEL)           # a dead row: every entry unallocated
-        pos[1] = width * page + 7          # a row aged past the cache
-        got = PA.paged_attention_cuda(q, pk, pv, table, pos)
-        ref = PA.paged_attention_torch(q, pk, pv, table, pos)
-        torch.cuda.synchronize()
-        ok, err = within(torch, got, ref, BF16_TOL)
-        check(ok, f"paged_attention_cuda {label}: max err {err} over tol {BF16_TOL}")
-        t_k = time_ms(torch, PA.paged_attention_cuda, [(q, pk, pv, table, pos)], 50)
-        t_p = time_ms(torch, PA.paged_attention_torch, [(q, pk, pv, table, pos)], 20)
-        attended = torch.clamp(pos.long() + 1, max=width * page).sum().item()
-        n_bytes = (2 * attended * g_hkv * dh * 2 + 2 * b_rows * g_hq * dh * 2
-                   + table.numel() * 4 + pos.numel() * 4)
-        n_ops = 4 * attended * g_hq * dh
-        b_ms, by = bound_ms(n_bytes, n_ops)
-        rows.append({"kernel": "paged_attention_cuda", "shape": [b_rows, g_hq, g_hkv, dh, n_p, page, width],
-                     "label": label, "calls_per_step": L if label == "engine" else 0, "ms": t_k,
-                     "plain_ms": t_p, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
-                     "max_abs_err": err})
-        print(f"  paged_attention_cuda {label} B={b_rows} P={n_p} ps={page} W={width}: err {err:.3g} "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} bound {b_ms:.5f} ({by})", flush=True)
-        return t_k, t_p, b_ms, by, err
-
-    t_k, t_p, b_ms, by, err = paged_case(m, n_pages, ps, w, "engine")
-    records["paged_attention_cuda"] = {"max_abs_err": err, "ms": L * t_k, "plain_ms": L * t_p,
-                                       "library_ms": None, "bound_ms": L * b_ms, "bound_by": by}
-    paged_case(m, m * 64 + 1, 64, 64, "long-4096")  # a long cache, for the record only
+    n_sm = PA.sm_count(torch.device("cuda"))
+    paged = []
+    for label, arch, page, width, kind in (("engine", ARCH, ps, w, "random"),
+                                           *LONG_PAGED_CASES):
+        pcfg = get_config(arch)
+        row = paged_case(torch, PA, gen, m, pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim,
+                         n_pages if label == "engine" else m * width + 1, page, width, kind, n_sm)
+        row["label"] = label
+        row["calls_per_step"] = L if label == "engine" else 0
+        if label == "engine":
+            row["host_us"] = host_us(torch, PA.paged_attention_cuda, row.pop("args"))
+        row.pop("args", None)
+        paged.append(row)
+        print(f"  paged_attention_cuda {label} B={m} H={pcfg.n_heads}/{pcfg.n_kv_heads} ps={page} "
+              f"W={width} ({kind} rows) {row['n_split']} x {row['split_pages']} pages: "
+              f"err {row['max_abs_err']:.3g} (row {row['max_row_rel_err']:.3g}) kernel {row['ms']:.4f} ms "
+              f"(device {row['device_ms']:.4f}) plain {row['plain_ms']:.4f} bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']}, {100 * row['bound_share']:.1f}% of it, "
+              f"{row['gb_per_s']:.0f} GB/s)"
+              + (f"; host {row['host_us']:.1f} us a call" if "host_us" in row else ""), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows.extend(paged)
+    eng = paged[0]
+    records["paged_attention_cuda"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in paged), "ms": L * eng["ms"],
+        "plain_ms": L * eng["plain_ms"], "library_ms": None, "bound_ms": L * eng["bound_ms"],
+        "bound_by": eng["bound_by"], "device_ms": L * eng["device_ms"],
+        "cases": [{k: r[k] for k in ("label", "shape", "n_split", "split_pages", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_share", "max_abs_err",
+                                     "max_row_rel_err")} for r in paged[1:]],
+    }
     detail["phase1"] = rows
     return records
+
+
+def paged_case(torch, PA, gen, b, hq, hkv, dh, n_p, page, width, kind, n_sm) -> dict:
+    """One paged-attention call against the gather route: "full" rows
+    attend their whole cache; "random" rows a random prefix, with a dead row
+    (every table entry unallocated) and a row aged past the cache."""
+
+    from repro_torch.runtime.paging import SENTINEL
+
+    s_cache = width * page
+    q = torch.randn((b, hq, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    pk = torch.randn((n_p, page, hkv, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    pv = torch.randn((n_p, page, hkv, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    table = torch.randperm(n_p, generator=gen, device="cuda")[:b * width].reshape(b, width).int()
+    if kind == "full":
+        pos = torch.full((b,), s_cache - 1, dtype=torch.int32, device="cuda")
+    else:
+        pos = torch.randint(0, s_cache, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        table[0] = int(SENTINEL)       # a dead row: every entry unallocated
+        pos[1] = s_cache + 7           # a row aged past the cache
+    args = (q, pk, pv, table, pos)
+    got = PA.paged_attention_cuda(*args)
+    ref = PA.paged_attention_torch(*args)
+    again = PA.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    label = f"B={b} H={hq}/{hkv} ps={page} W={width} {kind}"
+    ok, err = within(torch, got, ref, BF16_TOL)
+    check(ok, f"paged_attention_cuda {label}: max err {err} over tol {BF16_TOL}")
+    row_err = row_rel_err(got, ref)
+    check(row_err <= FLASH_ROW_TOL,
+          f"paged_attention_cuda {label}: a row off by {row_err:.3g} of its norm, over {FLASH_ROW_TOL}")
+    check(torch.equal(got, again), f"paged_attention_cuda {label}: two calls differ")
+    del got, ref, again
+    big = s_cache > 8192
+    t_k = time_ms(torch, PA.paged_attention_cuda, [args], 20 if big else 50)
+    dev = device_ms(torch, lambda: PA.paged_attention_cuda(*args), 10, "paged_")
+    t_p = time_ms(torch, PA.paged_attention_torch, [args], 3 if big else 10, 1)
+    attended = torch.clamp(pos.long() + 1, max=s_cache).sum().item()
+    n_bytes = (2 * attended * hkv * dh * 2 + 2 * b * hq * dh * 2 + table.numel() * 4 + pos.numel() * 4)
+    b_ms, by = bound_ms(n_bytes, 4 * attended * hq * dh)
+    plan = PA.split_plan(b, hkv, width, page, n_sm)
+    return {"kernel": "paged_attention_cuda", "shape": [b, hq, hkv, dh, n_p, page, width],
+            "rows": kind, "n_split": plan.n_split, "split_pages": plan.pages, "ms": t_k,
+            "device_ms": dev, "plain_ms": t_p, "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+            "bound_share": b_ms / t_k, "gb_per_s": n_bytes / (t_k * 1e-3) / 1e9,
+            "attended": attended, "max_abs_err": err, "max_row_rel_err": row_err, "args": args}
+
+
+def device_ms(torch, fn, calls: int, key: str) -> float:
+    """Device milliseconds a call of the kernels whose name holds ``key``,
+    from a ``torch.profiler`` trace of ``calls`` back-to-back calls (CUDA
+    events over back-to-back calls read the host's rate when a call's
+    device time is shorter than its host time)."""
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type != DeviceType.CPU and key in e.name]
+    check(bool(evs), f"the profiler saw no kernel named *{key}*")
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / calls
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -524,7 +616,7 @@ def phase7(torch, counts, reset) -> dict:
     check(bool(torch.isfinite(logits.float()).all()), "forward logits not finite")
     check(math.isfinite(float(loss)) and abs(float(loss) - math.log(cfg.vocab)) < 3.0,
           f"eval loss {float(loss)} far from ln V = {math.log(cfg.vocab):.3f} for random weights")
-    split = profile_forward(torch, lambda: prefill(params, {"tokens": toks}), big)
+    split = profile_run(torch, lambda: prefill(params, {"tokens": toks}), big)
     print(f"  one traced forward: wall {split['wall_ms']:.1f} ms, device busy {split['busy_ms']:.1f} ms "
           f"(idle {split['idle_share']:.3f}); device ms by kernel: "
           f"{ {k: round(v, 2) for k, v in split['ms'].items()} }; launches {split['count']}", flush=True)
@@ -565,9 +657,10 @@ def phase7(torch, counts, reset) -> dict:
             "decode_replay_max": steps, "traced_forward": split}
 
 
-def profile_forward(torch, forward, ctx) -> dict:
-    """One forward under ``torch.profiler``: its device busy time (the union
-    of kernel intervals) and the device time by kernel family."""
+def profile_run(torch, run, ctx) -> dict:
+    """One run (a forward, a decode step) under ``torch.profiler``: its
+    device busy time (the union of kernel intervals) and the device time by
+    kernel family."""
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -577,20 +670,98 @@ def profile_forward(torch, forward, ctx) -> dict:
     torch.cuda.synchronize()
     with ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward()
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
-    check(bool(dev), "the profiler saw no device activity in the forward")
+    check(bool(dev), "the profiler saw no device activity in the run")
     busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
     ms, count = {}, {}
     for e in dev:
         fam = ("gemm_cuda" if "gemm_kernel" in e.name else
-               "flash_attention_cuda" if "flash_attention_kernel" in e.name else "other")
+               "flash_attention_cuda" if "flash_attention_kernel" in e.name else
+               "paged_attention_cuda" if "paged_" in e.name else "other")
         ms[fam] = ms.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
         count[fam] = count.get(fam, 0) + 1
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
             "ms": ms, "count": count}
+
+
+def phase8(torch, counts, reset) -> dict:
+    """One decode step of full-width internlm2-1.8b at a long cache: a paged
+    state built directly (random bf16 K/V in every page, every row at the
+    cache's last position; prefilling 4,096 tokens through the decode
+    recurrence would take minutes), timed with CUDA-synchronised steps,
+    traced once, and held to the same step through the gather route."""
+
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import execution as X
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.models import model_zoo as Z
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    w = LONG_CACHE // LONG_PS
+    state = Z.init_decode_state_paged(cfg, LONG_ROWS * w, LONG_PS, device="cuda")
+    for key in ("pages_k", "pages_v"):
+        state[key].normal_(generator=gen)
+    table = torch.randperm(LONG_ROWS * w, generator=gen, device="cuda").reshape(LONG_ROWS, w).int()
+    pos = torch.full((LONG_ROWS,), LONG_CACHE - 1, dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (LONG_ROWS, 1), generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "page_table": table}
+    big = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    decode = Z.make_decode_fn(cfg)
+
+    def step():
+        return decode(params, batch, state, pos)[0]  # rewrites position 4,095 with the same K/V
+
+    def timed(n):
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    with torch.no_grad(), big:
+        reset()
+        step()  # warm-up
+        logits, walls = timed(LONG_STEPS)
+        launches = counts()
+        trace = profile_run(torch, step, big)
+        # The same step with its attention through the gather route.
+        with mock.patch.dict(X.BACKENDS, {"paged_attn_cuda": X.BACKENDS["paged_attn_torch"]}):
+            step()
+            ref, ref_walls = timed(3)
+    check(launches["paged_attention_cuda"] == cfg.n_layers * (1 + LONG_STEPS),
+          f"paged launches {launches['paged_attention_cuda']} != {cfg.n_layers} x {1 + LONG_STEPS}")
+    check(tuple(logits.shape) == (LONG_ROWS, 1, cfg.vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "long-cache logits not finite")
+    diff = float((logits.float() - ref.float()).abs().max())
+    wall, ref_wall = sorted(walls)[len(walls) // 2], sorted(ref_walls)[1]
+    paged_ms = trace["ms"].get("paged_attention_cuda", 0.0)
+    print(f"phase 8: {cfg.name} decode step at a {LONG_CACHE}-token cache, {LONG_ROWS} rows: wall "
+          f"{[round(x * 1e3, 2) for x in walls]} ms (median {wall * 1e3:.2f} ms, {LONG_ROWS / wall:.1f} "
+          f"tokens/s), gather route {ref_wall * 1e3:.2f} ms; launches {launches}", flush=True)
+    print(f"  one traced step: wall {trace['wall_ms']:.2f} ms, device busy {trace['busy_ms']:.2f} ms "
+          f"(idle {trace['idle_share']:.3f}); device ms by kernel "
+          f"{ {k: round(v, 3) for k, v in trace['ms'].items()} }, launches {trace['count']}; "
+          f"paged attention {paged_ms:.3f} ms = {paged_ms / trace['busy_ms']:.3f} of the busy time", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  kernel vs gather route: max |logit diff| {diff:.4f} (tol {LOGIT_TOL}); "
+          f"phase 8 took {phase_s:.1f} s", flush=True)
+    check(diff <= LOGIT_TOL, f"long-cache step: kernel vs gather route logits differ by {diff}")
+    return {"arch": cfg.name, "phase_s": phase_s, "rows": LONG_ROWS, "cache": LONG_CACHE, "page_size": LONG_PS,
+            "walls_s": walls, "wall_s": wall, "tokens_per_s": LONG_ROWS / wall,
+            "gather_walls_s": ref_walls, "gather_wall_s": ref_wall, "launches": launches,
+            "traced_step": trace, "paged_device_share": paged_ms / trace["busy_ms"],
+            "logit_diff_vs_gather": diff}
 
 
 def phase5(torch, tokens) -> dict:
@@ -799,6 +970,11 @@ def main() -> None:
     detail["forward"] = fwd
     launches["flash_attention_cuda"] = fwd["launches_5_forwards"]["flash_attention_cuda"]
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 8: one decode step at a long cache, {ARCH} at full width", flush=True)
+    detail["long_cache_step"] = phase8(torch, counts, reset)
+
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),
         "gemm_cuda_lean": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:273"),
@@ -812,7 +988,9 @@ def main() -> None:
                      "launches: the dense engine run",
         "gemm_cuda_lean": "ms: one decode step under the little class (169 GEMMs); "
                           "launches: the one-shot run",
-        "paged_attention_cuda": "ms: one decode step (24 calls); launches: the paged engine run",
+        "paged_attention_cuda": "ms: one decode step (24 calls at the engine's 24-token slot); "
+                                "launches: the paged engine run; cases: one call at each of "
+                                "serving's cache lengths",
         "flash_attention_cuda": f"ms: one forward of {FWD_ARCH} at {FWD_BATCH} x {FWD_SEQ} "
                                 f"(32 calls, one a layer); launches: 4 prefill forwards and "
                                 f"one loss forward",
@@ -827,9 +1005,12 @@ def main() -> None:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "per": per[name],
         })
     kernels[0]["launches_forward"] = fwd["launches_5_forwards"]["gemm_cuda"]
-    for row in kernels:  # the kernels moved to the tensor cores (wgmma + TMA, mma.sync)
-        if row["name"] != "paged_attention_cuda":
-            row["redesigned_in"] = 13
+    for row in kernels:  # 13: onto the tensor cores (wgmma + TMA, mma.sync); 15: the split walk
+        row["redesigned_in"] = 13
+        if row["name"] == "paged_attention_cuda":
+            row["redesigned_in"] = 15
+            row["device_ms"] = records[row["name"]]["device_ms"]
+            row["cases"] = records[row["name"]]["cases"]
     detail["engines"] = {"dense": s2, "paged": s3, "one_shot_little": s4,
                          "paged_vs_dense_logit_diff": dlog, "paged_token_agreement": agree,
                          "little_token_agreement": agree4, "replay_logit_diff": replay}

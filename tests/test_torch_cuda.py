@@ -137,25 +137,115 @@ def test_cuda_gemm_rejects_what_it_cannot_run(cuda):
     torch.testing.assert_close(got.float(), G.gemm_lean_plain(a, b, lean_only).float(), **BF16)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ps,w", [(24, 1), (16, 4), (64, 64)])
-def test_cuda_paged_attention_matches_plain(cuda, ps, w):
-    b, hq, hkv, d = 12, 16, 8, 128
+# (B, Hq, Hkv, Dh, ps, W, rows): internlm2-1.8b's heads (16 / 8 of 128)
+# on one-page slots, the engine's pages, and a 4,096-token cache with
+# random rows; GQA groups of 1, 2, 3 and 5 (deepseek-7b, internlm2-1.8b,
+# minitron-4b, qwen2.5-32b) at head dims 64 and 128 (and 256) and pages of
+# 8, 16 and 64, with the "edge" rows; full rows at 32,768 tokens.
+PAGED_CASES = [
+    (12, 16, 8, 128, 24, 1, "random"),
+    (12, 16, 8, 128, 16, 4, "random"),
+    (12, 16, 8, 128, 64, 64, "random"),
+    (8, 8, 8, 128, 8, 512, "edges"),
+    (8, 16, 8, 64, 16, 256, "edges"),
+    (8, 24, 8, 128, 16, 256, "edges"),
+    (8, 40, 8, 128, 64, 64, "edges"),
+    (8, 10, 2, 64, 8, 512, "edges"),
+    (8, 6, 2, 128, 64, 16, "edges"),
+    (8, 16, 8, 256, 16, 64, "edges"),
+    (12, 16, 8, 128, 64, 512, "full"),
+    (2, 6, 2, 128, 64, 512, "full"),
+]
+
+
+def _paged_operands(cuda, case):
+    """Random operands of one case, the rows set by its kind; "edges" rows:
+    dead (every table entry unallocated), aged past the cache, ending inside
+    the first run, on the last position of a run, one position into the
+    next run, on a page boundary inside a run, full, and random."""
+
+    b, hq, hkv, d, ps, w, rows = case
+    gen = torch.Generator(device=cuda).manual_seed(ps * w + hq + d)
     n_pages = b * w + 3
-    gen = torch.Generator(device=cuda).manual_seed(ps)
     q = torch.randn((b, hq, d), generator=gen, device=cuda).bfloat16()
     pk = torch.randn((n_pages, ps, hkv, d), generator=gen, device=cuda).bfloat16()
     pv = torch.randn((n_pages, ps, hkv, d), generator=gen, device=cuda).bfloat16()
-    table = torch.randint(0, n_pages, (b, w), generator=gen, device=cuda, dtype=torch.int32)
-    pos = torch.randint(0, w * ps, (b,), generator=gen, device=cuda, dtype=torch.int32)
-    table[0] = SENTINEL            # a dead row
-    pos[1] = w * ps + 9            # a row aged past its cache
+    table = torch.randperm(n_pages, generator=gen, device=cuda)[:b * w].reshape(b, w).int()
+    s_cache = w * ps
+    if rows == "full":
+        pos = torch.full((b,), s_cache - 1, dtype=torch.int32, device=cuda)
+    else:
+        pos = torch.randint(0, s_cache, (b,), generator=gen, device=cuda, dtype=torch.int32)
+        table[0] = SENTINEL            # a dead row
+        pos[1] = s_cache + 9           # a row aged past its cache
+    if rows == "edges":
+        run = PA.split_plan(b, hkv, w, ps, PA.sm_count(cuda)).pages * ps
+        assert run < s_cache, "an edge case needs more than one run"
+        pos[2:7] = torch.tensor([run // 2, run - 1, run, 2 * ps - 1 if 2 * ps < run else ps - 1,
+                                 s_cache - 1], dtype=torch.int32)
+    return q, pk, pv, table, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_paged_attention_matches_plain(cuda, case):
+    q, pk, pv, table, pos = _paged_operands(cuda, case)
     PA.reset_launches()
     got = PA.paged_attention_cuda(q, pk, pv, table, pos)
     torch.cuda.synchronize()
     assert PA.LAUNCHES["paged_attention_cuda"] == 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    torch.testing.assert_close(got.float(), PA.paged_attention_torch(q, pk, pv, table, pos).float(), **BF16)
+    want = PA.paged_attention_torch(q, pk, pv, table, pos)
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    assert row_rel_err(got, want) <= FLASH_ROW_TOL
+    # The same call again gives the same bits (no atomics in the combine).
+    assert torch.equal(PA.paged_attention_cuda(q, pk, pv, table, pos), got)
+    plan = PA.split_plan(q.shape[0], pk.shape[2], table.shape[1], pk.shape[1], PA.sm_count(cuda))
+    twin = PA.paged_attention_split_torch(q, pk, pv, table, pos, plan)
+    torch.testing.assert_close(got.float(), twin.float(), **BF16)
+    assert row_rel_err(got, twin) <= FLASH_ROW_TOL
+
+
+def test_paged_row_check_separates_a_dropped_split():
+    """On the CPU, at a 4,096-token cache split in three runs (the plan of
+    serving's 12 rows and 8 KV heads on 132 SMs): the split walk stays
+    within ``FLASH_ROW_TOL`` of the gather route, while the walk with one
+    run dropped lies far outside it."""
+
+    gen = torch.Generator().manual_seed(5)
+    b, hkv, g, d, ps, w = 2, 2, 2, 64, 16, 256
+    plan = PA.split_plan(12, 8, w, ps, 132)
+    assert plan.n_split == 3
+    q = torch.randn((b, hkv * g, d), generator=gen).bfloat16()
+    pk, pv = (torch.randn((b * w, ps, hkv, d), generator=gen).bfloat16() for _ in range(2))
+    table = torch.arange(b * w, dtype=torch.int32).reshape(b, w)
+    pos = torch.full((b,), w * ps - 1, dtype=torch.int32)
+    want = PA.paged_attention_torch(q, pk, pv, table, pos)
+    assert row_rel_err(PA.paged_attention_split_torch(q, pk, pv, table, pos, plan), want) <= FLASH_ROW_TOL / 2
+
+    m, l, acc = PA.split_partials(q, pk, pv, table, pos, plan)
+    m[:, 1], l[:, 1], acc[:, 1] = PA.NEG_INF, 0.0, 0.0
+    dropped = PA.combine_splits(m, l, acc).reshape(q.shape).bfloat16()
+    assert row_rel_err(dropped, want) > 5 * FLASH_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_rejects_what_it_cannot_run(cuda):
+    q = torch.zeros((2, 4, 16), dtype=torch.bfloat16, device=cuda)
+    pages = torch.zeros((3, 4, 2, 16), dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        PA.paged_attention_cuda(q.float(), pages.float(), pages.float(), table, pos)
+    with pytest.raises(TypeError, match="int32"):
+        PA.paged_attention_cuda(q, pages, pages, table.long(), pos)
+    with pytest.raises(ValueError, match="head dim"):
+        PA.paged_attention_cuda(q[..., :12], pages[..., :12], pages[..., :12], table, pos)
+    with pytest.raises(ValueError, match="group"):
+        PA.paged_attention_cuda(torch.zeros((2, 18, 16), dtype=torch.bfloat16, device=cuda),
+                                pages, pages, table, pos)
+    with pytest.raises(ValueError, match="CUDA device"):
+        PA.paged_attention_cuda(q, pages.cpu(), pages.cpu(), table, pos)
 
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): the forward's layer shape at full
