@@ -54,7 +54,24 @@ Phases (any failed check exits non-zero and prints no result line):
      ``paged_attention_cuda`` launches each), traced once with
      ``torch.profiler`` (attention's device share of the step), and its
      logits held within ``LOGIT_TOL`` of the same step through the gather
-     route.
+     route;
+  9. the measured loop: ``repro_torch.tuning.tune`` searches, two-stage and
+     timed on the card's clock, the forward's GEMM shapes and the decode
+     step's (spec ``h100``) and the decode step's again (``h100-little``)
+     into ``chiprun_out/tuning_cache.json``; every winning block runs on its
+     kernel against its plain version (and lean == pipelined bitwise where
+     both run it); with ``REPRO_TORCH_TUNING_CACHE`` set, the control trees
+     report ``block_source == "tuned"`` by the reference's Loop-3 rule, the
+     host's cost of a lookup is timed, and the minitron-4b forward runs
+     tuned, analytical, and tuned with the cache file re-checked on every
+     lookup, in turns (median of 3 each, tuned logits within ``LOGIT_TOL``
+     of analytical); 128 x 64 x 128 against 128 x 64 x 256 at 4096 x 3072 x
+     1024; then ``repro_torch.launch.serve`` with ``--trace`` and
+     ``--metrics``: the step-time probe must time both classes' kernels on
+     the card, the scheduler must observe them, the metric families and
+     the trace's summary must be there, and the tokens must equal phase
+     2's; last, ``AsymmetricMesh.from_calibration`` from the cost model and
+     from the probe's measured seconds.
 
 Each of phases 2-4, the forward of phase 7 and the steps of phase 8 resets
 the kernels' launch counters just before it and reads them just after; the
@@ -121,6 +138,16 @@ LONG_PAGED_CASES = (
 # The long-cache decode step (phase 8): full-width internlm2-1.8b, 12 rows
 # at the last position of a 4,096-token cache in pages of 64.
 LONG_ROWS, LONG_CACHE, LONG_PS, LONG_STEPS = 12, 4096, 64, 5
+
+
+def gemm_shapes(cfg) -> list:
+    """``((K, N), calls)`` of every GEMM of one decode step or forward of a
+    dense config: q, k and v, o, gate and up, down, the LM head."""
+
+    d, hq = cfg.d_model, cfg.n_heads * cfg.head_dim
+    hkv, ff, L = cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers
+    return [((d, hq), L), ((d, hkv), 2 * L), ((hq, d), L),
+            ((d, ff), 2 * L), ((ff, d), L), ((d, cfg.vocab), 1)]
 
 
 def fail(msg: str) -> None:
@@ -232,11 +259,9 @@ def phase1(torch, detail: dict) -> dict:
     check(big.backend() == "cuda" and little.backend() == "cuda_lean",
           f"class kernels {big.backend()} / {little.backend()}, want cuda / cuda_lean")
     m = asym.n_pods * asym.batch_layout(BATCH).c_max  # the engine's slot table
-    d, hq = cfg.d_model, cfg.n_heads * cfg.head_dim
-    hkv, ff, L = cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers
+    d, L = cfg.d_model, cfg.n_layers
     # (K, N) of every GEMM in one decode step, with its count per step.
-    step_shapes = [((d, hq), L), ((d, hkv), 2 * L), ((hq, d), L),
-                   ((d, ff), 2 * L), ((ff, d), L), ((d, cfg.vocab), 1)]
+    step_shapes = gemm_shapes(cfg)
     check(sum(c for _, c in step_shapes) == 7 * L + 1, "step shape counts")
     gen = torch.Generator(device="cuda").manual_seed(1)
 
@@ -319,11 +344,9 @@ def phase1(torch, detail: dict) -> dict:
 
     # The GEMMs of one forward of phase 7 (M = B x S rows), big class.
     fcfg = get_config(FWD_ARCH)
-    fm, fd, ff, fl = FWD_BATCH * FWD_SEQ, fcfg.d_model, fcfg.d_ff, fcfg.n_layers
-    fq, fkv = fcfg.n_heads * fcfg.head_dim, fcfg.n_kv_heads * fcfg.head_dim
+    fm, fl = FWD_BATCH * FWD_SEQ, fcfg.n_layers
     fwd = {"ms": 0.0, "lean_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for (k, n), count in (((fd, fq), fl), ((fd, fkv), 2 * fl), ((fq, fd), fl),
-                          ((fd, ff), 2 * fl), ((ff, fd), fl), ((fd, fcfg.vocab), 1)):
+    for (k, n), count in gemm_shapes(fcfg):
         cfgb = big.block_config(fm, k, n, "bfloat16", 2)
         a, bs = operands(fm, k, n)
         got = G.gemm_cuda(a, bs[0], cfgb)
@@ -764,6 +787,251 @@ def phase8(torch, counts, reset) -> dict:
             "logit_diff_vs_gather": diff}
 
 
+def phase9(torch, counts, reset, tok2) -> dict:
+    """The measured loop: tune on the card, consume the cache, serve with
+    the step-time probe feeding the DAS scheduler, calibrate the ratios."""
+
+    import numpy as np
+
+    from repro_torch import observability as OBS
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.core.blocking import H100, MIN_PIPELINE_STAGES, BlockConfig, derive_block_config
+    from repro_torch.core.control_tree import build_control_trees
+    from repro_torch.kernels import gemm as G
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.observability import report
+    from repro_torch.tuning import cache as C
+    from repro_torch.tuning import measure as M
+    from repro_torch.tuning import tune
+    from repro_torch.tuning.ratio import ClassMeasurement
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    cfg, fcfg = get_config(ARCH), get_config(FWD_ARCH)
+    mesh = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    m_dec = mesh.n_pods * mesh.batch_layout(BATCH).c_max  # the engine's slot table
+    # Distinct shapes only: a repeated one would be a cache hit, not a search.
+    dec = list(dict.fromkeys((m_dec, k, n) for (k, n), _ in gemm_shapes(cfg)))
+    fwd = list(dict.fromkeys((FWD_BATCH * FWD_SEQ, k, n) for (k, n), _ in gemm_shapes(fcfg)))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    cache_path = os.path.join(OUT_DIR, "tuning_cache.json")
+    if os.path.exists(cache_path):
+        os.remove(cache_path)
+
+    # (a) The two-stage search, timed on the card, into a fresh cache.
+    searches = []
+    for spec, shapes in (("h100", fwd + dec), ("h100-little", dec)):
+        t0 = time.perf_counter()
+        summary = tune.main(["--spec", spec, "--backend", "wallclock", "--two-stage", "on",
+                             "--shapes", ",".join("x".join(map(str, s)) for s in shapes),
+                             "--cache", cache_path])
+        print(f"  tuned {spec}: {len(shapes)} shapes in {time.perf_counter() - t0:.1f} s", flush=True)
+        for r in summary["shapes"]:
+            check(not r["cache_hit"] and r["n_candidates"] > 0, f"{spec} {r['shape']}: no search ran")
+            print(f"    {spec} {'x'.join(map(str, r['shape']))}: analytical "
+                  f"{'x'.join(map(str, r['analytical']))} {r['analytical_time_s'] * 1e3:.4f} ms; "
+                  f"winner {'x'.join(map(str, r['best']))} {r['best_backend']} "
+                  f"{r['best_time_s'] * 1e3:.4f} ms ({r['speedup_vs_analytical']:.3f}x); "
+                  f"{r['n_candidates']} timed, {r['n_pruned']} pruned, {r['search_s']:.2f} s", flush=True)
+            searches.append({"spec": spec, **r})
+    out["searches"] = searches
+    cache = C.TuningCache.load(cache_path)
+    check(len(cache.entries) == len(fwd) + 2 * len(dec), f"cache holds {len(cache.entries)} entries")
+
+    # (b) Every winning block through its kernel against its plain version.
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for r in searches:
+        mm, k, n = r["shape"]
+        blk = BlockConfig(bm=r["best"][0], bk=r["best"][1], bn=r["best"][2])
+        a = torch.randn((mm, k), generator=gen, device="cuda").to(torch.bfloat16)
+        b = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+        kern = G.GEMM_KERNELS[r["best_backend"]]
+        got = kern(a, b, blk)
+        ok, err = within(torch, got, G.gemm_plain(a, b, blk), BF16_TOL)
+        check(ok, f"tuned {r['spec']} {mm}x{k}x{n} {blk} on {r['best_backend']}: max err {err}")
+        both = blk.smem_bytes(MIN_PIPELINE_STAGES) <= H100.smem_bytes  # the pipelined ring holds it too
+        if both:
+            other = (G.gemm_cuda if r["best_backend"] == "cuda_lean" else G.gemm_cuda_lean)(a, b, blk)
+            check(torch.equal(got, other), f"tuned block {blk}: lean != pipelined bitwise")
+        r["max_abs_err"], r["bitwise_both"] = err, both
+        del a, b, got
+    print(f"  every tuned block within {BF16_TOL} of its plain version; lean == pipelined bitwise "
+          f"where both run ({sum(r['bitwise_both'] for r in searches)} of {len(searches)})", flush=True)
+
+    # (c) The cache consumed: trees, the tuned forward against the analytical.
+    os.environ[C.ENV_VAR] = cache_path
+    try:
+        trees = {}
+        for shape in dict.fromkeys(dec + fwd):
+            rows = mesh.control_trees(shape)
+            cols = build_control_trees({c.name: c.spec for c in mesh.classes}, *shape,
+                                       backend="cuda", coarse_loop="cols")
+            for name, tree in rows.items():
+                held = cache.get(tree.spec.name, "bfloat16", *shape)
+                if held is None:
+                    continue
+                # Loop 3 honours another class's entry only at the anchor's bk.
+                want = "tuned" if name == "big" or held.bk == rows["big"].block.bk else "analytical"
+                check(tree.block_source == want, f"{name} tree at {shape}: {tree.block_source}, want {want}")
+                check(cols[name].block_source == "tuned", f"{name} cols tree at {shape} not tuned")
+            trees["x".join(map(str, shape))] = {
+                n: [t.block_source, [t.block.bm, t.block.bk, t.block.bn], t.backend]
+                for n, t in rows.items()}
+        print(f"  control trees (rows): {trees}", flush=True)
+        out["trees"] = trees
+
+        params = Z.init_params(fcfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, fcfg.vocab, (FWD_BATCH, FWD_SEQ), dtype=np.int32), device="cuda")
+        prefill = Z.make_prefill_fn(fcfg)
+        big = mesh.execution_context("big")
+        blocks = {s: (big.block_config(*s, "bfloat16", 2),
+                      derive_block_config(*s, spec=big.spec)) for s in fwd}
+        print("  forward blocks (tuned / analytical): "
+              f"{ {'x'.join(map(str, s)): [[t.bm, t.bk, t.bn], [a.bm, a.bk, a.bn]] for s, (t, a) in blocks.items()} }",
+              flush=True)
+        # The host's cost of a lookup: every GEMM call asks the cache.
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            os.stat(cache_path)
+        stat_us = (time.perf_counter() - t0) * 1e3
+        lookup_us = {}
+        for label in ("tuned", "analytical"):
+            if label == "tuned":
+                os.environ[C.ENV_VAR] = cache_path
+            else:
+                os.environ.pop(C.ENV_VAR, None)
+            t0 = time.perf_counter()
+            for _ in range(200):
+                for s in fwd:
+                    big.block_config(*s, "bfloat16", 2)
+            lookup_us[label] = (time.perf_counter() - t0) / (200 * len(fwd)) * 1e6
+        print(f"  host cost: os.stat of the cache file {stat_us:.2f} us; a GEMM call's block "
+              f"lookup {lookup_us['tuned']:.2f} us tuned, {lookup_us['analytical']:.2f} us analytical",
+              flush=True)
+        out["host_us"] = {"stat": stat_us, "lookup": lookup_us}
+
+        def forward(label: str):
+            # "tuned-stat" re-checks the cache file's mtime on every lookup,
+            # as the cache did before STAT_INTERVAL_S: the lookup's host cost.
+            C.STAT_INTERVAL_S = 0.0 if label == "tuned-stat" else interval
+            if label == "analytical":
+                os.environ.pop(C.ENV_VAR, None)
+            else:
+                os.environ[C.ENV_VAR] = cache_path
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad(), big:
+                logits = prefill(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(counts()["gemm_cuda"] == 7 * fcfg.n_layers + 1, f"forward GEMM launches {counts()}")
+            return logits, wall
+
+        interval = C.STAT_INTERVAL_S
+        arms = ("tuned", "analytical", "tuned-stat")
+        for label in arms:  # warm-up
+            forward(label)
+        walls = {label: [] for label in arms}
+        logits = {}
+        for i in range(3):
+            for label in (arms if i % 2 == 0 else arms[::-1]):
+                logits[label], w = forward(label)
+                walls[label].append(w)
+        C.STAT_INTERVAL_S = interval
+        diff = float((logits["tuned"].float() - logits["analytical"].float()).abs().max())
+        med = {k: sorted(v)[1] for k, v in walls.items()}
+        print(f"  {FWD_ARCH} forward {FWD_BATCH} x {FWD_SEQ}: "
+              + "; ".join(f"{k} {[round(w * 1e3, 2) for w in v]} ms (median {med[k] * 1e3:.2f})"
+                          for k, v in walls.items())
+              + f"; max |logit diff| tuned vs analytical {diff:.4f} (tol {LOGIT_TOL})", flush=True)
+        check(diff <= LOGIT_TOL, f"tuned vs analytical forward logits differ by {diff}")
+        out["forward"] = {"walls_s": walls, "median_s": med, "logit_diff": diff,
+                          "blocks": {"x".join(map(str, s)): [[t.bm, t.bk, t.bn], [a.bm, a.bk, a.bn]]
+                                     for s, (t, a) in blocks.items()}}
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # PERF.md's open question: 128 x 128 or 128 x 256 at 4096 x 3072 x 1024.
+        shape = (FWD_BATCH * FWD_SEQ, fcfg.d_model, fcfg.n_kv_heads * fcfg.head_dim)
+        ana = derive_block_config(*shape)
+        wide = BlockConfig(bm=128, bk=ana.bk, bn=256)
+        q7 = {}
+        for label, blk in (("analytical", ana), ("128x256", wide), ("analytical", ana), ("128x256", wide)):
+            q7.setdefault(label, []).append(M.wallclock_time(*shape, blk, device="cuda"))
+        print(f"  {'x'.join(map(str, shape))}: analytical {ana.bm}x{ana.bk}x{ana.bn} "
+              f"{[round(t * 1e3, 4) for t in q7['analytical']]} ms, {wide.bm}x{wide.bk}x{wide.bn} "
+              f"{[round(t * 1e3, 4) for t in q7['128x256']]} ms (device time)", flush=True)
+        out["question_128x128_vs_128x256"] = {"shape": list(shape), "analytical": [ana.bm, ana.bk, ana.bn],
+                                               "ms": {k: [t * 1e3 for t in v] for k, v in q7.items()}}
+
+        # (d) The traced engine: the probe measures on the card, the DAS
+        # scheduler observes, the tokens stay phase 2's.
+        os.environ[C.ENV_VAR] = cache_path
+        trace_path = os.path.join(OUT_DIR, "serve_trace.json")
+        metrics_path = os.path.join(OUT_DIR, "serve_metrics.json")
+        reset()
+        summary, tok9, eng, wall9 = run_serve(
+            ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+             "--gen-len", str(GEN_LEN), "--seed", "0", "--trace", trace_path, "--metrics", metrics_path])
+        launches = counts()
+    finally:
+        os.environ.pop(C.ENV_VAR, None)
+    check(not OBS.enabled(), "tracing still on after the traced serve")
+    probe = eng.pod_time_hook
+    sched = eng.asym.scheduler
+    with open(metrics_path) as f:
+        snap = json.load(f)
+    fams = ("engine_queue_depth", "engine_slot_occupancy", "engine_admissions_total",
+            "engine_tokens_total", "engine_tokens_per_s", "engine_decode_step_seconds",
+            "probe_refreshes_total", "probe_row_seconds")
+    missing = [f for f in fams if f not in snap]
+    check(not missing, f"metrics snapshot lacks {missing}")
+    row_s = {s["labels"]["device_class"]: s["value"] for s in snap["probe_row_seconds"]["samples"]}
+    refreshes = snap["probe_refreshes_total"]["samples"][0]["value"]
+    events, _ = report.load_events(trace_path)
+    summ = report.summarize(events)
+    spans = sorted({e["name"] for e in events})
+    same = bool(np.array_equal(tok9, tok2))
+    print(f"  traced engine: {summary['tokens_per_s']} tokens/s smoke reading, wall {wall9:.2f} s; "
+          f"probe refreshes {refreshes:g}, row seconds {row_s}; scheduler rates "
+          f"{[round(float(r), 4) for r in sched.rates]}, drift {sched.drift():.4f}, rebalances "
+          f"{eng.stats.rebalances}; launches {launches}; tokens equal phase 2: {same}", flush=True)
+    check(probe.refreshes > 0 and refreshes > 0, "the probe never refreshed on the card")
+    check({"big", "little"} <= set(row_s) and all(v > 0 for v in row_s.values()),
+          f"probe_row_seconds per class: {row_s}")
+    check(launches["gemm_cuda_lean"] > 0, "the probe never launched gemm_cuda_lean under little")
+    check(summary.get("trace") == trace_path and summary.get("metrics") == metrics_path,
+          "serve summary lacks its trace/metrics paths")
+    check("engine.decode_step" in summ and "probe.refresh" in summ,
+          f"report.summarize of the trace lacks the engine's and the probe's spans: {spans}")
+    check(same, "the traced, tuned engine's tokens differ from phase 2's")
+
+    # (e) The ratios: typed, cost model, and the probe's measurement.
+    classes = biglittle_classes(chips_per_pod=1)
+    cost = AsymmetricMesh.from_calibration(classes, backend="cost-model", batch_tile=1)
+    rows = probe.probe_shape[0]
+    measured = AsymmetricMesh.from_calibration(
+        classes, backend="wallclock", batch_tile=1, probe_shape=probe.probe_shape,
+        measurements=[ClassMeasurement(c, rows, probe.last_measured[c]) for c in ("big", "little")])
+    ratios = {"typed": [c.rel_throughput for c in classes], "cost-model": list(cost.calibration.ratios),
+              "probe": list(measured.calibration.ratios)}
+    print(f"  little/big ratio: typed {ratios['typed'][1]}, cost model {ratios['cost-model'][1]:.4f}, "
+          f"probe {ratios['probe'][1]:.4f} (probe seconds at {'x'.join(map(str, probe.probe_shape))}: "
+          f"{ {k: round(v * 1e6, 2) for k, v in probe.last_measured.items()} } us)", flush=True)
+    out.update({"serve": summary, "serve_wall_s": wall9, "tokens_equal_phase2": same,
+                "probe_row_seconds": row_s, "probe_refreshes": refreshes,
+                "probe_seconds": probe.last_measured, "scheduler_rates": [float(r) for r in sched.rates],
+                "drift": sched.drift(), "rebalances": eng.stats.rebalances, "launches": launches,
+                "report_spans": spans, "ratios": ratios,
+                "phase_s": time.perf_counter() - t_phase})
+    print(f"  phase 9 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def phase5(torch, tokens) -> dict:
     """Teacher-forced replay of ``tokens`` (the dense engine's): the max
     |logit difference| at every generated step of the paged path and of
@@ -974,6 +1242,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"phase 8: one decode step at a long cache, {ARCH} at full width", flush=True)
     detail["long_cache_step"] = phase8(torch, counts, reset)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 9: the measured loop: tune on the card, consume the cache, serve with the "
+          "step-time probe feeding the scheduler", flush=True)
+    detail["measured_loop"] = phase9(torch, counts, reset, tok2)
 
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),

@@ -4,8 +4,9 @@ The paper's big.LITTLE clusters become *device classes*: groups of pods
 with unequal sustained throughput.  On one H100 the little class is a
 modeled spec on the same card (half the shared memory, half the peak and
 bandwidth — ``blocking.H100_LITTLE``), so every class is served by one
-program; the class-sharded mixed step and calibration from measurements
-arrive with later slices.
+program; the class-sharded mixed step arrives with a later slice.
+:meth:`AsymmetricMesh.from_calibration` replaces the typed ratios with
+calibrated ones (the cost model, or the step-time probe's measurements).
 
 :class:`AsymmetricMesh` couples the classes with a per-class performance
 model and the schedulers of :mod:`repro_torch.core.schedule`:
@@ -106,6 +107,7 @@ class AsymmetricMesh:
         self.backend = backend
         self.objective = S.validate_objective(objective)
         self._trees: dict[tuple[int, int, int], dict] = {}
+        self.calibration = None  # set by from_calibration()
         self.n_pods = sum(c.n_pods for c in self.classes)
         # Per-pod throughput weights (a class may own several pods).
         self._pod_class = [
@@ -124,6 +126,53 @@ class AsymmetricMesh:
             objective=objective,
             powers=self.pod_active_watts() if objective != "perf" else None,
         )
+
+    @classmethod
+    def from_calibration(
+        cls,
+        classes: Sequence[DeviceClass],
+        calibration=None,
+        *,
+        probe_shape: tuple[int, int, int] = (1024, 1024, 1024),
+        backend: str = "cost-model",
+        measurements=None,
+        **kwargs,
+    ) -> "AsymmetricMesh":
+        """Build a mesh whose per-class throughputs are *measured*, not typed.
+
+        Runs (or accepts) a :class:`repro_torch.tuning.ratio.Calibration`
+        over ``classes`` and replaces each class's hand-set
+        ``rel_throughput`` with the calibrated ratio — the paper's Section
+        5.2.2 knob, set empirically.  With ``backend="wallclock"`` pass
+        ``measurements`` (per-class
+        :class:`~repro_torch.tuning.ratio.ClassMeasurement` records, e.g.
+        the step-time probe's per-class seconds): one card cannot
+        wallclock-compare heterogeneous class specs itself.  The result
+        seeds ``DynamicScheduler.init_ratios``; the between-steps feedback
+        keeps refining from there.
+        """
+
+        from repro_torch.tuning.ratio import calibrate_class_ratios
+
+        if calibration is None:
+            calibration = calibrate_class_ratios(
+                classes,
+                probe_shape=probe_shape,
+                backend=backend,
+                measurements=measurements,
+            )
+        if len(calibration.ratios) != len(classes):
+            raise ValueError(
+                f"calibration covers {len(calibration.ratios)} classes, "
+                f"got {len(classes)}"
+            )
+        calibrated = [
+            dataclasses.replace(c, rel_throughput=float(r))
+            for c, r in zip(classes, calibration.ratios)
+        ]
+        mesh = cls(calibrated, **kwargs)
+        mesh.calibration = calibration
+        return mesh
 
     def _tiles(self) -> list[int]:
         # CA: each pod's chunk aligns to its own microbatch tile — a slower

@@ -146,11 +146,14 @@ H100_LITTLE = HopperClassSpec(
 )
 
 
+@functools.lru_cache(maxsize=None)
 def hopper_spec(little: bool = False, device=None) -> HopperClassSpec:
     """The class spec with shared memory and SM count read from the card.
 
     Falls back to the static H100 copy when no card is present (the CPU
     tests).  The little class keeps its halving relative to the card.
+    Memoised, so the device classes and the tuner's ``SPECS`` hold one
+    object per class.
     """
 
     import torch
@@ -206,6 +209,10 @@ BARRIER_BYTES = 16
 # (``kernels/gemm.ring_depth``).  ``chip_smoke.py`` phase 1 times the ring
 # against the one-stage kernel at the forward's shapes.
 PIPELINE_STAGES = 4
+# The shallowest ring the pipelined kernel runs a block with: a tuned block
+# for it must fit two stages (a block that fits one stage only is the lean
+# kernel's).
+MIN_PIPELINE_STAGES = 2
 WARPGROUP = 128       # threads of one warpgroup
 WGMMA_M = 64          # rows of one wgmma tile, one consumer warpgroup
 
@@ -421,6 +428,7 @@ __all__ = [
     "BM_TILES",
     "BN_TILES",
     "MAX_BK",
+    "MIN_PIPELINE_STAGES",
     "PIPELINE_STAGES",
     "WARPGROUP",
     "WGMMA_M",

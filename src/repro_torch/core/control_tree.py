@@ -14,7 +14,10 @@ Hopper's shared memory: under Loop 3 (``coarse_loop="rows"``) the staged
 B panel is shared, forcing a common ``bk``; a class whose shared memory
 cannot hold the shared panel in the pipelined ring keeps the full panel
 on the one-stage lean kernel when that fits, instead of shrinking ``bm``
-(which stops at the 64-row wgmma floor).
+(which stops at the 64-row wgmma floor).  Each class's block first
+consults the ``$REPRO_TORCH_TUNING_CACHE`` entry for *its own* spec (the
+paper's per-class empirical optimum), falling back to the analytical
+derivation; ``block_source`` records which won.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ class ControlTree:
     backend: Backend = "matmul"
     # Class spec used to derive `block`; kept for re-derivation.
     spec: B.HopperClassSpec = B.H100
-    # Provenance of `block`: "analytical" until the port has a tuning cache.
+    # Provenance of `block`: "tuned" (a cache hit for this class's spec) or
+    # "analytical" (the derivation / shared-panel re-derivation).
     block_source: str = "analytical"
     # (m, k, n) the tree was built for; execution contexts reuse `block`
     # verbatim for calls in the same tile-aligned shape bucket.
@@ -73,40 +77,75 @@ def build_control_trees(
     ring holds a larger panel than its pipelined ring (or the only panel
     that fits, when the pipelined ring cannot hold even the 64-row floor)
     keeps that panel on the lean kernel.
+
+    Each class's block resolves through :func:`repro_torch.core.execution.resolve_block_config`: the
+    active cache entry for that class's spec wins, and a recorded kernel
+    variant (``cuda_lean``) selects that kernel for the class (mapped onto
+    ``backend``'s family; ``matmul`` trees stay ``matmul``).  Under the
+    shared-B-panel constraint a tuned entry is honoured only if it keeps
+    the shared ``bk``; with ``cache_aware=False`` every class mirrors the
+    first class's configuration, its recorded variant included.
     """
 
     names = list(specs)
     if not names:
         raise ValueError("need at least one device class")
     first = names[0]
+    dtype_name = X.dtype_name_for_bytes(dtype_bytes)
     lean_backend = X.LEAN_VARIANTS.get(backend)  # None for matmul / lean itself
     stages = X.backend_stages(backend)
 
-    def _resolve(spec: B.HopperClassSpec) -> B.BlockConfig:
-        cfg, _ = X.resolve_block_config(
-            m, k, n, spec=spec, dtype_name=X.dtype_name_for_bytes(dtype_bytes),
-            dtype_bytes=dtype_bytes, stages=stages,
-        )
-        return cfg
+    def _recorded_variant(spec: B.HopperClassSpec) -> str:
+        """Backend for a tuned entry: the recorded variant in ``backend``'s
+        family; matmul trees stay matmul."""
 
-    base = _resolve(specs[first])
+        if backend == "matmul":  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
+            return backend
+        recorded = X.tuned_kernel_backend(m, k, n, spec=spec, dtype_name=dtype_name)
+        if recorded is None or recorded == "matmul":
+            return backend
+        return X.align_backend_family(recorded, backend)
+
+    def _resolve(spec: B.HopperClassSpec) -> tuple[B.BlockConfig, str]:
+        # Resolve under the ring of the kernel the tree will name: an entry
+        # recorded for the lean kernel pairs with the lean backend, so its
+        # one-stage-only block stays acceptable here.
+        return X.resolve_block_config(
+            m, k, n, spec=spec, dtype_name=dtype_name, dtype_bytes=dtype_bytes,
+            stages=X.backend_stages(_recorded_variant(spec)),
+        )
+
+    base, base_src = _resolve(specs[first])
     trees: dict[str, ControlTree] = {}
     for name in names:
         class_backend = backend
         if not cache_aware or name == first:
-            blk = base
+            blk, src = base, base_src
+            if src == "tuned":
+                # Always the first class's variant: with cache_aware=False
+                # every class mirrors the first class wholesale.
+                class_backend = _recorded_variant(specs[first])
         elif coarse_loop == "rows":
-            blk = _rederive_bm(specs[name], base, dtype_bytes, stages=stages)
-            if lean_backend is not None:
-                lean_blk = _rederive_bm(specs[name], base, dtype_bytes, stages=1)
-                # The lean kernel keeps the wider panel — or the only one
-                # that fits, once bm is at the wgmma floor.
-                if (lean_blk.fits(specs[name], stages=1), lean_blk.bm) > (
-                        blk.fits(specs[name], stages=stages), blk.bm):
-                    blk, class_backend = lean_blk, lean_backend
+            tuned = X.tuned_block_config(m, k, n, spec=specs[name], dtype_name=dtype_name,
+                                         dtype_bytes=dtype_bytes)
+            if tuned is not None and tuned.bk == base.bk:
+                blk, src = tuned, "tuned"
+                class_backend = _recorded_variant(specs[name])
+            else:
+                src = "analytical"
+                blk = _rederive_bm(specs[name], base, dtype_bytes, stages=stages)
+                if lean_backend is not None:
+                    lean_blk = _rederive_bm(specs[name], base, dtype_bytes, stages=1)
+                    # The lean kernel keeps the wider panel — or the only
+                    # one that fits, once bm is at the wgmma floor.
+                    if (lean_blk.fits(specs[name], stages=1), lean_blk.bm) > (
+                            blk.fits(specs[name], stages=stages), blk.bm):
+                        blk, class_backend = lean_blk, lean_backend
         else:
             # Independent panels (Loop 1): fully independent resolution.
-            blk = _resolve(specs[name])
+            blk, src = _resolve(specs[name])
+            if src == "tuned":
+                class_backend = _recorded_variant(specs[name])
         trees[name] = ControlTree(
             device_class=name,
             block=blk,
@@ -114,7 +153,7 @@ def build_control_trees(
             fine_loop=fine_loop,
             backend=class_backend,
             spec=specs[name],
-            block_source="analytical",
+            block_source=src,
             problem_shape=(m, k, n),
         )
     return trees

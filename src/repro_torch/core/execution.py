@@ -9,9 +9,9 @@ The port's counterpart of ``repro.core.execution`` (its dispatch half):
     code never threads ``config=``/``backend=`` by hand.
   * the **backend dispatch table** (:data:`BACKENDS`) — the one
     vocabulary of kernel implementations, tagged by op family.
-  * :func:`resolve_block_config` — the analytical derivation under the
-    class's Hopper spec (the tuning cache arrives with the tuning slice;
-    until then the ``tuned_*`` lookups return ``None``).
+  * :func:`resolve_block_config` — the ``$REPRO_TORCH_TUNING_CACHE`` entry
+    for the class's Hopper spec when its kernel can hold it, else the
+    analytical derivation under that spec.
 
 Names against the reference's vocabulary:
 
@@ -46,6 +46,7 @@ import torch
 
 from repro_torch.core.blocking import (
     H100,
+    MIN_PIPELINE_STAGES,
     PIPELINE_STAGES,
     BlockConfig,
     HopperClassSpec,
@@ -208,6 +209,25 @@ def backend_stages(name: str) -> int:
     return 1 if name in _LEAN_BACKENDS else PIPELINE_STAGES
 
 
+def min_stages(stages: int) -> int:
+    """The ring a block must fit to run on a kernel of ``stages``: one
+    stage for the lean kernel, ``MIN_PIPELINE_STAGES`` for the pipelined
+    one (``kernels/gemm.ring_depth`` shortens its ring to what fits)."""
+
+    return 1 if stages == 1 else MIN_PIPELINE_STAGES
+
+
+def align_backend_family(variant: str, requested: str) -> str:
+    """Map a recorded kernel variant onto ``requested``'s family: a tree
+    built on the plain versions runs the variant's plain twin, a kernel
+    tree the kernel (a plain name that leaked into a cache maps back)."""
+
+    if PLAIN_TWIN[requested] == requested:
+        return plain_twin(variant)
+    return {twin: name for name, twin in PLAIN_TWIN.items()
+            if BACKEND_OPS[name] == "gemm" and name != twin}.get(variant, variant)
+
+
 def validate_registry() -> list[str]:
     """Statically verify the dispatch tables' closure invariants.
 
@@ -342,7 +362,7 @@ def dispatch_flash_attention(
 
 
 # ---------------------------------------------------------------------------
-# Block-config resolution (analytical; the tuning cache is a later slice)
+# Block-config resolution: the tuning cache, else the analytical derivation
 # ---------------------------------------------------------------------------
 
 _DTYPE_NAMES = {1: "int8", 2: "bfloat16", 4: "float32"}
@@ -352,19 +372,76 @@ def dtype_name_for_bytes(dtype_bytes: int) -> str:
     return _DTYPE_NAMES.get(dtype_bytes, f"bytes{dtype_bytes}")
 
 
-def tuned_block_config(m, k, n, *, spec=None, dtype_name="bfloat16",
-                       dtype_bytes=2) -> Optional[BlockConfig]:
-    """The tuning-cache entry for this shape — none until the port has a
-    tuning cache."""
+def tuned_block_config(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    spec: Optional[HopperClassSpec] = None,
+    dtype_name: str = "bfloat16",
+    dtype_bytes: int = 2,
+) -> Optional[BlockConfig]:
+    """The ``$REPRO_TORCH_TUNING_CACHE`` entry for this (spec, dtype,
+    shape), or None.  ``spec=None`` reads the spec name from
+    ``$REPRO_TORCH_TUNING_SPEC`` (default ``h100``)."""
 
-    return None
+    from repro_torch.tuning.cache import cached_block_config
+
+    return cached_block_config(
+        m, k, n, dtype_name, dtype_bytes,
+        spec_name=spec.name if spec is not None else None,
+    )
 
 
-def tuned_kernel_backend(m, k, n, *, spec=None, dtype_name="bfloat16") -> Optional[str]:
-    """The kernel variant the tuner recorded — none until the port has a
-    tuning cache."""
+def tuned_kernel_backend(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    spec: Optional[HopperClassSpec] = None,
+    dtype_name: str = "bfloat16",
+) -> Optional[str]:
+    """The kernel variant the tuner recorded for this entry, or None when
+    the entry records none (or a name that is not a GEMM entry)."""
 
-    return None
+    from repro_torch.tuning.cache import cached_kernel_backend
+
+    name = cached_kernel_backend(
+        m, k, n, dtype_name, spec_name=spec.name if spec is not None else None
+    )
+    return name if BACKEND_OPS.get(name) == "gemm" else None
+
+
+def _usable_tuned(
+    m: int,
+    k: int,
+    n: int,
+    *,
+    spec: Optional[HopperClassSpec],
+    dtype_name: str,
+    dtype_bytes: int,
+    stages: int,
+) -> Optional[BlockConfig]:
+    """The tuned entry if a kernel with a ``stages``-deep ring can run it.
+
+    A pipelined consumer (``stages > 1``) never takes an entry recorded for
+    the lean kernel, nor one that does not fit its shortest ring in the
+    class's shared memory; any entry that fits one stage suits the lean
+    kernel.
+    """
+
+    cfg = tuned_block_config(
+        m, k, n, spec=spec, dtype_name=dtype_name, dtype_bytes=dtype_bytes
+    )
+    if cfg is None:
+        return None
+    if stages > 1:
+        recorded = tuned_kernel_backend(m, k, n, spec=spec, dtype_name=dtype_name)
+        if recorded is not None and backend_stages(recorded) == 1:
+            return None
+    if spec is not None and not cfg.fits(spec, stages=min_stages(stages)):
+        return None
+    return cfg
 
 
 def resolve_block_config(
@@ -377,9 +454,19 @@ def resolve_block_config(
     dtype_bytes: int = 2,
     stages: int = PIPELINE_STAGES,
 ) -> tuple[BlockConfig, str]:
-    """``(config, source)``: the analytical derivation under ``spec`` for
-    a kernel with a ``stages``-deep ring (source ``"analytical"``)."""
+    """``(config, source)``: the tuned entry on a usable cache hit (source
+    ``"tuned"``), else the analytical derivation under ``spec`` for a
+    kernel with a ``stages``-deep ring (``"analytical"``).
 
+    A hit reaches a consumer only if its kernel can hold it: an entry
+    recorded for the lean kernel, or one that does not fit the pipelined
+    kernel's ring, never reaches the pipelined kernel (``_usable_tuned``).
+    """
+
+    cfg = _usable_tuned(m, k, n, spec=spec, dtype_name=dtype_name,
+                        dtype_bytes=dtype_bytes, stages=stages)
+    if cfg is not None:
+        return cfg, "tuned"
     return (
         derive_block_config(
             m, k, n, spec=spec or H100, dtype_bytes=dtype_bytes, stages=stages
@@ -393,11 +480,16 @@ def resolve_block_config(
 # ---------------------------------------------------------------------------
 
 
-def _same_bucket(a: tuple[int, int, int], b: tuple[int, int, int], align: int) -> bool:
-    """Do two problem shapes round up to the same tile-aligned dims?"""
+def _same_bucket(a: tuple[int, int, int], b: tuple[int, int, int]) -> bool:
+    """Do two problem shapes round up to the same aligned dims?
 
-    bucket = lambda d: max(align, _round_up(d, align))  # noqa: E731
-    return all(bucket(x) == bucket(y) for x, y in zip(a, b))
+    Uses the tuning cache's own bucket function, so block reuse can never
+    drift from the cache keys.
+    """
+
+    from repro_torch.tuning.cache import _bucket
+
+    return all(_bucket(x) == _bucket(y) for x, y in zip(a, b))
 
 
 _ACTIVE: contextvars.ContextVar[Optional["ExecutionContext"]] = contextvars.ContextVar(
@@ -418,7 +510,8 @@ class ExecutionContext:
     backend from ``tree.backend`` and resolve their block shapes per call
     shape under ``tree.spec``.  ``tree.block`` is the canonical-shape
     config carrying the Section-5.3 shared-panel structure; calls in its
-    shape bucket reuse it, others re-derive for the class.
+    shape bucket reuse it, others take the class's tuned entry or
+    re-derive for the class.
     """
 
     device_class: str
@@ -447,15 +540,19 @@ class ExecutionContext:
     def block_config(
         self, m: int, k: int, n: int, dtype_name: str, dtype_bytes: int
     ) -> BlockConfig:
-        """Per-call-shape block config for this class.
+        """Per-call-shape block config for this class (tuned or analytical).
 
         Hand-built trees (no ``problem_shape``) are authoritative: their
         block is used on every call, clamped to the call's tile-rounded
         dims, re-labelled to the call's operand bytes when that still
         fits.  Mesh-built trees reuse ``tree.block`` for calls in the
-        bucket they were built for (re-labelled if it fits); every other
-        call re-derives under this class's spec and the tree kernel's
-        staging depth.
+        bucket they were built for on a dtype match; otherwise a tuned
+        cache entry for this class's spec at the call's dtype wins if the
+        tree's kernel can hold it (under a Loop-3 tree, in the tree's
+        bucket, only if it keeps the shared ``bk``, the rule
+        ``build_control_trees`` enforces); then the re-labelled
+        ``tree.block`` (in its bucket, if it fits); then a derivation under
+        this class's spec and the tree kernel's ring depth.
         """
 
         tree = self.tree
@@ -472,13 +569,20 @@ class ExecutionContext:
                 bn=min(blk.bn, largest_tile(BN_TILES, pad(n))),
             )
 
-        reuse = hand_built or _same_bucket((m, k, n), tree.problem_shape, align)
+        reuse = hand_built or _same_bucket((m, k, n), tree.problem_shape)
         if reuse and tree.block.dtype_bytes == dtype_bytes:
             return _clamp(tree.block) if hand_built else tree.block
-        if reuse:
-            relabeled = dataclasses.replace(tree.block, dtype_bytes=dtype_bytes)
-            if relabeled.fits(tree.spec, stages=stages):
-                return _clamp(relabeled) if hand_built else relabeled
+        relabeled = dataclasses.replace(tree.block, dtype_bytes=dtype_bytes) if reuse else None
+        if hand_built and relabeled.fits(tree.spec, stages=stages):
+            return _clamp(relabeled)
+        tuned = _usable_tuned(m, k, n, spec=tree.spec, dtype_name=dtype_name,
+                              dtype_bytes=dtype_bytes, stages=stages)
+        if tuned is not None and (
+            not reuse or tree.coarse_loop != "rows" or tuned.bk == tree.block.bk
+        ):
+            return tuned
+        if reuse and not hand_built and relabeled.fits(tree.spec, stages=stages):
+            return relabeled
         return derive_block_config(
             m, k, n, spec=tree.spec, dtype_bytes=dtype_bytes, stages=stages
         )
@@ -520,6 +624,7 @@ __all__ = [
     "PLAIN_TWIN",
     "LEAN_VARIANTS",
     "ExecutionContext",
+    "align_backend_family",
     "backend_op",
     "backend_stages",
     "context_for_tree",
@@ -529,6 +634,7 @@ __all__ = [
     "dispatch_gemm",
     "dispatch_paged_attention",
     "dtype_name_for_bytes",
+    "min_stages",
     "on_cuda",
     "plain_twin",
     "resolve_backend",

@@ -41,6 +41,7 @@ from repro_torch.core.blocking import (
     BM_TILES,
     BN_TILES,
     MAX_BK,
+    MIN_PIPELINE_STAGES,
     PIPELINE_STAGES,
     BlockConfig,
     H100,
@@ -175,15 +176,25 @@ def _tma_ready(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
+def compiled_tile(cfg: BlockConfig) -> bool:
+    """Is ``cfg`` a tile shape the CUDA GEMM is compiled for (``bm`` and
+    ``bn`` from the tile sets, ``bk`` whole swizzle rows up to ``MAX_BK``)?"""
+
+    return (cfg.bm in BM_TILES and cfg.bn in BN_TILES and cfg.bk % BK_ALIGN == 0
+            and 0 < cfg.bk <= MAX_BK)
+
+
 def ring_depth(cfg: BlockConfig) -> int:
     """Stages of the pipelined kernel's ring for ``cfg``: ``PIPELINE_STAGES``,
-    or as many (at least 2) as fit the shared memory a block may claim."""
+    or as many (at least ``MIN_PIPELINE_STAGES``) as fit the shared memory
+    a block may claim."""
 
-    for stages in range(PIPELINE_STAGES, 1, -1):
+    for stages in range(PIPELINE_STAGES, MIN_PIPELINE_STAGES - 1, -1):
         if cfg.smem_bytes(stages) <= H100.smem_bytes:
             return stages
     raise ValueError(
-        f"{cfg} needs {cfg.smem_bytes(2)} B of shared memory in a 2-stage ring; a block "
+        f"{cfg} needs {cfg.smem_bytes(MIN_PIPELINE_STAGES)} B of shared memory in a "
+        f"{MIN_PIPELINE_STAGES}-stage ring; a block "
         f"may claim {H100.smem_bytes} B"
     )
 
@@ -197,8 +208,7 @@ def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> tor
         raise TypeError(f"the CUDA GEMM takes bf16 operands, got {a.dtype} @ {b.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the CUDA GEMM writes bf16 or fp32, not {out_dtype}")
-    if (cfg.bm not in BM_TILES or cfg.bn not in BN_TILES or cfg.bk % BK_ALIGN
-            or not 0 < cfg.bk <= MAX_BK):
+    if not compiled_tile(cfg):
         raise ValueError(f"{cfg} is not a compiled tile shape")
     if cfg.smem_bytes(stages) > H100.smem_bytes:
         raise ValueError(
@@ -266,6 +276,7 @@ GEMM_KERNELS = {
 __all__ = [
     "ALIGN",
     "GEMM_KERNELS",
+    "compiled_tile",
     "LAUNCHES",
     "gemm_cuda",
     "gemm_cuda_lean",

@@ -61,6 +61,13 @@ def gemm(
     return out.reshape(*lead, b.shape[1])
 
 
+def gemm_with_tree(a: torch.Tensor, b: torch.Tensor, tree, out_dtype=None) -> torch.Tensor:
+    """GEMM configured by a device class's control tree."""
+
+    with X.context_for_tree(tree):
+        return gemm(a, b, out_dtype=out_dtype)
+
+
 def linear(x, w, b=None, *, config=None, backend: str = "auto"):
     """Affine layer on top of :func:`gemm` (bias in fp32, cast back)."""
 
@@ -70,4 +77,4 @@ def linear(x, w, b=None, *, config=None, backend: str = "auto"):
     return y
 
 
-__all__ = ["gemm", "linear"]
+__all__ = ["gemm", "gemm_with_tree", "linear"]

@@ -6,8 +6,11 @@ the legacy path (a per-call batch, prompt replayed through the decode
 recurrence, token-by-token decode) as the comparison baseline, and
 ``--device-class`` serves it under one class's control tree.  Both run on
 the CUDA card unless ``--device cpu`` is given (the kernels' plain
-versions then run).  The fleet, tracing/metrics and class-sharded
-branches of the reference's CLI arrive with later slices.
+versions then run).  ``--trace``/``--metrics`` enable observability: the
+engine's spans and metric families, and its default step-time probe,
+which times each class's kernel and feeds the DAS scheduler.  The fleet
+and class-sharded branches of the reference's CLI arrive with later
+slices.
 
 Example (one H100)::
 
@@ -146,6 +149,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-size", type=int, default=None)
     ap.add_argument("--pool-pages", type=int, default=None)
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable observability and write the trace here (summarize "
+                         "with python -m repro_torch.observability.report)")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="enable observability and write a metrics JSON snapshot here")
     return ap
 
 
@@ -169,6 +177,11 @@ def serve(args, *, params=None):
         raise SystemExit("--device-class applies to the --one-shot path only")
     if args.one_shot and args.paged != "off":
         raise SystemExit("--paged applies to the engine path only")
+
+    if args.trace or args.metrics:
+        from repro_torch import observability as OBS
+
+        OBS.enable()
 
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -217,6 +230,17 @@ def serve(args, *, params=None):
     if engine is not None:
         summary["engine"] = {"slots": [engine.n_pods, engine.c_max],
                              **engine.stats.snapshot(), "kv_pool": engine.kv_stats()}
+    if args.trace or args.metrics:
+        from repro_torch import observability as OBS
+        from repro_torch.util.atomic import atomic_write_json
+
+        buf = OBS.disable()  # the session is over; later work goes untraced
+        if args.trace:
+            summary["trace"] = buf.save(args.trace)
+        if args.metrics:
+            summary["metrics"] = atomic_write_json(
+                args.metrics, OBS.REGISTRY.snapshot(), indent=1, sort_keys=True
+            )
     return summary, out, engine
 
 

@@ -1,8 +1,24 @@
-"""Telemetry: trace spans (a copy of the reference's ``repro.observability.trace``).
+"""Telemetry for the port: spans, metrics, the step-time probe.
 
-Metrics and the step-time probe arrive with the observability slice.
+The port's counterpart of ``repro.observability``; ``trace``, ``metrics``
+and ``report`` are copies of the reference's modules (only their import
+lines differ), ``probe`` times each class's own CUDA kernel on the card.
+
+  * :mod:`repro_torch.observability.trace` — nested spans over a bounded
+    event buffer, exported as Chrome-trace/Perfetto JSON.
+  * :mod:`repro_torch.observability.metrics` — labeled counters, gauges
+    and histograms with Prometheus text exposition and a JSON snapshot.
+  * :mod:`repro_torch.observability.probe` — the measured per-pod
+    step-time probe, the serving engine's default ``pod_time_hook``.
+
+Everything is off by default and the disabled path is one ``None`` check
+per site.  Enable with :func:`enable` (or ``repro_torch.launch.serve
+--trace/--metrics``) and summarize with ``python -m
+repro_torch.observability.report``.
 """
 
+from repro_torch.observability import metrics  # noqa: F401
+from repro_torch.observability.metrics import REGISTRY  # noqa: F401
 from repro_torch.observability.trace import (  # noqa: F401
     disable,
     enable,
@@ -10,4 +26,4 @@ from repro_torch.observability.trace import (  # noqa: F401
     get_buffer,
 )
 
-__all__ = ["enable", "disable", "enabled", "get_buffer"]
+__all__ = ["enable", "disable", "enabled", "get_buffer", "metrics", "REGISTRY"]

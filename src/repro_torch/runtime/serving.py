@@ -18,6 +18,15 @@ fewer devices than pods).  What carries over:
     the decode loop.
   * **Bulk prefill** through the decode recurrence, so a prefilled slot is
     bitwise indistinguishable from one that decoded its prompt.
+  * **Measured straggler feedback** — after every step the
+    ``pod_time_hook`` (by default a
+    :class:`~repro_torch.observability.probe.StepTimeProbe` timing each
+    class's own kernel on the card) feeds per-pod seconds to
+    ``asym.observe_step``, so the DAS scheduler re-derives slot budgets
+    from measured speed.  The probe is inert while observability is off.
+  * **Telemetry** — spans (``engine.prefill``, ``engine.decode_step``,
+    ``engine.decode_shard``, page and rebalance instants) and the engine
+    metric families, recorded only while observability is enabled.
 
 The decode state is updated in place (the reference donates it through
 its jitted step).  Exactness contract, as in the reference: the paged
@@ -27,18 +36,18 @@ through a shared phantom page lane per pod; retired lanes are marked dead
 via ``live`` in both engines).
 
 Waiting for later slices: the class-sharded mixed step (never taken on
-one card), the energy/EDP parking objectives, engine metrics and the
-step-time probe with its ``pod_time_hook`` (the reference's default probe
-returns ``None`` while observability is off, so the scheduler's
-calibration stays frozen, as it does here), and the fleet surface.
+one card), the energy/EDP parking objectives (with their
+``engine_modeled_watts`` and ``engine_pods_parked`` metrics), and the
+fleet surface.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import time
-from typing import Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,12 +57,71 @@ from repro_torch.core.asymmetric import AsymmetricMesh
 from repro_torch.core.schedule import deficit_route
 from repro_torch.models import model_zoo as Z
 from repro_torch.models import transformer as TX
+from repro_torch.observability import metrics as MET
 from repro_torch.observability import trace as T
 from repro_torch.runtime.paging import PagePool, PageSpec, SENTINEL, divisor_page_size
+
+_M = None
+
+
+def _metrics():
+    """Engine metric families, registered once on first enabled use."""
+
+    global _M
+    if _M is None:
+        _M = {
+            "queue_depth": MET.gauge(
+                "engine_queue_depth", "Requests waiting per class queue",
+                labels=("device_class",)),
+            "slot_occupancy": MET.gauge(
+                "engine_slot_occupancy", "Active decode slots per pod",
+                labels=("pod",)),
+            "admissions": MET.counter(
+                "engine_admissions_total", "Requests admitted into slots",
+                labels=("device_class",)),
+            "tokens": MET.counter(
+                "engine_tokens_total", "Tokens generated by decode steps"),
+            "tokens_per_s": MET.gauge(
+                "engine_tokens_per_s", "Decode throughput EMA (tokens/s)"),
+            "step_seconds": MET.histogram(
+                "engine_decode_step_seconds", "Decode step wall time"),
+            "rebalances": MET.counter(
+                "engine_rebalances_total",
+                "Slot-budget re-derivations past the drift hysteresis"),
+            "kv_pages_free": MET.gauge(
+                "engine_kv_pool_pages_free",
+                "Unallocated pages in the KV page pool"),
+            "kv_pages_live": MET.gauge(
+                "engine_kv_pool_pages_live",
+                "Allocated pages in the KV page pool"),
+            "page_allocs": MET.counter(
+                "engine_page_allocs_total",
+                "KV pages allocated at admission",
+                labels=("device_class",)),
+        }
+    return _M
+
 
 # Modeled wall seconds for one slot-row of decode work on a pod of unit
 # aggregate throughput; only ratios between pods matter.
 MODELED_ROW_S = 1e-3
+
+
+def _hook_takes_units(hook) -> bool:
+    """Does a pod_time_hook accept ``(step, pod_units)`` (new style) or
+    just ``(step)`` (the legacy signature)?"""
+
+    try:
+        sig = inspect.signature(hook)
+    except (TypeError, ValueError):
+        return False
+    n = 0
+    for p in sig.parameters.values():
+        if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD):
+            n += 1
+        elif p.kind == p.VAR_POSITIONAL:
+            return True
+    return n >= 2
 
 
 def resolve_device(device) -> torch.device:
@@ -148,6 +216,14 @@ class ServingEngine:
         full lane plus the phantom lane — never defers).
     eos_id : token id that stops a request mid-stream.
     device : where the params, caches and kernels live (``"cuda"``).
+    pod_time_hook : feeds the scheduler's straggler calibration.  The
+        default ``"auto"`` installs a
+        :class:`~repro_torch.observability.probe.StepTimeProbe` that times
+        each class's kernel at ``(128, d_model, d_model)`` on the engine's
+        device, but only while observability is enabled (otherwise it
+        returns ``None`` and the calibration stays frozen).  A callable
+        may take ``(step)`` or ``(step, pod_units)`` and may return
+        ``None`` to skip a step; ``None`` disables the feedback.
     """
 
     def __init__(
@@ -163,6 +239,7 @@ class ServingEngine:
         pool_pages: Optional[int] = None,
         eos_id: Optional[int] = None,
         device="cuda",
+        pod_time_hook: Union[str, None, Callable[..., Optional[Sequence[float]]]] = "auto",
     ):
         if cfg.embed_inputs or cfg.family == "encdec":
             raise ValueError(f"{cfg.name}: the serving engine targets token-in archs")
@@ -184,6 +261,17 @@ class ServingEngine:
         self.n_pods = asym.n_pods
         self.n_slots = self.n_pods * self.c_max
         self.eos_id = None if eos_id is None else int(eos_id)
+        if pod_time_hook == "auto":
+            from repro_torch.observability.probe import StepTimeProbe
+
+            pod_time_hook = StepTimeProbe(
+                asym, probe_shape=(128, cfg.d_model, cfg.d_model), device=self.device
+            )
+        self.pod_time_hook = pod_time_hook
+        self._hook_takes_units = (
+            _hook_takes_units(pod_time_hook) if pod_time_hook is not None else False
+        )
+        self._tps_ema: Optional[float] = None
 
         # -- per-class request queues fed by the admission router ----------
         self.queues: list[collections.deque] = [collections.deque() for _ in asym.classes]
@@ -330,6 +418,7 @@ class ServingEngine:
         self.budgets = self.asym.slot_budgets(self.c_max, n_work)
         self.stats.rebalances = self.asym.scheduler.rebalances - self._rebalances0
         if T.enabled() and self.stats.rebalances > old_count:
+            _metrics()["rebalances"].inc(self.stats.rebalances - old_count)
             T.instant(
                 "engine.rebalance", cat="engine",
                 before=old_budgets, after=list(self.budgets),
@@ -391,6 +480,7 @@ class ServingEngine:
                         if not self.pool.alloc(slot, need):
                             self.stats.admission_deferrals += 1
                             break
+                        self._note_page_alloc(slot, need)
                     q.popleft()
                     out.append((slot, req))
                     self.slot_rid[slot] = req.rid  # reserve before next _free_slot
@@ -435,11 +525,14 @@ class ServingEngine:
             self._merge(fresh, nxt, take_new_t)
         first = nxt.cpu().numpy()  # blocks; first generated token per lane
         dt = time.perf_counter() - t0
-        if rp not in self._prefill_compiled:
+        compiling = rp not in self._prefill_compiled
+        if compiling:
             self._prefill_compiled.add(rp)
             self.stats.compile_s += dt
         else:
             self.stats.prefill_s += dt
+        if T.enabled():
+            self._record_admit_telemetry(t0, dt, rp, batch, compiling)
 
         self._live[take_new] = True
         self._pos[take_new] = plens[take_new]
@@ -481,7 +574,30 @@ class ServingEngine:
         else:
             self.stats.completed_budget += 1
         if self.pool is not None:
-            self.pool.free_slot(slot)
+            freed = self.pool.free_slot(slot)
+            if T.enabled() and freed:
+                m = _metrics()
+                m["kv_pages_free"].set(self.pool.pages_free)
+                m["kv_pages_live"].set(self.pool.pages_live)
+                T.instant(
+                    "engine.page_free", cat="engine", slot=slot, pages=freed,
+                    stop=stop, pages_live=self.pool.pages_live,
+                    pages_free=self.pool.pages_free,
+                )
+
+    def _note_page_alloc(self, slot: int, n_tokens: int):
+        if not T.enabled():
+            return
+        m = _metrics()
+        pages = self.pool.spec.pages_for(n_tokens)
+        name = self.asym.class_of_pod(slot // self.c_max).name
+        m["page_allocs"].labels(device_class=name).inc(pages)
+        m["kv_pages_free"].set(self.pool.pages_free)
+        m["kv_pages_live"].set(self.pool.pages_live)
+        T.instant(
+            "engine.page_alloc", cat="engine", slot=slot, pages=pages,
+            pages_live=self.pool.pages_live, pages_free=self.pool.pages_free,
+        )
 
     # -- steady-state decode ---------------------------------------------------
 
@@ -526,6 +642,23 @@ class ServingEngine:
                 self._retire(slot, stop="eos")
             elif self.slot_remaining[slot] == 0:
                 self._retire(slot, stop="budget")
+
+        if T.enabled():
+            self._record_step_telemetry(t0, dt, n_active, active, self._step_calls - 1)
+
+        # Straggler feedback: per-pod timings re-calibrate the scheduler
+        # (budgets re-derive only at admission, past hysteresis).  One step
+        # yields one wall time, not per-pod times, so the signal comes only
+        # from the hook (the default probe measures each class's per-row
+        # cost, and returns None while observability is off).
+        if self.pod_time_hook is not None:
+            times = (
+                self.pod_time_hook(self._step_calls - 1, units)
+                if self._hook_takes_units
+                else self.pod_time_hook(self._step_calls - 1)
+            )
+            if times is not None:
+                self.asym.observe_step(units, list(times))
         return n_active
 
     def _pod_active_before(self, active_mask: np.ndarray) -> list[int]:
@@ -577,6 +710,47 @@ class ServingEngine:
             "arena_kv_bytes": arena,
             "dense_kv_bytes": per_tok * self.n_slots * self.s_cache * itemsize,
         }
+
+    # -- telemetry (every method below only runs while tracing is enabled) ----
+
+    def _shard_tags(self) -> dict:
+        """Provenance tags of the decode-shard span: the one program runs
+        under the fastest class's tree on every pod."""
+
+        ctx = self._ctx
+        return {"device_class": ctx.device_class, "backend": ctx.backend(),
+                "block_source": ctx.tree.block_source}
+
+    def _record_step_telemetry(self, t0, dt, n_active, active_mask, step_idx):
+        m = _metrics()
+        T.complete("engine.decode_step", t0, dt, cat="engine",
+                   step=step_idx, active=n_active)
+        per_pod = self._pod_active_before(active_mask)
+        T.complete("engine.decode_shard", t0, dt, cat="engine",
+                   **self._shard_tags(), slots=int(sum(per_pod)))
+        for ci, c in enumerate(self.asym.classes):
+            m["queue_depth"].labels(device_class=c.name).set(len(self.queues[ci]))
+        for pod, occ in enumerate(per_pod):
+            m["slot_occupancy"].labels(pod=str(pod)).set(occ)
+        m["tokens"].inc(n_active)
+        m["step_seconds"].observe(dt)
+        if dt > 0:
+            inst = n_active / dt
+            self._tps_ema = inst if self._tps_ema is None else 0.8 * self._tps_ema + 0.2 * inst
+            m["tokens_per_s"].set(self._tps_ema)
+
+    def _record_admit_telemetry(self, t0, dt, plen, batch, compiling):
+        m = _metrics()
+        T.complete("engine.prefill", t0, dt, cat="engine", plen=plen,
+                   admitted=len(batch), compiled=compiling)
+        per_class: dict[str, int] = {}
+        for slot, _ in batch:
+            name = self.asym.class_of_pod(slot // self.c_max).name
+            per_class[name] = per_class.get(name, 0) + 1
+        for name, n in per_class.items():
+            m["admissions"].labels(device_class=name).inc(n)
+        for ci, c in enumerate(self.asym.classes):
+            m["queue_depth"].labels(device_class=c.name).set(len(self.queues[ci]))
 
     # -- driver ----------------------------------------------------------------
 

@@ -336,3 +336,102 @@ def test_full_width_layer_attention_launches_the_kernel_once(cuda):
     assert out.shape == x.shape and tuple(k.shape) == (1, 256, 8, 128)
     assert bool(torch.isfinite(out.float()).all())
     torch.testing.assert_close(out.float(), plain.float(), **BF16)
+
+
+# ---------------------------------------------------------------------------
+# The measured loop: the tuner's device clock, its candidates, the probe
+# ---------------------------------------------------------------------------
+
+# A decode shape of full-width internlm2-1.8b (M = 12 rows of the slot
+# table) and the forward's shapes of minitron-4b (M = 2 x 2048).
+DECODE_SHAPES = [(12, 2048, 2048), (12, 2048, 1024), (12, 2048, 8192), (12, 8192, 2048),
+                 (12, 2048, 92544)]
+FORWARD_SHAPES = [(4096, 3072, 3072), (4096, 3072, 1024), (4096, 3072, 9216),
+                  (4096, 9216, 3072), (4096, 3072, 256000)]
+# The device clock against the profiler's kernel time, either way: the
+# events also hold the card's gaps between back-to-back launches (about a
+# microsecond against a kernel of several).
+DEVICE_CLOCK_FACTOR = 1.5
+
+
+@pytest.mark.cuda
+def test_wallclock_reads_device_time_not_the_hosts(cuda):
+    """``wallclock_time`` at a decode shape agrees with ``torch.profiler``'s
+    device time for the same calls, and reads below the host's time a call
+    (the enqueue rate that back-to-back host timing would read)."""
+
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.tuning import measure as M
+
+    m, k, n = DECODE_SHAPES[0]
+    cfg = G.resolve_block_config(m, k, n, torch.bfloat16)
+    clock = M.wallclock_time(m, k, n, cfg, device=cuda)
+    # The same calls: B cycled over the copies wallclock_time uses.
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    bs = [torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+          for _ in range(min(64, math.ceil(128e6 / (k * n * 2))))]
+    for b in bs:
+        G.gemm_cuda(a, b, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in bs:
+            G.gemm_cuda(a, b, cfg)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type != DeviceType.CPU and "gemm" in e.name]
+    assert len(evs) == len(bs)
+    device = sum(e.time_range.elapsed_us() for e in evs) / 1e6 / len(evs)
+    t0 = time.perf_counter()
+    for b in bs * 4:
+        G.gemm_cuda(a, b, cfg)
+    host = (time.perf_counter() - t0) / (4 * len(bs))
+    torch.cuda.synchronize()
+    print(f"wallclock {clock * 1e6:.2f} us, profiler {device * 1e6:.2f} us, host {host * 1e6:.2f} us a call")
+    assert device / DEVICE_CLOCK_FACTOR <= clock <= DEVICE_CLOCK_FACTOR * device
+    assert clock < host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec_name", ["h100", "h100-little"])
+@pytest.mark.parametrize("shape", DECODE_SHAPES + FORWARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_every_tuning_candidate_launches_and_matches_plain(cuda, spec_name, shape):
+    """Every (block, variant) the tuner may time runs on its kernel and
+    matches the plain version: a candidate the kernel rejects would be a
+    fault of the candidate generator."""
+
+    from repro_torch.tuning import candidates as CAND
+
+    m, k, n = shape
+    a, b = _operands(cuda, m, k, n, seed=3)
+    refs = {}
+    cands = CAND.enumerate_kernel_candidates(m, k, n, spec=CAND.get_spec(spec_name))
+    assert cands
+    for cand in cands:
+        got = G.GEMM_KERNELS[cand.backend](a, b, cand.cfg)
+        if cand.cfg.bk not in refs:  # the plain version depends on bk alone
+            refs[cand.cfg.bk] = G.gemm_plain(a, b, cand.cfg).float()
+        torch.testing.assert_close(got.float(), refs[cand.cfg.bk], **BF16)
+        del got
+
+
+@pytest.mark.cuda
+def test_probe_times_each_class_kernel_on_the_card(cuda):
+    """``StepTimeProbe.refresh()`` launches ``gemm_cuda`` under the big
+    class and ``gemm_cuda_lean`` under the little one, on bf16 operands."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.observability.probe import StepTimeProbe
+
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    probe = StepTimeProbe(asym, probe_shape=(128, 2048, 2048), always=True, device=cuda)
+    assert asym.class_backends((128, 2048, 2048)) == {"big": "cuda", "little": "cuda_lean"}
+    G.reset_launches()
+    rows = probe.refresh()
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gemm_cuda"] > 0 and G.LAUNCHES["gemm_cuda_lean"] > 0
+    assert probe._operands[0].dtype == probe._operands[1].dtype == torch.bfloat16
+    assert len(rows) == 2 and all(r > 0 for r in rows)

@@ -71,6 +71,10 @@ def test_port_covers_the_slice_modules():
         "repro_torch.models.transformer", "repro_torch.models.model_zoo",
         "repro_torch.runtime.paging", "repro_torch.runtime.serving",
         "repro_torch.launch.serve", "repro_torch.convert",
+        "repro_torch.core.simulator", "repro_torch.observability.metrics",
+        "repro_torch.observability.probe", "repro_torch.observability.report",
+        "repro_torch.tuning", "repro_torch.tuning.cache", "repro_torch.tuning.candidates",
+        "repro_torch.tuning.measure", "repro_torch.tuning.ratio", "repro_torch.tuning.tune",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):
