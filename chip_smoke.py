@@ -71,12 +71,32 @@ Phases (any failed check exits non-zero and prints no result line):
      the card, the scheduler must observe them, the metric families and
      the trace's summary must be there, and the tokens must equal phase
      2's; last, ``AsymmetricMesh.from_calibration`` from the cost model and
-     from the probe's measured seconds.
+     from the probe's measured seconds;
+ 10. the energy objectives on the full-width internlm2-1.8b: the engine
+     under ``--objective perf``, ``energy`` and ``edp`` on 3 requests over 2
+     x 4 slots; under ``energy`` the big pod parks, the modeled joules fall
+     below ``perf``'s with the same tokens; then 16 requests on the same
+     engine un-park it (joules are modeled from ``PowerModel``, not read);
+ 11. the full-width qwen2-moe-a2.7b (random bf16 weights from seed 0, 28.6
+     GB): the dense engine (7 ``gemm_cuda`` a layer plus the LM head a
+     recurrence step), the paged engine (24 ``paged_attention_cuda`` a
+     step at a group of 1, a private phantom lane a slot), the one-shot
+     path under the little class (``gemm_cuda_lean``); the engine's tokens
+     equal the one-shot path's over the padded batch; a teacher-forced
+     replay of those tokens (paged and little against dense) under the
+     routing-aware rule (``MIN_ROUTE_AGREE``); the expert einsums timed and
+     one decode step traced against the 7.4 ms expert-bytes bound;
+ 12. ring decode at mixtral-8x7b's full widths, 4 of its 32 layers: 12 rows
+     at position 6,000 of a 4,096-token ring (random bf16 K/V built
+     directly), dense and paged: the new K/V lands at slot 6000 % 4096, the
+     gather route equals the dense ring bitwise, and ``paged_attention_cuda``
+     is within ``LOGIT_TOL`` of it under the routing-aware rule.
 
-Each of phases 2-4, the forward of phase 7 and the steps of phase 8 resets
-the kernels' launch counters just before it and reads them just after; the
-launches of phases 1, 5, 6 and the comparisons of phases 7 and 8 count for
-no path.  The engines' tokens/s are smoke readings over a few steps, not
+Each of phases 2-4, the forward of phase 7, the steps of phase 8 and the
+engines and the kernel step of phases 11 and 12 resets the kernels' launch
+counters just before it and reads them just after; the launches of phases
+1, 5, 6, 10 and the comparisons of phases 7, 8, 11 and 12 count for no
+path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -126,28 +146,48 @@ FWD_ARCH, FWD_BATCH, FWD_SEQ, REPLAY_LEN = "minitron-4b", 2, 2048, 32
 # the kernel walks a real page table (the default, min block.bm = 64, would
 # give each slot a single page).
 PAGE_SIZE = 8
+# The MoE model of phase 11 and the ring of phase 12 (mixtral-8x7b's widths
+# at RING_LAYERS of its 32 layers: 93 GB of bf16 weights do not fit a card).
+MOE_ARCH, RING_ARCH, RING_LAYERS, RING_POS = "qwen2-moe-a2.7b", "mixtral-8x7b", 4, 6000
 # Paged attention at serving's cache lengths (phase 1), 12 rows each:
-# (label, the config whose heads it takes, page size, pages a row, rows).
+# (label, the config whose heads it takes, page size, pages a row, rows);
+# qwen2-moe-a2.7b's group of 1 also at its paged engine's 24-token slot.
 LONG_PAGED_CASES = (
     ("4096-full", ARCH, 64, 64, "full"),
     ("4096-ragged", ARCH, 64, 64, "random"),
     ("32768-full", ARCH, 64, 512, "full"),
     ("minitron-4b-4096-full", "minitron-4b", 16, 256, "full"),
     ("qwen2.5-32b-4096-full", "qwen2.5-32b", 16, 256, "full"),
+    ("qwen2-moe-engine", MOE_ARCH, PAGE_SIZE, 3, "random"),
+    ("qwen2-moe-4096-full", MOE_ARCH, 64, 64, "full"),
+    ("mixtral-ring-6000", RING_ARCH, 64, 64, "ring"),
 )
 # The long-cache decode step (phase 8): full-width internlm2-1.8b, 12 rows
 # at the last position of a 4,096-token cache in pages of 64.
 LONG_ROWS, LONG_CACHE, LONG_PS, LONG_STEPS = 12, 4096, 64, 5
+# The routing-aware rule (phases 11, 12): at least this share of the top-k
+# decisions of two routes must agree.  Two float routes (the paged kernel's
+# online softmax against the gather, the little class's blocks) differ in
+# the last bits; where two experts' probabilities are that close a choice
+# flips, and the flipped token's hidden state then differs at O(1), so its
+# later layers' and later steps' choices flip too: a free replay of the
+# full-width qwen2-moe on an H100 agreed on 0.83 of its decisions.  A dispatch fault (wrong experts, a lost or
+# shifted row) agrees by chance only: top-4 of 60 experts, about 4/60 of
+# the decisions.
+MIN_ROUTE_AGREE = 0.5
+# The energy phase (10): 3 requests over 2 pods of 4 slots, so the little
+# pod alone holds the load with the hysteresis margin to spare.
+ENERGY_BATCH, ENERGY_SLOTS = 3, 4
 
 
 def gemm_shapes(cfg) -> list:
-    """``((K, N), calls)`` of every GEMM of one decode step or forward of a
-    dense config: q, k and v, o, gate and up, down, the LM head."""
+    """``((K, N), calls)`` of every GEMM of one decode step or forward: q, k
+    and v, o, the GLU's (dense) or the shared expert's (MoE) gate, up and
+    down, the LM head (``transformer.gemm_shapes``)."""
 
-    d, hq = cfg.d_model, cfg.n_heads * cfg.head_dim
-    hkv, ff, L = cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers
-    return [((d, hq), L), ((d, hkv), 2 * L), ((hq, d), L),
-            ((d, ff), 2 * L), ((ff, d), L), ((d, cfg.vocab), 1)]
+    from repro_torch.models import transformer as T
+
+    return T.gemm_shapes(cfg)
 
 
 def fail(msg: str) -> None:
@@ -272,16 +312,16 @@ def phase1(torch, detail: dict) -> dict:
               for _ in range(min(copies, 4 if k * n > 50e6 else copies))]
         return a, bs
 
-    records = {}
-    rows = []
-    for name, ctx, fn, plain in (
-        ("gemm_cuda", big, G.gemm_cuda, G.gemm_plain),
-        ("gemm_cuda_lean", little, G.gemm_cuda_lean, G.gemm_lean_plain),
-    ):
+    def step_gemms(name, ctx, fn, plain, shapes, label):
+        """Every GEMM shape of one decode step (``shapes``, M = the slot
+        table) on ``fn`` against its plain version, lean == pipelined
+        bitwise, timed beside the plain version, ``torch.matmul`` and the
+        bound; returns the step's totals and the largest error."""
+
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                "bytes_s": 0.0, "ops_s": 0.0, "host_ms": 0.0, "library_host_ms": 0.0}
         max_err = 0.0
-        for (k, n), count in step_shapes:
+        for (k, n), count in shapes:
             cfgb = ctx.block_config(m, k, n, "bfloat16", 2)
             a, bs = operands(m, k, n)
             got, ref = fn(a, bs[0], cfgb), plain(a, bs[0], cfgb)
@@ -299,11 +339,12 @@ def phase1(torch, detail: dict) -> dict:
             h_l = host_us(torch, torch.matmul, (a, bs[0]))
             n_bytes = (m * k + k * n + m * n) * 2
             b_ms, by = bound_ms(n_bytes, 2 * m * k * n)
-            rows.append({"kernel": name, "shape": [m, k, n], "block": [cfgb.bm, cfgb.bk, cfgb.bn],
+            rows.append({"kernel": name, "model": label, "shape": [m, k, n],
+                         "block": [cfgb.bm, cfgb.bk, cfgb.bn],
                          "calls_per_step": count, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                          "host_us": h_k, "library_host_us": h_l,
                          "bound_ms": b_ms, "bound_by": by, "max_abs_err": err})
-            print(f"  {name} {m}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: err {err:.3g} "
+            print(f"  {name} {label} {m}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: err {err:.3g} "
                   f"kernel {t_k:.4f} ms plain {t_p:.4f} matmul {t_l:.4f} bound {b_ms:.4f} ({by}); "
                   f"host {h_k:.1f} us a call, matmul {h_l:.1f} us", flush=True)
             for key, val in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms),
@@ -311,15 +352,45 @@ def phase1(torch, detail: dict) -> dict:
                 tot[key] += count * val
             tot["bytes_s"] += count * n_bytes / HBM_BW
             tot["ops_s"] += count * 2 * m * k * n / PEAK_BF16
-        print(f"  {name} over one decode step ({sum(c for _, c in step_shapes)} GEMMs): kernel "
+            del a, bs, got, ref, other
+        print(f"  {name} over one {label} decode step ({sum(c for _, c in shapes)} GEMMs): kernel "
               f"{tot['ms']:.2f} ms, matmul {tot['library_ms']:.2f} ms; host {tot['host_ms']:.2f} ms, "
               f"matmul's {tot['library_host_ms']:.2f} ms", flush=True)
+        return tot, max_err
+
+    records = {}
+    rows = []
+    moe_cfg = get_config(MOE_ARCH)
+    for name, ctx, fn, plain in (
+        ("gemm_cuda", big, G.gemm_cuda, G.gemm_plain),
+        ("gemm_cuda_lean", little, G.gemm_cuda_lean, G.gemm_lean_plain),
+    ):
+        tot, max_err = step_gemms(name, ctx, fn, plain, step_shapes, ARCH)
         detail[f"{name}_decode_step"] = tot
+        # qwen2-moe-a2.7b's step (phase 11): k and v at 16 KV heads, the
+        # shared expert's K = 5632, the 151,936-wide LM head.
+        moe_tot, moe_err = step_gemms(name, ctx, fn, plain, gemm_shapes(moe_cfg), MOE_ARCH)
+        detail[f"{name}_moe_decode_step"] = moe_tot
         records[name] = {
-            "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "max_abs_err": max(max_err, moe_err), "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
+            "moe_step": {k: moe_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
         }
+
+    # The qkv projections with bias (qwen2-moe-a2.7b): the class's kernel,
+    # then the fp32 bias, against the plain product plus the bias.
+    from repro_torch.kernels import ops
+
+    a, bs = operands(m, d, d)
+    bias = torch.randn((d,), generator=gen, device="cuda")
+    for ctx in (big, little):
+        with ctx:
+            got = ops.linear(a, bs[0], bias)
+        ok, err = within(torch, got, (G.gemm_plain(a, bs[0]).float() + bias).to(torch.bfloat16), BF16_TOL)
+        check(ok, f"{ctx.device_class} qkv projection with bias: max err {err}")
+        print(f"  {ctx.device_class} {m}x{d}x{d} projection with bias: err {err:.3g}", flush=True)
+    del a, bs
 
     # The tree shape, with the big and the little class's blocks.
     for name, ctx, fn, plain in (("gemm_cuda", big, G.gemm_cuda, G.gemm_plain),
@@ -436,8 +507,10 @@ def phase1(torch, detail: dict) -> dict:
 
 def paged_case(torch, PA, gen, b, hq, hkv, dh, n_p, page, width, kind, n_sm) -> dict:
     """One paged-attention call against the gather route: "full" rows
-    attend their whole cache; "random" rows a random prefix, with a dead row
-    (every table entry unallocated) and a row aged past the cache."""
+    attend their whole cache; "ring" rows sit at ``RING_POS``, past the end
+    of a ring cache, where every slot is visible; "random" rows a random
+    prefix, with a dead row (every table entry unallocated) and a row aged
+    past the cache."""
 
     from repro_torch.runtime.paging import SENTINEL
 
@@ -446,8 +519,9 @@ def paged_case(torch, PA, gen, b, hq, hkv, dh, n_p, page, width, kind, n_sm) -> 
     pk = torch.randn((n_p, page, hkv, dh), generator=gen, device="cuda").to(torch.bfloat16)
     pv = torch.randn((n_p, page, hkv, dh), generator=gen, device="cuda").to(torch.bfloat16)
     table = torch.randperm(n_p, generator=gen, device="cuda")[:b * width].reshape(b, width).int()
-    if kind == "full":
-        pos = torch.full((b,), s_cache - 1, dtype=torch.int32, device="cuda")
+    if kind in ("full", "ring"):
+        pos = torch.full((b,), s_cache - 1 if kind == "full" else RING_POS, dtype=torch.int32,
+                         device="cuda")
     else:
         pos = torch.randint(0, s_cache, (b,), generator=gen, device="cuda", dtype=torch.int32)
         table[0] = int(SENTINEL)       # a dead row: every entry unallocated
@@ -699,15 +773,20 @@ def profile_run(torch, run, ctx) -> dict:
     dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
     check(bool(dev), "the profiler saw no device activity in the run")
     busy_ms = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
-    ms, count = {}, {}
+    ms, count, by_name = {}, {}, {}
     for e in dev:
-        fam = ("gemm_cuda" if "gemm_kernel" in e.name else
-               "flash_attention_cuda" if "flash_attention_kernel" in e.name else
-               "paged_attention_cuda" if "paged_" in e.name else "other")
+        name = e.name.lower()
+        fam = ("gemm_cuda" if "gemm_kernel<" in name else
+               "flash_attention_cuda" if "flash_attention_kernel" in name else
+               "paged_attention_cuda" if "paged_" in name else
+               "library_gemm" if any(k in name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")) else
+               "other")
         ms[fam] = ms.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
         count[fam] = count.get(fam, 0) + 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "ms": ms, "count": count}
+            "ms": ms, "count": count, "top_kernels_ms": [[n[:90], t] for n, t in top]}
 
 
 def phase8(torch, counts, reset) -> dict:
@@ -1125,12 +1204,458 @@ def phase6(torch) -> dict:
     return errs
 
 
-def run_serve(argv):
+def run_serve(argv, params=None):
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
-    summary, tokens, engine = serve.serve(serve.build_parser().parse_args(argv))
+    summary, tokens, engine = serve.serve(serve.build_parser().parse_args(argv), params=params)
     return summary, tokens, engine, time.perf_counter() - t0
+
+
+class RouteLog:
+    """Records every MoE routing (``moe.route``'s outputs, and its top-k
+    expert ids as ``calls``) made while it is entered, call by call.  Given
+    ``shared``, another log, it routes nothing itself and hands out that
+    log's routings in order: the two runs then share their routing."""
+
+    def __init__(self, shared: "RouteLog" = None):
+        self.shared = shared
+
+    def __enter__(self):
+        from unittest import mock
+
+        from repro_torch.models import moe as M
+
+        self.calls, self.routes = [], []
+        real = M.route
+        given = iter(self.shared.routes) if self.shared is not None else None
+
+        def route(p, x, cfg):
+            out = next(given) if given is not None else real(p, x, cfg)
+            self.routes.append(out)
+            self.calls.append(out[1].cpu().numpy())
+            return out
+
+        self._patch = mock.patch.object(M, "route", route)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def comparable(want_calls, got_calls, steps: int, cap: int, n_experts: int):
+    """The routing-aware rule.  ``*_calls``: (groups, tokens, k) expert ids
+    in call order (``steps`` x layers calls).  A token depends on its own
+    row's decisions at this step and the earlier ones, and, through the
+    capacity positions (counted in group order), on the decisions before
+    it in its group, but only where some expert's decisions exceed the
+    capacity ``cap``.  So a token is comparable if its own decisions agreed
+    in every layer at every step so far and no expert overflowed in its
+    group in either route, or if no decision before it in its group (at
+    this step or an earlier one) differs.  Returns the share of agreeing
+    decisions, the (steps, groups, tokens) mask of comparable tokens, and
+    the mask of tokens whose own decisions agreed in every layer at that
+    step."""
+
+    import numpy as np
+
+    want, got = np.stack(want_calls), np.stack(got_calls)  # (calls, G, T, k)
+    agree = want == got
+    g, t = agree.shape[1:3]
+    own = agree.all(-1).reshape(steps, -1, g, t).all(1)  # (steps, G, T)
+    first = np.where(own.all(-1), t, np.argmin(own, axis=-1))
+    first = np.minimum.accumulate(first, axis=0)
+    prefix = np.arange(t)[None, None, :] < first[..., None]
+
+    def overflow(idx):  # (steps, G): an expert chose past its capacity in some layer
+        counts = (idx[..., None] == np.arange(n_experts)).sum(axis=(2, 3))  # (calls, G, E)
+        return (counts > cap).any(-1).reshape(steps, -1, g).any(1)
+
+    clean = np.logical_and.accumulate(~(overflow(want) | overflow(got)), axis=0)
+    own_so_far = np.logical_and.accumulate(own, axis=0)
+    mask = prefix | (own_so_far & clean[..., None])
+    return float(agree.mean()), mask, own
+
+
+def phase10(torch) -> dict:
+    """The energy objectives on the full-width internlm2-1.8b: perf, energy
+    and edp on 3 requests over 2 x ENERGY_SLOTS slots, then a load of 16."""
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as Z
+
+    cfg = get_config(ARCH)
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    base = ["--arch", ARCH, "--batch", str(ENERGY_BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--gen-len", str(GEN_LEN), "--seed", "0", "--slots-per-pod", str(ENERGY_SLOTS)]
+    runs, engines, toks = {}, {}, {}
+    for obj in ("perf", "energy", "edp"):
+        summary, tok, eng, wall = run_serve(base + ["--objective", obj], params=params)
+        e = summary["engine"]
+        runs[obj] = {k: e[k] for k in ("energy_j", "tokens_per_j", "modeled_decode_s", "tokens",
+                                       "pod_parks", "pod_unparks", "parked_pods")}
+        runs[obj].update(objective=summary["objective"], wall_s=wall,
+                         pods=sorted({c.pod for c in eng.completions}))
+        engines[obj], toks[obj] = eng, tok
+        print(f"  {obj}: modeled {e['energy_j']:.6g} J over {e['tokens']} tokens "
+              f"({e['tokens_per_j']} tokens/J, modeled), parks {e['pod_parks']}, unparks "
+              f"{e['pod_unparks']}, parked {e['parked_pods']}, served on pods {runs[obj]['pods']}; "
+              f"wall {wall:.2f} s", flush=True)
+        check(summary["objective"] == obj, f"summary objective {summary['objective']}")
+    perf, energy = runs["perf"], runs["energy"]
+    check(perf["pod_parks"] == 0 and perf["parked_pods"] == [], f"perf parked: {perf}")
+    check(energy["pod_parks"] >= 1 and energy["parked_pods"] == [0], f"energy did not park pod 0: {energy}")
+    check(0 < energy["energy_j"] < perf["energy_j"], f"energy joules {energy['energy_j']} !< perf's {perf['energy_j']}")
+    check(energy["tokens_per_j"] > perf["tokens_per_j"], "energy tokens/J not above perf's")
+    for obj in ("energy", "edp"):
+        check(np.array_equal(toks[obj], toks["perf"]), f"{obj} tokens differ from perf's")
+
+    # Load ramps: 16 requests on the energy engine's 2 x ENERGY_SLOTS slots.
+    eng = engines["energy"]
+    more = np.random.default_rng(1).integers(0, cfg.vocab, (16, PROMPT_LEN), dtype=np.int32)
+    out = eng.generate(more, GEN_LEN)
+    print(f"  energy engine under 16 requests: parks {eng.stats.pod_parks}, unparks "
+          f"{eng.stats.pod_unparks}, parked now {eng.parked_pods}; modeled {eng.stats.energy_j:.6g} J",
+          flush=True)
+    check(out.shape == (16, PROMPT_LEN + GEN_LEN) and bool((out[:, PROMPT_LEN:] >= 0).all()),
+          f"loaded run tokens {out.shape}")
+    check(eng.stats.pod_unparks >= 1, "16 requests did not un-park the big pod")
+    runs["loaded"] = {"pod_parks": eng.stats.pod_parks, "pod_unparks": eng.stats.pod_unparks,
+                      "energy_j": eng.stats.energy_j, "parked_pods": eng.parked_pods}
+    return runs
+
+
+def phase11(torch, counts, reset) -> dict:
+    """qwen2-moe-a2.7b at full width: the dense and paged engines, the
+    one-shot little path, engine == one-shot, the routing-aware replay, and
+    where a decode step's device time goes against the expert-bytes bound."""
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as Z
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = lambda t: [x for v in t.values() for x in leaves(v)] if isinstance(t, dict) else [t]  # noqa: E731
+    weights_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
+    print(f"  {cfg.name}: {weights_gb:.2f} GB of weights, init {init_s:.1f} s", flush=True)
+    per_step = sum(c for _, c in gemm_shapes(cfg))
+    check(per_step == 7 * cfg.n_layers + 1, f"{per_step} GEMMs a step")
+    base = ["--arch", MOE_ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--gen-len", str(GEN_LEN), "--seed", "0"]
+    out: dict = {"weights_gb": weights_gb, "init_s": init_s}
+
+    # The dense engine: every GEMM of the recurrence on gemm_cuda.
+    reset()
+    sd, tokd, engd, walld = run_serve(base, params=params)
+    cd = counts()
+    stepsd = PROMPT_LEN * engd.stats.admission_rounds + engd._step_calls
+    print(f"  dense engine: smoke reading {sd['tokens_per_s']} tokens/s, warm-up {sd['compile_s']} s, "
+          f"wall {walld:.2f} s; launches {cd}; recurrence steps {stepsd}", flush=True)
+    check(sd["exec_backend"] == "cuda", f"dense engine ran {sd['exec_backend']}")
+    check(cd["gemm_cuda"] == per_step * stepsd, f"gemm_cuda launches {cd['gemm_cuda']} != {per_step} x {stepsd}")
+    check(cd["gemm_cuda_lean"] == cd["paged_attention_cuda"] == cd["flash_attention_cuda"] == 0,
+          f"the dense engine launched other kernels: {cd}")
+    check(tokd.shape == (BATCH, PROMPT_LEN + GEN_LEN) and bool(((tokd >= 0) & (tokd < cfg.vocab)).all()),
+          f"dense tokens {tokd.shape}")
+    check(bool(torch.isfinite(engd.prefill_logits.float()).all()), "dense engine logits not finite")
+
+    # The paged engine: paged_attention_cuda at a group of 1, a private
+    # phantom lane a slot.
+    reset()
+    sp, tokp, engp, wallp = run_serve(base + ["--paged", "on", "--page-size", str(PAGE_SIZE)], params=params)
+    cp = counts()
+    stepsp = PROMPT_LEN * engp.stats.admission_rounds + engp._step_calls
+    kv = sp["engine"]["kv_pool"]
+    print(f"  paged engine: smoke reading {sp['tokens_per_s']} tokens/s, wall {wallp:.2f} s; launches {cp}; "
+          f"{kv['pages_per_slot']} pages of {kv['page_size']} a slot, {kv['phantom_pages']} phantom pages "
+          f"for {engp.n_slots} slots", flush=True)
+    check(cp["paged_attention_cuda"] == cfg.n_layers * stepsp,
+          f"paged launches {cp['paged_attention_cuda']} != {cfg.n_layers} x {stepsp}")
+    check(cp["gemm_cuda"] == per_step * stepsp, "paged engine GEMM launches")
+    check(kv["phantom_pages"] == engp.n_slots * kv["pages_per_slot"], f"phantom pages {kv}")
+    agree_p = float((tokp[:, PROMPT_LEN:] == tokd[:, PROMPT_LEN:]).mean())
+
+    # The one-shot path under the little class's tree.
+    reset()
+    sl, tokl, _, walll = run_serve(base + ["--one-shot", "--device-class", "little"], params=params)
+    cl = counts()
+    agree_l = float((tokl[:, PROMPT_LEN:] == tokd[:, PROMPT_LEN:]).mean())
+    print(f"  one-shot little ({sl['exec_backend']}): smoke reading {sl['tokens_per_s']} tokens/s, wall "
+          f"{walll:.2f} s; launches {cl}; equal generated tokens vs dense: paged {agree_p:.3f}, "
+          f"little {agree_l:.3f}", flush=True)
+    check(sl["exec_backend"] == "cuda_lean", f"little ran {sl['exec_backend']}")
+    check(cl["gemm_cuda_lean"] == per_step * (PROMPT_LEN + GEN_LEN), f"lean launches {cl['gemm_cuda_lean']}")
+
+    # The engine against the one-shot path over the padded batch (the
+    # engine's slot table; capacity routing couples its rows), big class.
+    mesh = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    padded, order = serve.pad_requests(tokd[:, :PROMPT_LEN], mesh.batch_layout(BATCH))
+    with mesh.execution_context("big"):
+        ref, _ = serve.generate(cfg, params, padded, GEN_LEN, PROMPT_LEN + GEN_LEN, device="cuda")
+    same = bool(np.array_equal(ref[order], tokd))
+    print(f"  engine == one-shot over the padded batch ({padded.shape[0]} rows): {same}", flush=True)
+    check(same, "the engine's tokens differ from the one-shot path's over the padded batch")
+
+    replay, state = moe_replay(torch, cfg, params, ref, mesh)
+    out.update({"dense": sd, "paged": sp, "one_shot_little": sl, "walls_s": [walld, wallp, walll],
+                "launches": {"dense": cd, "paged": cp, "one_shot_little": cl},
+                "recurrence_steps": {"dense": stepsd, "paged": stepsp},
+                "token_agreement": {"paged": agree_p, "little": agree_l},
+                "engine_equals_one_shot": same, "replay": replay})
+    out["device"] = moe_step_time(torch, cfg, params, state, ref, mesh)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 11 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def moe_replay(torch, cfg, params, tokens, mesh):
+    """Teacher-forced replay of ``tokens`` (the padded batch's 12 rows),
+    the paged path and the little class's tree against the dense big-class
+    path at every generated step, two ways.  *Free*: each path decodes the
+    tokens on its own state (phase 5's method); a routing flip then carries
+    through that path's caches into every later step.  *Forced*: at each
+    generated step the two paths also take the step from a copy of the
+    dense path's state (the paged arena laid out as the dense lanes), so
+    only that step's arithmetic can differ.  Routing-aware rule throughout
+    (:func:`comparable`).  Returns the record and the dense final state."""
+
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
+    from repro_torch.runtime.paging import divisor_page_size
+
+    decode = Z.make_decode_fn(cfg)
+    b, total = tokens.shape
+    nl, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    ps = divisor_page_size(total, PAGE_SIZE)
+    w = total // ps
+    cap, n_e = M._capacity(b, cfg.moe), cfg.moe.n_experts
+    toks = torch.as_tensor(tokens, device="cuda")
+    # Page r·w + j holds slots [j·ps, (j+1)·ps) of row r: the dense lanes' order.
+    table = torch.arange(b * w, dtype=torch.int32, device="cuda").reshape(b, w)
+    paths = (("paged", "big", True), ("little", "little", False))
+
+    def as_state(dense, paged):
+        if not paged:
+            return {k: v.clone() for k, v in dense.items()}
+        return {"pages_" + k: v.reshape(nl, b * w, ps, hkv, dh).clone() for k, v in dense.items()}
+
+    def step(cls, paged, state, t):
+        extra = {"page_table": table} if paged else {}
+        with mesh.execution_context(cls):
+            lg, _ = decode(params, dict(extra, tokens=toks[:, t:t + 1]), state, t)
+        return lg[:, 0].float()
+
+    dense = Z.init_decode_state(cfg, b, total, device="cuda")
+    free = {label: as_state(dense, paged) for label, _, paged in paths}
+    logs = {k: [] for k in ("dense", "paged", "little")}
+    rec = {label: {"forced": [], "free_diff": [], "shared_diff": []} for label, _, _ in paths}
+    with torch.no_grad():
+        for t in range(total - 1):
+            before = {k: v.clone() for k, v in dense.items()} if t >= PROMPT_LEN - 1 else None
+            with RouteLog() as rd:
+                want = step("big", False, dense, t)
+            logs["dense"].extend(rd.calls)
+            for label, cls, paged in paths:
+                with RouteLog() as rf:
+                    got = step(cls, paged, free[label], t)
+                logs[label].extend(rf.calls)
+                if before is None:
+                    continue
+                rec[label]["free_diff"].append((got - want).abs().amax(dim=-1).cpu().numpy())
+                with RouteLog() as rg:
+                    forced = step(cls, paged, as_state(before, paged), t)
+                share, mask, _ = comparable(rd.calls, rg.calls, 1, cap, n_e)
+                d = (forced - want).abs().amax(dim=-1).cpu().numpy()
+                rows = mask[0, 0]
+                rec[label]["forced"].append({"step": t, "route_agree": share, "compared": int(rows.sum()),
+                                             "max_logit_diff": float(d[rows].max()) if rows.any() else None})
+                with RouteLog(shared=rd):  # the dense step's own routing, shared
+                    shared = step(cls, paged, as_state(before, paged), t)
+                rec[label]["shared_diff"].append(float((shared - want).abs().max()))
+    for label, _, _ in paths:
+        steps = total - 1
+        share, mask, own = comparable(logs["dense"], logs[label], steps, cap, n_e)
+        gen = mask[PROMPT_LEN - 1:, 0]  # (generated steps, rows)
+        free_d = [float(d[m].max()) if m.any() else None for d, m in zip(rec[label]["free_diff"], gen)]
+        forced = rec[label]["forced"]
+        f_share = sum(f["route_agree"] for f in forced) / len(forced)
+        f_cmp = sum(f["compared"] for f in forced)
+        f_diff = [f["max_logit_diff"] for f in forced]
+        s_diff = rec[label].pop("shared_diff")
+        rec[label].update({"free_route_agree": share, "free_compared": int(gen.sum()),
+                           "free_max_logit_diff": free_d, "forced_route_agree": f_share,
+                           "forced_compared": f_cmp, "shared_route_max_logit_diff": s_diff,
+                           "tokens": int(gen.size)})
+        del rec[label]["free_diff"]
+        fmt = lambda xs: [None if x is None else round(x, 4) for x in xs]  # noqa: E731
+        print(f"  replay {label} vs dense, free (each path on its own caches): {share:.4f} of the "
+              f"routing decisions agree; {int(gen.sum())} of {gen.size} generated tokens comparable, "
+              f"max |logit diff| per step {fmt(free_d)}", flush=True)
+        print(f"  replay {label} vs dense, forced (each step from the dense path's state): "
+              f"{f_share:.4f} of the decisions agree (least accepted {MIN_ROUTE_AGREE}); {f_cmp} of "
+              f"{gen.size} tokens comparable, max |logit diff| per step {fmt(f_diff)} (tol {LOGIT_TOL}); "
+              f"with the dense step's routing shared, every token: {fmt(s_diff)}", flush=True)
+        for what, x in (("free", share), ("forced", f_share)):
+            check(x >= MIN_ROUTE_AGREE, f"replay {label} ({what}): routing agrees on {x} < {MIN_ROUTE_AGREE}")
+        for what, xs in (("free", free_d), ("forced", f_diff), ("shared routing", s_diff)):
+            check(all(x is None or (math.isfinite(x) and x <= LOGIT_TOL) for x in xs),
+                  f"replay {label} ({what}): logits differ by {fmt(xs)} (tol {LOGIT_TOL})")
+    return rec, dense
+
+
+def moe_step_time(torch, cfg, params, state, tokens, mesh) -> dict:
+    """One dense decode step of the 12-row slot table: CUDA-synchronised
+    walls, one ``torch.profiler`` trace, and the expert einsums alone (72
+    batched products over every expert) against the expert-bytes bound."""
+
+    from repro_torch.models import model_zoo as Z
+
+    decode = Z.make_decode_fn(cfg)
+    b, total = tokens.shape
+    toks = torch.as_tensor(tokens[:, -1:], device="cuda")
+    big = mesh.execution_context("big")
+
+    def step():
+        return decode(params, {"tokens": toks}, state, total - 1)[0]  # rewrites the last position
+
+    walls = []
+    with torch.no_grad(), big:
+        step()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        trace = profile_run(torch, step, big)
+    from repro_torch.models import moe as M
+
+    moe, e, d, f = params["blocks"]["moe"], cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    cap = M._capacity(b, cfg.moe)  # the step's rows route as one group
+    buf = torch.randn((e, cap, d), device="cuda").to(torch.bfloat16)
+
+    def experts():
+        for i in range(cfg.n_layers):
+            h = torch.bmm(buf, moe["w1"][i]) * torch.bmm(buf, moe["w3"][i])
+            torch.bmm(h, moe["w2"][i])
+
+    expert_ms = time_ms(torch, experts, [()], 5, 1)
+    expert_bytes = cfg.n_layers * 3 * e * d * f * 2
+    bound = expert_bytes / HBM_BW * 1e3
+    wall = sorted(walls)[1]
+    lib = trace["ms"].get("library_gemm", 0.0)
+    print(f"  one dense decode step, 12 rows: wall {[round(x * 1e3, 2) for x in walls]} ms; traced wall "
+          f"{trace['wall_ms']:.2f} ms, device busy {trace['busy_ms']:.2f} ms (idle {trace['idle_share']:.3f}); "
+          f"device ms by kernel {({k: round(v, 3) for k, v in trace['ms'].items()})}, launches "
+          f"{trace['count']}; cuBLAS products (the expert einsums, the router's and the shared gate's) "
+          f"{lib:.3f} ms = {lib / trace['busy_ms']:.3f} of the busy time", flush=True)
+    print(f"  the 72 expert einsums alone: {expert_ms:.3f} ms (CUDA events) against their bytes bound "
+          f"{bound:.3f} ms ({expert_bytes / 1e9:.2f} GB at {HBM_BW / 1e12:.2f} TB/s): "
+          f"{bound / expert_ms:.3f} of the bound; the step's device busy time is "
+          f"{trace['busy_ms'] / bound:.2f}x the bound, its wall {wall * 1e3 / bound:.2f}x", flush=True)
+    check(trace["busy_ms"] > 0 and math.isfinite(expert_ms), "no device time for the MoE step")
+    return {"walls_s": walls, "wall_s": wall, "traced_step": trace, "library_gemm_ms": lib,
+            "expert_einsums_ms": expert_ms, "expert_bytes": expert_bytes, "expert_bound_ms": bound}
+
+
+def phase12(torch, counts, reset) -> dict:
+    """Ring decode at mixtral-8x7b's full widths, RING_LAYERS layers: one
+    step of 12 rows at RING_POS on a 4,096-token ring, dense and paged."""
+
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import execution as X
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(RING_ARCH), n_layers=RING_LAYERS)
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows, win, ps = LONG_ROWS, cfg.swa_window, LONG_PS
+    w, nl = win // ps, cfg.n_layers
+    dense = Z.init_decode_state(cfg, rows, RING_POS + 1, device="cuda")
+    check(dense["k"].shape[2] == win, f"ring of {dense['k'].shape[2]} slots, want {win}")
+    for key in ("k", "v"):
+        dense[key].normal_(generator=gen)
+    table = torch.randperm(rows * w, generator=gen, device="cuda").reshape(rows, w).int()
+
+    def to_pages(state):  # page table[r, j] holds slots [j·ps, (j+1)·ps) of row r
+        out = Z.init_decode_state_paged(cfg, rows * w, ps, device="cuda")
+        for key in ("k", "v"):
+            out["pages_" + key][:, table.flatten().long()] = state[key].reshape(
+                nl, rows * w, ps, cfg.n_kv_heads, cfg.head_dim)
+        return out
+
+    paged, paged_gather, paged_shared = to_pages(dense), to_pages(dense), to_pages(dense)
+    before = {k: v.clone() for k, v in dense.items()}
+    toks = torch.randint(0, cfg.vocab, (rows, 1), generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.full((rows,), RING_POS, dtype=torch.int32, device="cuda")
+    big = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    decode = Z.make_decode_fn(cfg)
+    with torch.no_grad(), big:
+        with RouteLog() as rd:
+            ld = decode(params, {"tokens": toks}, dense, pos)[0]
+        reset()
+        t0 = time.perf_counter()
+        with RouteLog() as rp:
+            lp = decode(params, {"tokens": toks, "page_table": table}, paged, pos)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        with mock.patch.dict(X.BACKENDS, {"paged_attn_cuda": X.BACKENDS["paged_attn_torch"]}):
+            lg = decode(params, {"tokens": toks, "page_table": table}, paged_gather, pos)[0]
+        # The kernel's step again, the dense step's routing shared: every
+        # row comparable.
+        with RouteLog(shared=rd):
+            ls = decode(params, {"tokens": toks, "page_table": table}, paged_shared, pos)[0]
+    slot = RING_POS % win
+    moved = (dense["k"] != before["k"]).any(dim=(3, 4))  # (layers, rows, slots)
+    landed = bool(moved[:, :, slot].all()) and int(moved.sum()) == nl * rows
+    page = table[:, slot // ps].long()
+    same_l0 = torch.equal(paged["pages_k"][0, page, slot % ps], dense["k"][0, :, slot])
+    share, mask, own = comparable(rd.calls, rp.calls, 1, M._capacity(rows, cfg.moe), cfg.moe.n_experts)
+    d = (lp.float() - ld.float()).abs().amax(dim=-1)[:, 0].cpu().numpy()
+    cmp_rows = mask[0, 0]
+    diff = float(d[cmp_rows].max()) if cmp_rows.any() else None
+    gather_same = torch.equal(lg, ld)
+    shared_diff = float((ls.float() - ld.float()).abs().max())
+    print(f"  {RING_ARCH} at {nl} of 32 layers, {rows} rows at position {RING_POS} of a {win}-token ring: "
+          f"new K/V at slot {slot} only: {landed}; layer 0's paged K equals the dense ring's: {same_l0}; "
+          f"gather route == dense ring bitwise: {gather_same}; launches {launches}; paged step wall "
+          f"{wall * 1e3:.2f} ms", flush=True)
+    print(f"  paged_attention_cuda vs dense ring: {share:.4f} of the routing decisions agree "
+          f"(least accepted {MIN_ROUTE_AGREE}); {int(cmp_rows.sum())} of {rows} rows comparable, max "
+          f"|logit diff| {diff} (tol {LOGIT_TOL}); rows whose own routing agreed: "
+          f"{float(d[own[0, 0]].max()) if own[0, 0].any() else None}; with the dense step's routing "
+          f"shared, every row: {shared_diff:.4f}", flush=True)
+    check(landed, "the ring step did not write exactly slot pos % window")
+    check(same_l0, "layer 0's new paged K differs from the dense ring's")
+    check(gather_same, "the gather route's ring step differs from the dense ring's")
+    check(launches["paged_attention_cuda"] == nl, f"paged launches {launches}")
+    check(bool(torch.isfinite(lp.float()).all()), "ring logits not finite")
+    check(share >= MIN_ROUTE_AGREE, f"ring step: routing agrees on {share}")
+    check(diff is None or diff <= LOGIT_TOL, f"ring step: paged vs dense logits differ by {diff}")
+    check(shared_diff <= LOGIT_TOL, f"ring step, routing shared: logits differ by {shared_diff}")
+    return {"arch": RING_ARCH, "layers": nl, "rows": rows, "window": win, "pos": RING_POS, "slot": slot,
+            "landed": landed, "gather_equal": gather_same, "route_agree": share,
+            "compared_rows": int(cmp_rows.sum()), "max_logit_diff": diff,
+            "shared_route_max_logit_diff": shared_diff, "launches": launches,
+            "paged_step_wall_s": wall, "phase_s": time.perf_counter() - t_phase}
 
 
 def main() -> None:
@@ -1249,6 +1774,23 @@ def main() -> None:
           "step-time probe feeding the scheduler", flush=True)
     detail["measured_loop"] = phase9(torch, counts, reset, tok2)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 10: the energy objectives, {ARCH} at full width (modeled joules)", flush=True)
+    detail["energy"] = phase10(torch)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 11: {MOE_ARCH} at full width: engines, one-shot, replay, device time", flush=True)
+    moe = phase11(torch, counts, reset)
+    detail["moe"] = moe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12: ring decode at {RING_ARCH}'s full widths, {RING_LAYERS} layers", flush=True)
+    ring = phase12(torch, counts, reset)
+    detail["ring"] = ring
+
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),
         "gemm_cuda_lean": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:273"),
@@ -1279,6 +1821,18 @@ def main() -> None:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "per": per[name],
         })
     kernels[0]["launches_forward"] = fwd["launches_5_forwards"]["gemm_cuda"]
+    # The launches of phase 11's and 12's paths, each read from its own run.
+    moe_launches = {
+        "gemm_cuda": {"qwen2_moe_dense_engine": moe["launches"]["dense"]["gemm_cuda"]},
+        "gemm_cuda_lean": {"qwen2_moe_one_shot_little": moe["launches"]["one_shot_little"]["gemm_cuda_lean"]},
+        "paged_attention_cuda": {"qwen2_moe_paged_engine": moe["launches"]["paged"]["paged_attention_cuda"],
+                                 "mixtral_ring_step": ring["launches"]["paged_attention_cuda"]},
+        "flash_attention_cuda": {},
+    }
+    for row in kernels:
+        row["launches_later_paths"] = moe_launches[row["name"]]
+        if "moe_step" in records[row["name"]]:
+            row["moe_step"] = records[row["name"]]["moe_step"]
     for row in kernels:  # 13: onto the tensor cores (wgmma + TMA, mma.sync); 15: the split walk
         row["redesigned_in"] = 13
         if row["name"] == "paged_attention_cuda":

@@ -17,8 +17,9 @@ import importlib
 from typing import Optional
 
 # Copies of the reference's MoE/SSM config records, so that every
-# ArchConfig field keeps its type; the port's model families that use
-# them arrive with later slices.
+# ArchConfig field keeps its type.  ``MoEConfig`` drives the port's MoE
+# family (``repro_torch.models.moe``); the SSM family arrives with a later
+# slice.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,14 +210,16 @@ class ArchConfig:
         return ArchConfig(**kw)
 
 
-# The architectures the port runs so far, the dense family (one module per
-# id under ``repro_torch/configs``); the rest of the reference's zoo follows
-# with the model families it needs.
+# The architectures the port runs so far, the dense and MoE families (one
+# module per id under ``repro_torch/configs``); the rest of the reference's
+# zoo follows with the model families it needs.
 _REGISTRY = {
     "internlm2-1.8b": "internlm2_1p8b",
     "qwen2.5-32b": "qwen2p5_32b",
     "minitron-4b": "minitron_4b",
     "deepseek-7b": "deepseek_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
 }
 
 

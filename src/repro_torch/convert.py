@@ -10,6 +10,10 @@ returns the port's nested dict of tensors on ``device``:
   * projection matrices, ``embed`` and ``lm_head`` are stored in bf16 once
     — the reference casts its fp32 masters to bf16 at every use, so the
     values the kernels see are the same;
+  * MoE blocks carry ``moe``: ``router`` (L, D, E), the experts ``w1`` /
+    ``w3`` (L, E, D, F) and ``w2`` (L, E, F, D), and for Qwen2-MoE
+    ``shared`` (a GLU) and ``shared_gate`` (L, D, 1), all in bf16 (the
+    reference casts them to bf16 at use);
   * norm weights and biases stay fp32, as the reference uses them.
 """
 
@@ -37,8 +41,8 @@ def params_from_jax(tree, cfg: ArchConfig, device="cuda"):
             return t
         return t.float() if name in _FP32_LEAVES else t.to(torch.bfloat16)
 
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: only the dense family is ported")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: only the dense and MoE families are ported")
     return conv(dict(tree), "")
 
 

@@ -306,6 +306,25 @@ class AsymmetricMesh:
             for _, c in self._pod_class
         ]
 
+    def pod_gated_watts(self) -> list[float]:
+        """Modeled draw per pod while parked (power-gated)."""
+
+        return [c.spec.power.gated_w * c.chips_per_pod for _, c in self._pod_class]
+
+    def pods_by_efficiency(self) -> list[int]:
+        """Pod indices sorted most energy-efficient first (fewest modeled
+        joules per unit of work: active watts / aggregate throughput),
+        ties broken by pod index."""
+
+        active = self.pod_active_watts()
+        agg = [
+            c.rel_throughput * c.chips_per_pod for _, c in self._pod_class
+        ]
+        return sorted(
+            range(self.n_pods),
+            key=lambda i: (active[i] / agg[i] if agg[i] > 0 else float("inf"), i),
+        )
+
     # -- scheduling -------------------------------------------------------
 
     def chunk_table(self, global_batch: int) -> S.ChunkTable:

@@ -94,6 +94,13 @@ class PowerModel:
 # Modeled power constants for the two classes.  The same structure as the
 # reference's TPU pair: the big class draws more per unit of time, the
 # little class is cheaper per unit of work.  Modeled, not measured.
+# The energy objective's efficiency order (``AsymmetricMesh.
+# pods_by_efficiency``: active watts per unit of ``rel_throughput``) rests
+# on a thin margin: little 45 + 2e-13 x 494.5e12 + 1e-11 x 1.675e12 =
+# 160.7 W over 0.25 = 642.6 W a unit, big 90 + 494.5 + 67.0 = 651.5 W a
+# unit, 1.4% apart.  Retuning any of these constants (or the little
+# class's 0.25) can swap the order, and with it which pod the energy
+# objective parks.
 HOPPER_POWER = PowerModel(idle_w=90.0, flop_j=5.0e-13, byte_j=2.0e-11)
 HOPPER_LITTLE_POWER = PowerModel(idle_w=45.0, flop_j=2.0e-13, byte_j=1.0e-11)
 

@@ -17,7 +17,7 @@ and requests:
   * **block search** — the host cost of one ``derive_block_config`` search
     at each of the decode step's GEMM shapes, uncached and memoised.
 
-Example (one H100)::
+Example (one H100; ``--arch qwen2-moe-a2.7b`` profiles the MoE step)::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         --arch internlm2-1.8b --out profile_decode.json
@@ -42,6 +42,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
 from repro_torch.core.blocking import derive_block_config
 from repro_torch.models import model_zoo as Z
+from repro_torch.models import transformer as T
 from repro_torch.runtime.serving import ServingEngine, resolve_device
 from repro_torch.util.atomic import atomic_write_json
 
@@ -192,12 +193,10 @@ def _python(eng: ServingEngine, n: int) -> dict:
 
 def _block_search(cfg, m: int) -> dict:
     """Host µs of one block derivation per decode GEMM shape, and the
-    total over one step's 7·L + 1 GEMMs, with and without the memo."""
+    total over one step's GEMMs (``transformer.gemm_shapes``), with and
+    without the memo."""
 
-    d, hq = cfg.d_model, cfg.n_heads * cfg.head_dim
-    hkv, ff, L = cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers
-    shapes = [((d, hq), L), ((d, hkv), 2 * L), ((hq, d), L),
-              ((d, ff), 2 * L), ((ff, d), L), ((d, cfg.vocab), 1)]
+    shapes = T.gemm_shapes(cfg)
     out = {"uncached_ms_per_step": 0.0, "memoised_ms_per_step": 0.0, "shapes": []}
     reps = 50
     for (k, n), count in shapes:

@@ -5,12 +5,15 @@ A thin CLI over ``model_zoo.make_prefill_fn`` (logits-only prefill) and
 under the big class's control tree.  On the CUDA card every GEMM runs
 the class's kernel and every layer's attention ``flash_attention_cuda``;
 ``--device cpu`` runs the kernels' plain versions and ``chunked_attention``.
-Weights are random, from ``--seed``.
+Weights are random, from ``--seed``.  The loss is ``ce + aux``: the
+cross-entropy and, for the MoE family, the router's load-balance loss,
+reported apart.
 
 Example (one H100)::
 
     PYTHONPATH=src python -m repro_torch.launch.score --arch minitron-4b \\
         --batch 2 --seq-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.score --arch qwen2-moe-a2.7b
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ def score(args, *, params=None) -> dict:
         "tokens_per_s": round(args.batch * args.seq_len / forward_s, 1),
         "loss": float(loss),
         "ce": float(metrics["ce"]),
+        "aux": float(metrics["aux"]),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
 

@@ -8,14 +8,19 @@ recurrence, token-by-token decode) as the comparison baseline, and
 the CUDA card unless ``--device cpu`` is given (the kernels' plain
 versions then run).  ``--trace``/``--metrics`` enable observability: the
 engine's spans and metric families, and its default step-time probe,
-which times each class's kernel and feeds the DAS scheduler.  The fleet
-and class-sharded branches of the reference's CLI arrive with later
-slices.
+which times each class's kernel and feeds the DAS scheduler.
+``--objective energy|edp`` lets the engine park energy-inefficient pods
+at low load; its joules are modeled from the class specs' power models,
+not read from the card.  The fleet and class-sharded branches of the
+reference's CLI arrive with later slices.
 
-Example (one H100)::
+Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --batch 8 --prompt-len 16 --gen-len 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --paged on
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --batch 3 --slots-per-pod 4 --objective energy
 """
 
 from __future__ import annotations
@@ -85,6 +90,25 @@ def _one_shot(cfg, params, asym, prompts, args, seq_cap, device):
     return out, timings, exec_ctx.device_class, exec_ctx.backend(), None
 
 
+def pad_requests(prompts: np.ndarray, layout):
+    """Lay requests out pod-major per the chunk table; returns ``(padded,
+    order)`` with ``padded[order] == prompts`` row for row.
+
+    The padded rows are the engine's slot table with zero prompts in its
+    free lanes, so the one-shot path over ``padded`` decodes what the
+    engine decodes, the MoE family's capacity routing across rows
+    included."""
+
+    c_max = layout.c_max
+    padded = np.zeros((len(layout.sizes) * c_max,) + prompts.shape[1:], prompts.dtype)
+    order, pos = [], 0
+    for i, size in enumerate(layout.sizes):
+        padded[i * c_max : i * c_max + size] = prompts[pos : pos + size]
+        order.extend(range(i * c_max, i * c_max + size))
+        pos += size
+    return padded, np.asarray(order, np.int64)
+
+
 def truncate_at_eos(out: np.ndarray, prompt_len: int, eos_id: int):
     """EOS-aware stop for the one-shot path's dense output (the EOS token
     is kept, the tail zeroed).  Returns ``(out, n_eos, n_budget)``."""
@@ -137,6 +161,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=8)
     ap.add_argument("--strategy", default="ca-das")
+    ap.add_argument("--objective", default="perf", choices=["perf", "energy", "edp"],
+                    help="engine scheduling objective: perf (default), energy (park "
+                         "energy-inefficient pods at low load, weight shares by "
+                         "joules a unit) or edp; the summary's energy_j and "
+                         "tokens_per_j are modeled from the classes' PowerModel, "
+                         "not read from the card")
     ap.add_argument("--device-class", default=None,
                     help="one-shot: serve under this class's control tree "
                          "(default: fastest)")
@@ -177,6 +207,8 @@ def serve(args, *, params=None):
         raise SystemExit("--device-class applies to the --one-shot path only")
     if args.one_shot and args.paged != "off":
         raise SystemExit("--paged applies to the engine path only")
+    if args.one_shot and args.objective != "perf":
+        raise SystemExit("--objective applies to the engine path only")
 
     if args.trace or args.metrics:
         from repro_torch import observability as OBS
@@ -187,7 +219,7 @@ def serve(args, *, params=None):
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = Z.init_params(cfg, gen, device)
     asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), strategy=args.strategy,
-                          batch_tile=1)
+                          batch_tile=1, objective=args.objective)
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
@@ -212,7 +244,7 @@ def serve(args, *, params=None):
     summary = {
         "arch": cfg.name,
         "path": "one-shot" if args.one_shot else "engine",
-        "objective": "perf",  # the energy/EDP objectives are not ported yet
+        "objective": args.objective,
         "device_class": device_class,
         "exec_backend": exec_backend,
         "class_sharded": False,  # one program: the class-sharded step is not ported yet
@@ -228,8 +260,10 @@ def serve(args, *, params=None):
     if stop_counts is not None:
         summary["stop_counts"] = stop_counts
     if engine is not None:
+        # energy_j / tokens_per_j are modeled joules (PowerModel), not the card's.
         summary["engine"] = {"slots": [engine.n_pods, engine.c_max],
-                             **engine.stats.snapshot(), "kv_pool": engine.kv_stats()}
+                             **engine.stats.snapshot(), "parked_pods": engine.parked_pods,
+                             "kv_pool": engine.kv_stats()}
     if args.trace or args.metrics:
         from repro_torch import observability as OBS
         from repro_torch.util.atomic import atomic_write_json

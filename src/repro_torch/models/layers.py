@@ -153,7 +153,7 @@ class AttnConfig:
     d_head: int
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    window: Optional[int] = None      # sliding window (forward only: ring decode is not ported)
+    window: Optional[int] = None      # sliding window; decode caches are rings of this size
     causal: bool = True
     use_rope: bool = True
 
@@ -214,12 +214,11 @@ def _per_row(pos, b: int, device) -> torch.Tensor:
     return pos.expand(b).contiguous() if pos.ndim == 0 else pos
 
 
-def _require_linear(cfg: AttnConfig):
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window (ring) decode is not ported yet; this slice serves "
-            "full-attention configurations"
-        )
+def _slot(pos: torch.Tensor, s_cache: int, cfg: AttnConfig) -> torch.Tensor:
+    """The cache slot a row's new K/V lands in: ``pos % S_cache`` in a
+    ring (sliding window), ``pos`` in a linear cache."""
+
+    return pos.long() % s_cache if cfg.window is not None else pos.long()
 
 
 def _finish(p, o, live, x, cfg: AttnConfig):
@@ -233,24 +232,26 @@ def _finish(p, o, live, x, cfg: AttnConfig):
 
 
 def decode_attention(p, x, cfg: AttnConfig, cache_k, cache_v, pos, *, live=None):
-    """Single-token decode against a linear KV cache, written in place.
+    """Single-token decode against a linear or ring KV cache, written in place.
 
     x: (B, 1, D); cache_k/v: (B, S_cache, Hkv, Dh); pos: the new token's
     absolute position — a scalar or a ``(B,)`` vector of per-row positions
-    (the engine's slot table).  A row whose position is past the cache
-    writes nothing (the reference's ``mode="drop"``).  ``live`` (``(B,)``
-    bool) zeroes the attention output of dead rows.
+    (the engine's slot table).  With a sliding window the cache is a ring
+    of ``S_cache`` slots: the new K/V lands at ``pos % S_cache`` and every
+    slot is visible once ``pos >= S_cache``.  In a linear cache a row whose
+    position is past the cache writes nothing (the reference's
+    ``mode="drop"``).  ``live`` (``(B,)`` bool) zeroes the attention output
+    of dead rows.
     """
 
-    _require_linear(cfg)
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     pos = _per_row(pos, b, x.device)
     q, k, v = _qkv(p, x, cfg, pos[:, None])
 
     rows = torch.arange(b, device=x.device)
-    slot = pos.long()
-    ok = pos < s_cache
+    slot = _slot(pos, s_cache, cfg)
+    ok = slot < s_cache
     if not bool(ok.all()):
         rows, slot, k, v = rows[ok], slot[ok], k[ok], v[ok]
     cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
@@ -268,15 +269,16 @@ def decode_attention_paged(
 
     pages_k/v: (P, page_size, Hkv, Dh); page_table: (B, W) int32 with
     ``W · page_size == S_cache``; pos: (B,) int32.  The new K/V lands at
-    logical slot ``pos`` inside the row's page for it, in place; rows whose
-    table entry is unallocated (SENTINEL) or whose position is past the
-    cache write nothing.  The read side routes through
-    ``execution.dispatch_paged_attention``.
+    logical slot ``pos % S_cache`` (ring) or ``pos`` (linear) inside the
+    row's page for it, in place; rows whose table entry is unallocated
+    (SENTINEL) or whose linear position is past the cache write nothing.
+    The read side routes through ``execution.dispatch_paged_attention``,
+    whose visible prefix ``k < min(pos + 1, S_cache)`` covers the whole
+    ring once it has wrapped.
     """
 
     from repro_torch.core.execution import dispatch_paged_attention
 
-    _require_linear(cfg)
     b = x.shape[0]
     n_pages, page_size = pages_k.shape[0], pages_k.shape[1]
     w = page_table.shape[1]
@@ -285,10 +287,11 @@ def decode_attention_paged(
     q, k, v = _qkv(p, x, cfg, pos[:, None])
 
     rows = torch.arange(b, device=x.device)
-    col = torch.clamp(pos.long() // page_size, 0, w - 1)
+    slot = _slot(pos, s_cache, cfg)
+    col = torch.clamp(slot // page_size, 0, w - 1)
     page = page_table[rows, col].long()
-    ok = (pos < s_cache) & (page >= 0) & (page < n_pages)
-    off = pos.long() % page_size
+    ok = (slot < s_cache) & (page >= 0) & (page < n_pages)
+    off = slot % page_size
     if not bool(ok.all()):
         page, off, k, v = page[ok], off[ok], k[ok], v[ok]
     pages_k[page, off] = k[:, 0].to(pages_k.dtype)

@@ -1,4 +1,7 @@
-"""Family dispatch (the port's ``repro.models.model_zoo``), dense family.
+"""Family dispatch (the port's ``repro.models.model_zoo``): the dense and
+MoE families run through :mod:`repro_torch.models.transformer` (which
+raises for the SSM and hybrid families and for embedding inputs); the
+encoder-decoder family is not ported yet.
 
   * ``init_params(cfg, generator, device)``
   * ``make_loss_fn(cfg)``        -> (params, batch) -> (loss, metrics), no gradient

@@ -25,20 +25,28 @@ fewer devices than pods).  What carries over:
     ``asym.observe_step``, so the DAS scheduler re-derives slot budgets
     from measured speed.  The probe is inert while observability is off.
   * **Telemetry** — spans (``engine.prefill``, ``engine.decode_step``,
-    ``engine.decode_shard``, page and rebalance instants) and the engine
-    metric families, recorded only while observability is enabled.
+    ``engine.decode_shard``, page, rebalance and park instants) and the
+    engine metric families, recorded only while observability is enabled.
+  * **Energy objectives** (``asym.objective`` ``"energy"`` or ``"edp"``) —
+    load-adaptive pod parking: at low queue depth the least
+    energy-efficient pods (``AsymmetricMesh.pods_by_efficiency``) draw a
+    zero slot budget and model gated watts; as load ramps they re-admit.
+    Joules are modeled from the class specs' ``PowerModel`` on a
+    deterministic clock (``MODELED_ROW_S`` a row), never read from the
+    card.  ``perf`` never parks.
 
 The decode state is updated in place (the reference donates it through
 its jitted step).  Exactness contract, as in the reference: the paged
 engine's tokens equal the dense engine's when both read the cache through
-the gather route (free-but-refreshed lanes decode the same pad streams
-through a shared phantom page lane per pod; retired lanes are marked dead
-via ``live`` in both engines).
+the gather route.  Free-but-refreshed lanes decode the same pad streams
+as the dense engine's phantom rows through *phantom pages*: one shared
+lane per pod for row-local families (all pad writers are identical), one
+private lane per slot for MoE (capacity routing couples the rows of a
+group, so pad lanes must own their content as dense lanes do).  Retired
+lanes are marked dead via ``live`` in both engines.
 
 Waiting for later slices: the class-sharded mixed step (never taken on
-one card), the energy/EDP parking objectives (with their
-``engine_modeled_watts`` and ``engine_pods_parked`` metrics), and the
-fleet surface.
+one card) and the fleet surface.
 """
 
 from __future__ import annotations
@@ -98,6 +106,12 @@ def _metrics():
                 "engine_page_allocs_total",
                 "KV pages allocated at admission",
                 labels=("device_class",)),
+            "modeled_watts": MET.gauge(
+                "engine_modeled_watts",
+                "Modeled power draw over the last decode step (W)"),
+            "pods_parked": MET.gauge(
+                "engine_pods_parked",
+                "Pods currently parked (power-gated) by the energy objective"),
         }
     return _M
 
@@ -122,6 +136,16 @@ def _hook_takes_units(hook) -> bool:
         elif p.kind == p.VAR_POSITIONAL:
             return True
     return n >= 2
+
+
+def _paged_supported(cfg: ArchConfig) -> tuple[bool, str]:
+    """Can this arch's decode state page?  (pure KV-cache families only)"""
+
+    if TX.block_kind(cfg) == "mamba":
+        return False, "recurrent (Mamba2) state has no KV pages to allocate"
+    if cfg.shared_attn_every:
+        return False, "the hybrid shared-attention cache is not paged"
+    return True, ""
 
 
 def resolve_device(device) -> torch.device:
@@ -209,11 +233,13 @@ class ServingEngine:
     asym : the asymmetric mesh (scheduling state; per-class control trees).
     seq_cap : per-slot cache length (prompt + generation must fit).
     slots_per_pod : ``c_max`` — each pod's fixed slot-region size.
-    paged : "off" (default) | "auto" | "on" — the paged KV pool.
+    paged : "off" (default) | "auto" | "on" — the paged KV pool.  "auto"
+        pages every pure KV-cache family and stays dense where paging is
+        unsupported (Mamba2 / hybrid state); "on" raises there.
     page_size : tokens per page; default the min ``block.bm`` across the
         classes' trees, rounded down to a divisor of the cache length.
     pool_pages : physical pages per pod partition (default: every slot's
-        full lane plus the phantom lane — never defers).
+        full lane plus the phantom lanes — never defers).
     eos_id : token id that stops a request mid-stream.
     device : where the params, caches and kernels live (``"cuda"``).
     pod_time_hook : feeds the scheduler's straggler calibration.  The
@@ -243,11 +269,6 @@ class ServingEngine:
     ):
         if cfg.embed_inputs or cfg.family == "encdec":
             raise ValueError(f"{cfg.name}: the serving engine targets token-in archs")
-        if asym.objective != "perf":
-            raise ValueError(
-                f"objective {asym.objective!r}: the port's engine serves the 'perf' "
-                "objective; the energy/EDP parking objectives are not ported yet"
-            )
         if isinstance(paged, bool):
             paged = "on" if paged else "off"
         if paged not in ("auto", "on", "off"):
@@ -289,9 +310,14 @@ class ServingEngine:
         self.completions: list[Completion] = []
         self.stats = EngineStats()
         self._rebalances0 = asym.scheduler.rebalances
+        # -- load-adaptive parking + modeled power (energy objective) ------
+        # Parked pods draw a zero slot budget and model gated watts; the
+        # ``perf`` objective never parks.
+        self._parked: set[int] = set()
         self._active_w = asym.pod_active_watts()
         self._idle_w = asym.pod_idle_watts()
         self._poll_w = asym.pod_poll_watts()
+        self._gated_w = asym.pod_gated_watts()
         self._pod_agg = [
             asym.class_of_pod(p).rel_throughput * asym.class_of_pod(p).chips_per_pod
             for p in range(self.n_pods)
@@ -302,25 +328,32 @@ class ServingEngine:
         self._pod_of_row = np.arange(self.n_slots) // self.c_max
 
         # -- KV storage: dense per-slot lanes or the paged pool ------------
-        # The dense family pages (its state is a pure KV cache), so "auto"
-        # means on; the families whose state does not page are not ported.
-        self.paged = paged != "off"
-        self.s_cache = TX.cache_len(cfg, self.seq_cap)
+        supported, why = _paged_supported(cfg)
+        if paged == "on" and not supported:
+            raise ValueError(f"paged='on': {cfg.name}: {why}")
+        self.paged = paged == "on" or (paged == "auto" and supported)
+        self.s_cache = TX.cache_len(cfg, self.seq_cap) if supported else self.seq_cap
         if self.paged:
             if page_size is None:
                 page_size = min(t.block.bm for t in asym.control_trees().values())
             ps = divisor_page_size(self.s_cache, page_size)
             w = self.s_cache // ps
+            # MoE capacity routing couples batch rows: pad lanes must own
+            # their phantom content as dense lanes do (one lane per slot);
+            # row-local families share one phantom lane per pod.
+            per_slot_phantom = TX.block_kind(cfg) == "attn_moe"
+            phantom_per_pod = self.c_max if per_slot_phantom else 1
             if pool_pages is None:
-                pool_pages = (self.c_max + 1) * w  # every slot plus the phantom lane
+                pool_pages = (self.c_max + phantom_per_pod) * w
             spec = PageSpec(
                 page_size=ps, pages_per_slot=w,
                 pages_per_pod=int(pool_pages), n_pods=self.n_pods,
             )
             self.pool: Optional[PagePool] = PagePool(spec, self.c_max)
-            # One shared phantom lane per pod (row-local archs: the free
-            # lanes of a pod write identical values to it).
-            self.phantom = self.pool.alloc_phantom()
+            self.phantom = self.pool.alloc_phantom(per_slot=per_slot_phantom)
+            self._phantom_rows_idx = (
+                np.arange(self.n_slots) if per_slot_phantom else self._pod_of_row
+            )
             self.state = Z.init_decode_state_paged(cfg, spec.n_pages, ps, device=self.device)
         else:
             self.pool = None
@@ -374,7 +407,7 @@ class ServingEngine:
         pages, live pad lanes their phantom row, dead lanes SENTINEL."""
 
         busy = self.slot_rid >= 0
-        table = self.phantom[self._pod_of_row].copy()
+        table = self.phantom[self._phantom_rows_idx].copy()
         table[busy] = self.pool.table[busy]
         table[~busy & ~self._live] = SENTINEL
         return table
@@ -415,7 +448,10 @@ class ServingEngine:
         old_budgets = list(self.budgets)
         old_count = self.stats.rebalances
         n_work = int((self.slot_rid >= 0).sum()) + sum(len(q) for q in self.queues)
-        self.budgets = self.asym.slot_budgets(self.c_max, n_work)
+        self._update_parking(n_work)
+        self.budgets = self.asym.slot_budgets(
+            self.c_max, n_work, parked=sorted(self._parked)
+        )
         self.stats.rebalances = self.asym.scheduler.rebalances - self._rebalances0
         if T.enabled() and self.stats.rebalances > old_count:
             _metrics()["rebalances"].inc(self.stats.rebalances - old_count)
@@ -426,8 +462,82 @@ class ServingEngine:
                 rebalances=self.stats.rebalances,
             )
 
+    # -- load-adaptive pod parking (energy objective only) --------------------
+
+    def _update_parking(self, n_work: int):
+        """Park/unpark pods against the offered load, with hysteresis.
+
+        At low queue depth the least energy-efficient pods park (zero slot
+        budget, modeled gated watts); as offered load ramps past the
+        unparked capacity, parked pods re-admit, most efficient first.  A
+        pod parks only when the load sits below the *remaining* capacity by
+        the scheduler's drift threshold ``h`` (``n_work <= cap·(1-h)``) and
+        unparks as soon as capacity falls short; the gap prevents thrash.
+        The most efficient pod never parks, and requests on a freshly
+        parked pod run to completion (parking only refuses admissions).
+        ``perf`` never parks.
+        """
+
+        if self.asym.objective == "perf" or self.n_pods < 2:
+            return
+        h = self.asym.scheduler.rebalance_threshold
+        order = self.asym.pods_by_efficiency()  # most efficient first
+        for p in order:
+            if (self.n_pods - len(self._parked)) * self.c_max >= n_work:
+                break
+            if p in self._parked:
+                self._unpark(p, n_work)
+        for p in reversed(order):
+            if p in self._parked:
+                continue
+            if len(self._parked) >= self.n_pods - 1:
+                break
+            remaining = (self.n_pods - len(self._parked) - 1) * self.c_max
+            if n_work <= remaining * (1.0 - h):
+                self._park(p, n_work)
+            else:
+                break
+
+    def _park(self, pod: int, n_work: int):
+        self._parked.add(pod)
+        self.stats.pod_parks += 1
+        self._note_parking("engine.pod_park", pod, n_work)
+
+    def _unpark(self, pod: int, n_work: int):
+        self._parked.discard(pod)
+        self.stats.pod_unparks += 1
+        self._note_parking("engine.pod_unpark", pod, n_work)
+
+    def _note_parking(self, name: str, pod: int, n_work: int):
+        if T.enabled():
+            _metrics()["pods_parked"].set(len(self._parked))
+            T.instant(
+                name, cat="engine", pod=pod,
+                device_class=self.asym.class_of_pod(pod).name,
+                n_work=n_work, parked=sorted(self._parked),
+            )
+
+    @property
+    def parked_pods(self) -> list[int]:
+        """The pods the energy objective has parked, ascending."""
+
+        return sorted(self._parked)
+
     def _admission_pods(self, ci: int) -> list[int]:
-        return [p for p, c in enumerate(self._pod_class) if c == ci]
+        """The pods class ``ci``'s queue may admit into: the class's
+        unparked pods; when the whole class is parked, the unparked pods
+        of other classes, most efficient first (the queue must not starve
+        behind a parked class, nor defeat parking by admitting into it)."""
+
+        pods = [
+            p for p, c in enumerate(self._pod_class)
+            if c == ci and p not in self._parked
+        ]
+        if not pods:
+            pods = [
+                p for p in self.asym.pods_by_efficiency() if p not in self._parked
+            ]
+        return pods
 
     def _pod_active(self) -> list[int]:
         act = (self.slot_rid >= 0).reshape(self.n_pods, self.c_max)
@@ -506,7 +616,7 @@ class ServingEngine:
         take_new_t = self._t(take_new, torch.bool)
         plens_t = self._t(plens, torch.int32)
         if self.pool is not None:
-            table = self.phantom[self._pod_of_row].copy()
+            table = self.phantom[self._phantom_rows_idx].copy()
             for slot, _ in batch:
                 table[slot] = self.pool.table[slot]
             pbatch = {
@@ -666,8 +776,14 @@ class ServingEngine:
         return [int(a.sum()) for a in act]
 
     def _account_energy(self, units: Sequence[int]):
-        """Modeled joules for one steady-state decode step (the reference's
-        power-model clock: deterministic, no wall clocks)."""
+        """Modeled joules for one steady-state decode step.
+
+        The step's modeled span is the slowest pod's row count over its
+        aggregate throughput (x ``MODELED_ROW_S``).  Per-pod draw over the
+        span: a pod with rows interpolates idle to active by occupancy; an
+        empty parked pod draws gated watts; an empty unparked pod polls.
+        Deterministic (no wall clocks), so the figures are host-independent.
+        """
 
         span = MODELED_ROW_S * max(
             (u / agg for u, agg in zip(units, self._pod_agg) if agg > 0),
@@ -679,10 +795,14 @@ class ServingEngine:
         for p, u in enumerate(units):
             if u > 0:
                 watts += self._idle_w[p] + (self._active_w[p] - self._idle_w[p]) * u / self.c_max
+            elif p in self._parked:
+                watts += self._gated_w[p]
             else:
                 watts += self._poll_w[p]
         self.stats.energy_j += watts * span
         self.stats.modeled_decode_s += span
+        if T.enabled():
+            _metrics()["modeled_watts"].set(watts)
 
     # -- KV memory accounting ---------------------------------------------------
 

@@ -64,11 +64,15 @@ def _operands(cuda, m, k, n, seed=0):
     return a, b
 
 
-# Decode shapes (M = 12), then ragged ones: M = 100 and 300 against the
-# 64/128-row tiles, N not a multiple of bn, K not a multiple of bk, and K
-# or N not a multiple of 8 (the wrapper's zero-padded copy for TMA).
+# Decode shapes (M = 12): internlm2-1.8b's, qwen2-moe-a2.7b's shared expert
+# (K = 5632 = 44 x 128) and LM head (N = 151,936), mixtral-8x7b's LM head;
+# then ragged ones: M = 100 and 300 against the 64/128-row tiles, N not a
+# multiple of bn, K not a multiple of bk, and K or N not a multiple of 8
+# (the wrapper's zero-padded copy for TMA).
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(12, 2048, 2048), (12, 8192, 2048), (12, 2048, 92544),
+                                   (12, 2048, 5632), (12, 5632, 2048), (12, 2048, 151936),
+                                   (12, 4096, 32000),
                                    (13, 100, 77), (300, 200, 180), (1, 8, 1),
                                    (100, 320, 1000), (100, 1000, 515), (64, 96, 72)])
 def test_cuda_gemms_match_plain_and_each_other(cuda, shape):
@@ -85,6 +89,26 @@ def test_cuda_gemms_match_plain_and_each_other(cuda, shape):
             assert torch.equal(G.gemm_cuda_lean(a, b, cfg), got)  # bitwise at equal blocks
     torch.cuda.synchronize()
     assert G.LAUNCHES == {"gemm_cuda": 2, "gemm_cuda_lean": 3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["big", "little"])
+def test_qkv_projection_with_bias_matches_gemm_ref(cuda, cls):
+    """qwen2-moe-a2.7b's q/k/v projection at the engine's 12 rows under each
+    class's tree: the class's kernel plus the fp32 bias against ``gemm_ref``."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.kernels import ops
+
+    a, w = _operands(cuda, 12, 2048, 2048, seed=3)
+    bias = torch.randn((2048,), generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    G.reset_launches()
+    with AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context(cls):
+        got = ops.linear(a, w, bias)
+    want = (R.gemm_ref(a, w).float() + bias).bfloat16()
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gemm_cuda" if cls == "big" else "gemm_cuda_lean"] == 1
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
 
 
 @pytest.mark.cuda
@@ -141,7 +165,11 @@ def test_cuda_gemm_rejects_what_it_cannot_run(cuda):
 # on one-page slots, the engine's pages, and a 4,096-token cache with
 # random rows; GQA groups of 1, 2, 3 and 5 (deepseek-7b, internlm2-1.8b,
 # minitron-4b, qwen2.5-32b) at head dims 64 and 128 (and 256) and pages of
-# 8, 16 and 64, with the "edge" rows; full rows at 32,768 tokens.
+# 8, 16 and 64, with the "edge" rows; full rows at 32,768 tokens;
+# qwen2-moe-a2.7b's group of 1 (16 / 16 heads, 15 of the 16 rows of the
+# kernel's tile padding) at its engine slot and at 4,096 tokens; and
+# mixtral-8x7b's group of 4 on a 4,096-token ring at position 6,000 ("ring":
+# past the window every slot is visible).
 PAGED_CASES = [
     (12, 16, 8, 128, 24, 1, "random"),
     (12, 16, 8, 128, 16, 4, "random"),
@@ -155,6 +183,9 @@ PAGED_CASES = [
     (8, 16, 8, 256, 16, 64, "edges"),
     (12, 16, 8, 128, 64, 512, "full"),
     (2, 6, 2, 128, 64, 512, "full"),
+    (12, 16, 16, 128, 8, 3, "random"),
+    (12, 16, 16, 128, 64, 64, "full"),
+    (12, 32, 8, 128, 64, 64, "ring"),
 ]
 
 
@@ -172,8 +203,9 @@ def _paged_operands(cuda, case):
     pv = torch.randn((n_pages, ps, hkv, d), generator=gen, device=cuda).bfloat16()
     table = torch.randperm(n_pages, generator=gen, device=cuda)[:b * w].reshape(b, w).int()
     s_cache = w * ps
-    if rows == "full":
-        pos = torch.full((b,), s_cache - 1, dtype=torch.int32, device=cuda)
+    if rows in ("full", "ring"):
+        pos = torch.full((b,), s_cache - 1 if rows == "full" else 6000, dtype=torch.int32,
+                         device=cuda)
     else:
         pos = torch.randint(0, s_cache, (b,), generator=gen, device=cuda, dtype=torch.int32)
         table[0] = SENTINEL            # a dead row

@@ -165,8 +165,9 @@ def test_params_from_jax_keeps_qwen_biases_fp32():
 def test_forward_rejects_unported_families():
     *_, cfg, params = _model("minitron-4b", {})
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        T.forward_lm(params, dataclasses.replace(cfg, family="moe"), {"tokens": toks})
+    for rep in ({"family": "ssm"}, {"family": "hybrid"}):
+        with pytest.raises(NotImplementedError):
+            T.forward_lm(params, dataclasses.replace(cfg, **rep), {"tokens": toks})
     with pytest.raises(NotImplementedError, match="not ported"):
         T._layer_fn(cfg, "mamba", None)
 

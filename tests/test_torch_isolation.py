@@ -75,6 +75,8 @@ def test_port_covers_the_slice_modules():
         "repro_torch.observability.probe", "repro_torch.observability.report",
         "repro_torch.tuning", "repro_torch.tuning.cache", "repro_torch.tuning.candidates",
         "repro_torch.tuning.measure", "repro_torch.tuning.ratio", "repro_torch.tuning.tune",
+        "repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2p7b",
+        "repro_torch.configs.mixtral_8x7b",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):

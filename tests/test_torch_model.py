@@ -178,10 +178,10 @@ def test_decode_rejects_unported_variants(model):
     *_, cfg, params = model
     import dataclasses
 
-    swa = dataclasses.replace(cfg, swa_window=8)
-    state = Z.init_decode_state(swa, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        Z.make_decode_fn(swa)(params, {"tokens": torch.zeros((2, 1), dtype=torch.int32)},
-                              state, torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        T.init_lm(torch.Generator(), dataclasses.replace(cfg, family="moe"), device="cpu")
+    tokens = {"tokens": torch.zeros((2, 1), dtype=torch.int32)}
+    for rep in ({"family": "ssm"}, {"family": "hybrid"}, {"embed_inputs": True}):
+        bad = dataclasses.replace(cfg, **rep)
+        with pytest.raises(NotImplementedError, match="dense and MoE"):
+            Z.make_decode_fn(bad)(params, tokens, {}, torch.zeros(2, dtype=torch.int32))
+        with pytest.raises(NotImplementedError):
+            T.init_lm(torch.Generator(), bad, device="cpu")

@@ -15,6 +15,7 @@ a top-2 gap below ``MARGIN``.  Within the port the contracts are bitwise:
 paged engine == dense engine (gather route) and engine == one-shot.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -179,8 +180,9 @@ def test_serve_cli_json_has_the_reference_keys(monkeypatch, capsys, extra):
 
 def test_engine_refuses_what_is_not_ported(model):
     *_, cfg, params, _ = model
-    with pytest.raises(ValueError, match="objective"):
-        _engine(cfg, params, asym=_mesh(objective="energy"))
+    # A family whose state has no KV pages (the SSM rule) cannot page.
+    with pytest.raises(ValueError, match="paged='on'"):
+        _engine(dataclasses.replace(cfg, family="ssm"), params, paged="on")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             ServingEngine(cfg, params, _mesh(), seq_cap=8, device="cuda")
