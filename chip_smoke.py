@@ -13,7 +13,10 @@ Phases (any failed check exits non-zero and prints no result line):
      started together); ``cuobjdump -sass`` must find the tensor cores'
      instructions in the built libraries: ``HGMMA`` (wgmma) in the GEMM's,
      ``HMMA`` (mma.sync) in flash attention's;
-  1. kernels vs their plain PyTorch versions at the main paths' shapes
+  1. kernels vs their plain PyTorch versions at the main paths' shapes (and
+     at phases 11-15's: mamba2-1.3b's and zamba2-2.7b's decode GEMMs,
+     whisper-small's 51,865-wide tied head, the forwards' GEMMs of phases
+     13-15, flash attention at head dim 80 and non-causal over 1,500 keys)
      (bf16; tolerances below; flash attention's rows also in L2), the lean
      GEMM bitwise equal to the pipelined one at equal blocks (at every GEMM
      shape), each timed with CUDA events beside its plain version, its
@@ -90,13 +93,36 @@ Phases (any failed check exits non-zero and prints no result line):
      at position 6,000 of a 4,096-token ring (random bf16 K/V built
      directly), dense and paged: the new K/V lands at slot 6000 % 4096, the
      gather route equals the dense ring bitwise, and ``paged_attention_cuda``
-     is within ``LOGIT_TOL`` of it under the routing-aware rule.
+     is within ``LOGIT_TOL`` of it under the routing-aware rule;
+ 13. the full-width mamba2-1.3b (random weights from seed 0; nothing cut):
+     ``paged="on"`` refused and ``"auto"`` dense, then phase 2's requests
+     through the dense engine (one ``gemm_cuda`` a recurrence step, the LM
+     head: the Mamba2 projections are plain products, as in the reference)
+     and the one-shot path under the little class (``gemm_cuda_lean``);
+     engine == one-shot over the padded batch; one mixed-length admission
+     round (16 and 8 tokens) against the short request alone, printed and
+     not held (the reference's behaviour); ``launch/score.py``'s forward
+     and loss; the forward over 2 x 2048 tokens (the chunked SSD scan)
+     against the recurrence over its first ``RECUR_LEN`` positions (the
+     bulk prefill from decode, then the last steps token by token) within
+     ``LOGIT_TOL``; one decode step of the
+     12-row slot table timed and traced against its bytes bound;
+ 14. the same for the full-width zamba2-2.7b (the shared attention+GLU
+     block nine times a step, 64 ``gemm_cuda`` a step; its forward runs
+     ``flash_attention_cuda`` at head dim 80), plus its forward through
+     ``chunked_attention`` within ``LOGIT_TOL``;
+ 15. the full-width whisper-small (2 x 448 decoder tokens over 2 x 1,500
+     random frames) and pixtral-12b backbone (2 x 2048 random embeddings):
+     ``launch/score.py``'s forward and loss, the forward timed against its
+     operations bound and traced, the forward through ``chunked_attention``
+     within ``LOGIT_TOL``, and decode steps (whisper's cross K/V from
+     ``encode``) within ``LOGIT_TOL`` of the forward's logits.
 
-Each of phases 2-4, the forward of phase 7, the steps of phase 8 and the
-engines and the kernel step of phases 11 and 12 resets the kernels' launch
-counters just before it and reads them just after; the launches of phases
-1, 5, 6, 10 and the comparisons of phases 7, 8, 11 and 12 count for no
-path.  The engines' tokens/s are smoke readings over a few steps, not
+Each of phases 2-4, the forward of phase 7, the steps of phase 8, the
+engines and the kernel step of phases 11 and 12, and the paths of phases
+13-15 resets the kernels' launch counters just before it and reads them
+just after; the launches of phases 1, 5, 6, 10 and the comparisons of
+phases 7, 8, 11, 12 and 13-15 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -134,6 +160,13 @@ LOGIT_TOL = 0.25
 # BF16_TOL's absolute 0.02 is wide; a row that lost a key block moves by
 # tens of percent, the kernel's own rounding by well under one.
 FLASH_ROW_TOL = 2e-2
+# A Mamba2 block's output rows, the chunked scan against the recurrence on
+# the same inputs, in L2 relative to the row's norm: the scan rounds its
+# output to bf16 before adding D·x (the reference's order) and sums in
+# another order, 0.7% of a row at full width; a row that lost the state a
+# chunk carries in moves by tens of percent.  Its final fp32 state is held
+# to the same bound in L2 (3.5e-6 of its norm on the CPU at full width).
+BLOCK_ROW_TOL = 2e-2
 
 PEAK_BF16 = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 HBM_BW = 3.35e12     # bytes/s, H100 SXM data sheet
@@ -178,6 +211,16 @@ MIN_ROUTE_AGREE = 0.5
 # The energy phase (10): 3 requests over 2 pods of 4 slots, so the little
 # pod alone holds the load with the hysteresis margin to spare.
 ENERGY_BATCH, ENERGY_SLOTS = 3, 4
+# The recurrent families (phases 13, 14), served at full width, and the
+# enc-dec and embedding-input forwards (phase 15): whisper-small over its
+# published 448-token decoder context and 1,500 encoder frames.
+SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH, EMBED_ARCH = "mamba2-1.3b", "zamba2-2.7b", "whisper-small", "pixtral-12b"
+DEC_CTX, ENC_DECODE_STEPS, REPLAY_TAIL = 448, 8, 4
+# The recurrence of phases 13 and 14 replays the first RECUR_LEN positions
+# of the 2 x 2048 forward's tokens (two of the scan's 256-step chunks, so the
+# state it carries across a chunk is checked): a decode step costs the host
+# about a tenth of a second, and all 2048 would take minutes per model.
+RECUR_LEN = 512
 
 
 def gemm_shapes(cfg) -> list:
@@ -371,11 +414,24 @@ def phase1(torch, detail: dict) -> dict:
         # shared expert's K = 5632, the 151,936-wide LM head.
         moe_tot, moe_err = step_gemms(name, ctx, fn, plain, gemm_shapes(moe_cfg), MOE_ARCH)
         detail[f"{name}_moe_decode_step"] = moe_tot
+        # The recurrent families' steps (phases 13, 14): mamba2-1.3b's head
+        # alone, zamba2-2.7b's shared block nine times and its head; and
+        # whisper-small's tied head, N = 51,865 (not a multiple of 8).
+        wcfg = get_config(ENCDEC_ARCH)
+        later = {}
+        for label, shapes in ((SSM_ARCH, gemm_shapes(get_config(SSM_ARCH))),
+                              (HYBRID_ARCH, gemm_shapes(get_config(HYBRID_ARCH))),
+                              (f"{ENCDEC_ARCH} head", [((wcfg.d_model, wcfg.vocab), 1)])):
+            later[label], err_l = step_gemms(name, ctx, fn, plain, shapes, label)
+            max_err = max(max_err, err_l)
+        detail[f"{name}_later_decode_steps"] = later
         records[name] = {
             "max_abs_err": max(max_err, moe_err), "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "library_ms": tot["library_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
             "moe_step": {k: moe_tot[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **{f"{label}_step": {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for label, t in later.items()},
         }
 
     # The qkv projections with bias (qwen2-moe-a2.7b): the class's kernel,
@@ -413,44 +469,83 @@ def phase1(torch, detail: dict) -> dict:
         print(f"  {name} tree 1024^3 block {blk.bm}x{blk.bk}x{blk.bn}: err {err:.3g} "
               f"kernel {t_k:.4f} ms matmul {t_l:.4f} bound {b_ms:.4f} ({by})", flush=True)
 
+    def forward_gemms(label, fm, shapes, one_stage):
+        """The big class's GEMMs of one forward (M = ``fm`` rows) against
+        fp32 ``torch.matmul``, lean == pipelined bitwise, timed beside
+        ``torch.matmul`` and the bound; with ``one_stage`` also the
+        one-stage kernel at its own block (what the ring buys)."""
+
+        tot = {"ms": 0.0, "lean_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "gemms": 0}
+        max_err = 0.0
+        for (k, n), count in shapes:
+            cfgb = big.block_config(fm, k, n, "bfloat16", 2)
+            a, bs = operands(fm, k, n)
+            got = G.gemm_cuda(a, bs[0], cfgb)
+            torch.cuda.synchronize()
+            ok, err = within(torch, got, torch.matmul(a.float(), bs[0].float()), BF16_TOL)
+            check(ok, f"gemm_cuda {fm}x{k}x{n} {cfgb}: max err {err} over tol {BF16_TOL}")
+            check(torch.equal(got, G.gemm_cuda_lean(a, bs[0], cfgb)),
+                  f"lean != pipelined bitwise at {fm}x{k}x{n} {cfgb}")
+            max_err = max(max_err, err)
+            iters = 2 if n > 50000 else 5
+            row = {"kernel": "gemm_cuda", "model": label, "shape": [fm, k, n],
+                   "block": [cfgb.bm, cfgb.bk, cfgb.bn], "calls_per_forward": count,
+                   "max_abs_err": err}
+            t_k = time_ms(torch, lambda x, y: G.gemm_cuda(x, y, cfgb), [(a, b) for b in bs], iters, 1)
+            t_l = time_ms(torch, torch.matmul, [(a, b) for b in bs], iters, 1)
+            b_ms, by = bound_ms((fm * k + k * n + fm * n) * 2, 2 * fm * k * n)
+            row.update(ms=t_k, library_ms=t_l, bound_ms=b_ms, bound_by=by)
+            note = ""
+            if one_stage:
+                # The one-stage kernel at the block its model derives.
+                lean_blk = G.resolve_block_config(fm, k, n, torch.bfloat16, stages=1)
+                ok, lean_err = within(torch, G.gemm_cuda_lean(a, bs[0], lean_blk),
+                                      torch.matmul(a.float(), bs[0].float()), BF16_TOL)
+                check(ok, f"gemm_cuda_lean {fm}x{k}x{n} {lean_blk}: max err {lean_err} over tol {BF16_TOL}")
+                t_one = time_ms(torch, lambda x, y: G.gemm_cuda_lean(x, y, lean_blk),
+                                [(a, b) for b in bs], iters, 1)
+                row.update(lean_block=[lean_blk.bm, lean_blk.bk, lean_blk.bn], lean_ms=t_one)
+                tot["lean_ms"] += count * t_one
+                note = f" (one stage at {lean_blk.bm}x{lean_blk.bk}x{lean_blk.bn}: {t_one:.4f})"
+            rows.append(row)
+            print(f"  gemm_cuda {label} forward {fm}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: "
+                  f"err {err:.3g} kernel {t_k:.4f} ms{note} matmul {t_l:.4f} bound {b_ms:.4f} ({by})",
+                  flush=True)
+            for key, val in (("ms", t_k), ("library_ms", t_l), ("bound_ms", b_ms)):
+                tot[key] += count * val
+            tot["gemms"] += count
+            del a, bs, got
+        print(f"  gemm_cuda over one {label} forward ({tot['gemms']} GEMMs): kernel {tot['ms']:.1f} ms"
+              + (f" (one stage {tot['lean_ms']:.1f} ms)" if one_stage else "")
+              + f", matmul {tot['library_ms']:.1f} ms, bound {tot['bound_ms']:.1f} ms", flush=True)
+        return tot, max_err
+
     # The GEMMs of one forward of phase 7 (M = B x S rows), big class.
     fcfg = get_config(FWD_ARCH)
     fm, fl = FWD_BATCH * FWD_SEQ, fcfg.n_layers
-    fwd = {"ms": 0.0, "lean_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for (k, n), count in gemm_shapes(fcfg):
-        cfgb = big.block_config(fm, k, n, "bfloat16", 2)
-        a, bs = operands(fm, k, n)
-        got = G.gemm_cuda(a, bs[0], cfgb)
-        torch.cuda.synchronize()
-        ok, err = within(torch, got, torch.matmul(a.float(), bs[0].float()), BF16_TOL)
-        check(ok, f"gemm_cuda {fm}x{k}x{n} {cfgb}: max err {err} over tol {BF16_TOL}")
-        check(torch.equal(got, G.gemm_cuda_lean(a, bs[0], cfgb)),
-              f"lean != pipelined bitwise at {fm}x{k}x{n} {cfgb}")
-        # The one-stage kernel at the block its model derives: what the
-        # ring of PIPELINE_STAGES buys at these shapes.
-        lean_blk = G.resolve_block_config(fm, k, n, torch.bfloat16, stages=1)
-        ok, lean_err = within(torch, G.gemm_cuda_lean(a, bs[0], lean_blk),
-                              torch.matmul(a.float(), bs[0].float()), BF16_TOL)
-        check(ok, f"gemm_cuda_lean {fm}x{k}x{n} {lean_blk}: max err {lean_err} over tol {BF16_TOL}")
-        iters = 2 if n > 50000 else 5
-        t_k = time_ms(torch, lambda x, y: G.gemm_cuda(x, y, cfgb), [(a, b) for b in bs], iters, 1)
-        t_one = time_ms(torch, lambda x, y: G.gemm_cuda_lean(x, y, lean_blk), [(a, b) for b in bs], iters, 1)
-        t_l = time_ms(torch, torch.matmul, [(a, b) for b in bs], iters, 1)
-        b_ms, by = bound_ms((fm * k + k * n + fm * n) * 2, 2 * fm * k * n)
-        rows.append({"kernel": "gemm_cuda", "shape": [fm, k, n], "block": [cfgb.bm, cfgb.bk, cfgb.bn],
-                     "calls_per_forward": count, "ms": t_k, "library_ms": t_l, "bound_ms": b_ms,
-                     "bound_by": by, "max_abs_err": err,
-                     "lean_block": [lean_blk.bm, lean_blk.bk, lean_blk.bn], "lean_ms": t_one})
-        print(f"  gemm_cuda forward {fm}x{k}x{n} block {cfgb.bm}x{cfgb.bk}x{cfgb.bn}: err {err:.3g} "
-              f"kernel {t_k:.4f} ms (one stage at {lean_blk.bm}x{lean_blk.bk}x{lean_blk.bn}: "
-              f"{t_one:.4f}) matmul {t_l:.4f} bound {b_ms:.4f} ({by})", flush=True)
-        for key, val in (("ms", t_k), ("lean_ms", t_one), ("library_ms", t_l), ("bound_ms", b_ms)):
-            fwd[key] += count * val
-        del a, bs, got
-    detail["gemm_cuda_forward"] = fwd
-    print(f"  gemm_cuda over one {FWD_ARCH} forward ({7 * fl + 1} GEMMs): kernel {fwd['ms']:.1f} ms "
-          f"(one stage {fwd['lean_ms']:.1f} ms), matmul {fwd['library_ms']:.1f} ms, "
-          f"bound {fwd['bound_ms']:.1f} ms", flush=True)
+    detail["gemm_cuda_forward"], _ = forward_gemms(FWD_ARCH, fm, gemm_shapes(fcfg), True)
+    check(detail["gemm_cuda_forward"]["gemms"] == 7 * fl + 1, "forward GEMM count")
+    # The later phases' forwards: mamba2-1.3b's head, zamba2-2.7b's shared
+    # block and head, pixtral-12b's 40 layers (M = 2 x 2048), whisper-small's
+    # decoder (M = 2 x 448, the tied head) and its encoder and cross K/V
+    # (M = 2 x 1,500).
+    wd, wff, wnl = wcfg.d_model, wcfg.d_ff, wcfg.n_layers
+    later_fwd = {}
+    for label, m_rows, shapes in (
+        (SSM_ARCH, fm, gemm_shapes(get_config(SSM_ARCH))),
+        (HYBRID_ARCH, fm, gemm_shapes(get_config(HYBRID_ARCH))),
+        (EMBED_ARCH, fm, gemm_shapes(get_config(EMBED_ARCH))),
+        (f"{ENCDEC_ARCH} decoder", 2 * DEC_CTX, [((wd, wd), 6 * wnl), ((wd, wff), wnl),
+                                                 ((wff, wd), wnl), ((wd, wcfg.vocab), 1)]),
+        (f"{ENCDEC_ARCH} encoder", 2 * wcfg.enc_frames, [((wd, wd), 4 * wcfg.enc_layers + 2 * wnl),
+                                                          ((wd, wff), wcfg.enc_layers),
+                                                          ((wff, wd), wcfg.enc_layers)]),
+    ):
+        later_fwd[label], err_f = forward_gemms(label, m_rows, shapes, False)
+        records["gemm_cuda"]["max_abs_err"] = max(records["gemm_cuda"]["max_abs_err"], err_f)
+    detail["gemm_cuda_later_forwards"] = later_fwd
+    records["gemm_cuda"]["later_forwards"] = {k: {x: v[x] for x in ("ms", "library_ms", "bound_ms", "gemms")}
+                                              for k, v in later_fwd.items()}
 
     # fp32 output of the pipelined kernel at one decode shape.
     cfgb = big.block_config(m, d, d, "bfloat16", 2)
@@ -588,7 +683,8 @@ def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
 
 def phase1_flash(torch, detail: dict) -> dict:
     """flash_attention_cuda against its plain version: the forward's layer
-    shape, a ragged suffix, a window and a non-causal call."""
+    shape, a ragged suffix, a window and a non-causal call; then the later
+    phases' shapes (head dim 80; non-causal over 1,500 keys)."""
 
     import torch.nn.functional as F
 
@@ -596,14 +692,23 @@ def phase1_flash(torch, detail: dict) -> dict:
     from repro_torch.kernels import flash_attention as FA
 
     cfg = get_config(FWD_ARCH)
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    zcfg, wcfg = get_config(HYBRID_ARCH), get_config(ENCDEC_ARCH)
+    zheads, wheads = (zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim), (wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim)
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, record = [], None
-    for label, b, sq, sk, causal, window in (
-        ("layer", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, None),
-        ("suffix", FWD_BATCH, 100, 300, True, None),
-        ("window", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, 256),
-        ("non-causal", FWD_BATCH, FWD_SEQ, FWD_SEQ, False, None),
+    for label, b, sq, sk, causal, window, (hq, hkv, d) in (
+        ("layer", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, None, heads),
+        ("suffix", FWD_BATCH, 100, 300, True, None, heads),
+        ("window", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, 256, heads),
+        ("non-causal", FWD_BATCH, FWD_SEQ, FWD_SEQ, False, None, heads),
+        # zamba2-2.7b's shared block (head dim 80), whisper-small's encoder,
+        # decoder, cross-attention in the forward and in a decode step.
+        (f"{HYBRID_ARCH} shared", FWD_BATCH, FWD_SEQ, FWD_SEQ, True, None, zheads),
+        (f"{ENCDEC_ARCH} encoder", 2, wcfg.enc_frames, wcfg.enc_frames, False, None, wheads),
+        (f"{ENCDEC_ARCH} decoder", 2, DEC_CTX, DEC_CTX, True, None, wheads),
+        (f"{ENCDEC_ARCH} cross", 2, DEC_CTX, wcfg.enc_frames, False, None, wheads),
+        (f"{ENCDEC_ARCH} cross decode", LONG_ROWS, 1, wcfg.enc_frames, False, None, wheads),
     ):
         q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -654,7 +759,10 @@ def phase1_flash(torch, detail: dict) -> dict:
     n = cfg.n_layers  # one call a layer: the kernels line counts one forward
     return {"max_abs_err": max(r["max_abs_err"] for r in rows), "ms": n * record["ms"],
             "plain_ms": n * record["plain_ms"], "library_ms": n * record["library_ms"],
-            "bound_ms": n * record["bound_ms"], "bound_by": record["bound_by"]}
+            "bound_ms": n * record["bound_ms"], "bound_by": record["bound_by"],
+            "cases": [{k: r[k] for k in ("label", "shape", "causal", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "max_abs_err", "max_row_rel_err")}
+                      for r in rows if r is not record]}
 
 
 def phase7(torch, counts, reset) -> dict:
@@ -1346,8 +1454,7 @@ def phase11(torch, counts, reset) -> dict:
     params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = lambda t: [x for v in t.values() for x in leaves(v)] if isinstance(t, dict) else [t]  # noqa: E731
-    weights_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
+    weights_gb = tree_bytes(params) / 1e9
     print(f"  {cfg.name}: {weights_gb:.2f} GB of weights, init {init_s:.1f} s", flush=True)
     per_step = sum(c for _, c in gemm_shapes(cfg))
     check(per_step == 7 * cfg.n_layers + 1, f"{per_step} GEMMs a step")
@@ -1658,6 +1765,438 @@ def phase12(torch, counts, reset) -> dict:
             "paged_step_wall_s": wall, "phase_s": time.perf_counter() - t_phase}
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in _leaves(tree))
+
+
+def timed_forward(torch, fn, n: int = 3):
+    """A warm-up and ``n`` CUDA-synchronised calls: the last output and the walls."""
+
+    out = fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def recurrent_phase(torch, counts, reset, arch: str) -> dict:
+    """A Mamba2 family at full width (phases 13, 14): ``paged="auto"`` stays
+    dense and ``"on"`` is refused; the dense engine and the one-shot path
+    under the little class through ``repro_torch.launch.serve``; engine ==
+    one-shot over the padded batch; one mixed-length admission round
+    against the short request alone (printed, not held: the reference's
+    behaviour); ``launch/score.py``'s forward and loss; the forward over 2
+    x 2048 tokens against the model's recurrence over its first RECUR_LEN
+    positions (measured), and three blocks' chunked scan against their
+    recurrence (held); for the hybrid also the forward through
+    ``chunked_attention`` (measured) and the shared block alone, flash
+    against ``chunked_attention`` and its ring decode against its forward
+    (held); one decode step of the 12-row slot table timed and traced
+    against its bytes bound."""
+
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.launch import score as SC
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as TX
+    from repro_torch.runtime.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = tree_bytes(params) / 1e9
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"  {cfg.name}: {n_params / 1e9:.3f} B params, {weights_gb:.2f} GB, init {init_s:.1f} s",
+          flush=True)
+    per_step = sum(c for _, c in gemm_shapes(cfg))
+    every = cfg.shared_attn_every
+    check(per_step == (1 + 7 * (cfg.n_layers // every) if every else 1), f"{per_step} GEMMs a step")
+    mesh = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    seq_cap = PROMPT_LEN + GEN_LEN
+    try:
+        ServingEngine(cfg, params, mesh, seq_cap=seq_cap, paged="on", device="cuda")
+        fail(f"{cfg.name}: paged='on' was not refused")
+    except ValueError as e:
+        refusal = str(e)
+    check("paged='on'" in refusal, f"refusal {refusal!r}")
+    base = ["--arch", arch, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--gen-len", str(GEN_LEN), "--seed", "0"]
+    out: dict = {"arch": cfg.name, "params_b": n_params / 1e9, "weights_gb": weights_gb,
+                 "init_s": init_s, "paged_on_refusal": refusal}
+
+    # The dense engine, through "--paged auto".
+    reset()
+    sd, tokd, engd, walld = run_serve(base + ["--paged", "auto"], params=params)
+    cd = counts()
+    stepsd = PROMPT_LEN * engd.stats.admission_rounds + engd._step_calls
+    kv = sd["engine"]["kv_pool"]
+    print(f"  dense engine (--paged auto): smoke reading {sd['tokens_per_s']} tokens/s, warm-up "
+          f"{sd['compile_s']} s, wall {walld:.2f} s; launches {cd}; recurrence steps {stepsd}; "
+          f"state {kv['kv_bytes'] / 1e9:.3f} GB on {engd.n_slots} slots", flush=True)
+    check(not kv["paged"] and not engd.paged, "paged='auto' paged a recurrent state")
+    check(sd["exec_backend"] == "cuda", f"dense engine ran {sd['exec_backend']}")
+    check(cd["gemm_cuda"] == per_step * stepsd, f"gemm_cuda launches {cd['gemm_cuda']} != {per_step} x {stepsd}")
+    check(cd["gemm_cuda_lean"] == cd["paged_attention_cuda"] == cd["flash_attention_cuda"] == 0,
+          f"the dense engine launched other kernels: {cd}")
+    check(tokd.shape == (BATCH, PROMPT_LEN + GEN_LEN) and bool(((tokd >= 0) & (tokd < cfg.vocab)).all()),
+          f"dense tokens {tokd.shape}")
+    check(bool(torch.isfinite(engd.prefill_logits.float()).all()), "dense engine logits not finite")
+    del engd
+
+    # The one-shot path under the little class's tree.
+    reset()
+    sl, tokl, _, walll = run_serve(base + ["--one-shot", "--device-class", "little"], params=params)
+    cl = counts()
+    agree_l = float((tokl[:, PROMPT_LEN:] == tokd[:, PROMPT_LEN:]).mean())
+    print(f"  one-shot little ({sl['exec_backend']}): smoke reading {sl['tokens_per_s']} tokens/s, wall "
+          f"{walll:.2f} s; launches {cl}; equal generated tokens vs the engine {agree_l:.3f}", flush=True)
+    check(sl["exec_backend"] == "cuda_lean", f"little ran {sl['exec_backend']}")
+    check(cl["gemm_cuda_lean"] == per_step * (PROMPT_LEN + GEN_LEN), f"lean launches {cl['gemm_cuda_lean']}")
+
+    # The engine against the one-shot path over the padded batch, big class.
+    padded, order = serve.pad_requests(tokd[:, :PROMPT_LEN], mesh.batch_layout(BATCH))
+    with mesh.execution_context("big"):
+        ref, _ = serve.generate(cfg, params, padded, GEN_LEN, seq_cap, device="cuda")
+    same = bool(np.array_equal(ref[order], tokd))
+    print(f"  engine == one-shot over the padded batch ({padded.shape[0]} rows): {same}", flush=True)
+    check(same, "the engine's tokens differ from the one-shot path's over the padded batch")
+
+    # One mixed-length admission round: a 16- and an 8-token prompt.
+    def served(prompts):
+        eng = ServingEngine(cfg, params, mesh, seq_cap=seq_cap, slots_per_pod=2, device="cuda")
+        rids = [eng.submit(p, GEN_LEN) for p in prompts]
+        done = {c.rid: c.tokens.tolist() for c in eng.run()}
+        return [done[r] for r in rids]
+
+    short = tokd[1, :PROMPT_LEN // 2]
+    alone, mixed = served([short])[0], served([tokd[0, :PROMPT_LEN], short])[1]
+    mixed_same, first_same = alone == mixed, alone[len(short)] == mixed[len(short)]
+    print(f"  mixed-length round (16 and 8 tokens): the short request's tokens equal its run alone: "
+          f"{mixed_same} (the first generated token {'equal' if first_same else 'differs'}; "
+          f"the reference pads the round and the recurrent state absorbs the pad steps)", flush=True)
+
+    # launch/score.py: the forward and the loss, 2 x 2048 tokens.
+    args = SC.build_parser().parse_args(["--arch", arch, "--batch", str(FWD_BATCH),
+                                         "--seq-len", str(FWD_SEQ), "--seed", "0"])
+    reset()
+    score = SC.score(args, params=params)
+    cs = counts()
+    n_flash = cfg.n_layers // every if every else 0
+    print(f"  launch/score.py: forward {score['forward_s']} s ({score['tokens_per_s']} tokens/s, the "
+          f"first call), loss {score['loss']:.6f} (ln V = {math.log(cfg.vocab):.4f}); launches {cs}",
+          flush=True)
+    check(cs["gemm_cuda"] == 2 * per_step and cs["flash_attention_cuda"] == 2 * n_flash,
+          f"score launches {cs}")
+    check(math.isfinite(score["loss"]) and abs(score["loss"] - math.log(cfg.vocab)) < 3.0,
+          f"eval loss {score['loss']} far from ln V")
+
+    # The forward (the SSD chunked scan) against the recurrence.
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (FWD_BATCH, FWD_SEQ), dtype=np.int32), device="cuda")
+    big = mesh.execution_context("big")
+    prefill = Z.make_prefill_fn(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with big:
+        logits, walls = timed_forward(torch, lambda: prefill(params, {"tokens": toks}))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wall = sorted(walls)[1]
+    check(tuple(logits.shape) == (FWD_BATCH, FWD_SEQ, cfg.vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "forward logits not finite")
+    print(f"  forward 2 x {FWD_SEQ}: walls {[round(w, 4) for w in walls]} s (median {wall:.4f} s, "
+          f"{FWD_BATCH * FWD_SEQ / wall:.0f} tokens/s); peak {peak_gb:.2f} GB", flush=True)
+    split = profile_run(torch, lambda: prefill(params, {"tokens": toks}), big)
+    print(f"  one traced forward: wall {split['wall_ms']:.1f} ms, device busy {split['busy_ms']:.1f} ms "
+          f"(idle {split['idle_share']:.3f}); device ms by kernel "
+          f"{ {k: round(v, 2) for k, v in split['ms'].items()} }", flush=True)
+    out["forward"] = {"walls_s": walls, "wall_s": wall, "tokens_per_s": FWD_BATCH * FWD_SEQ / wall,
+                      "peak_gb": peak_gb, "traced": split, "score": score, "score_launches": cs}
+    if every:  # the shared block's attention through chunked_attention
+        with big:
+            chunked = Z.make_prefill_fn(cfg, attn_backend="flash_attn_torch")(params, {"tokens": toks})
+        dmax = float((logits.float() - chunked.float()).abs().max())
+        drow = row_rel_err(logits[:, -8:], chunked[:, -8:])
+        print(f"  the model's forward, flash vs chunked_attention (measured, not held: 54 random-init "
+              f"Mamba2 layers after the first shared block grow the two attentions' last-bit "
+              f"difference): max |logit diff| {dmax:.4f}, the last rows off by {drow:.4f} of their norm",
+              flush=True)
+        # The shared block alone at full width, flash against chunked_attention, held.
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        x = torch.randn((FWD_BATCH, FWD_SEQ, cfg.d_model), generator=gen, device="cuda")
+        x = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
+        shared = TX._cast_params(params["shared"])  # as the forward casts it
+        positions = torch.arange(FWD_SEQ, device="cuda")[None, :]
+        reset()
+        with torch.no_grad(), big:
+            yf = TX._apply_attn_block(shared, x, cfg, positions)[0]
+            launched = counts()["flash_attention_cuda"]
+            yc = TX._apply_attn_block(shared, x, cfg, positions, attn_backend="flash_attn_torch")[0]
+        brow = row_rel_err(yf, yc)
+        print(f"  the shared block alone, flash vs chunked_attention: rows off by {brow:.5f} of their norm "
+              f"(tol {FLASH_ROW_TOL}), max |diff| {float((yf.float() - yc.float()).abs().max()):.4f}; "
+              f"flash launches {launched}", flush=True)
+        check(launched == 1 and bool(torch.isfinite(yf.float()).all()) and brow <= FLASH_ROW_TOL,
+              f"the shared block, flash vs chunked: rows off by {brow} (launches {launched})")
+        # Its decode over RECUR_LEN positions (a ring of the cache's length,
+        # no live mask, as the hybrid decodes it) against its forward, held.
+        sc = FWD_SEQ
+        ring = {k: torch.zeros((1, FWD_BATCH, sc, cfg.n_kv_heads, cfg.head_dim), dtype=torch.bfloat16,
+                               device="cuda") for k in ("k", "v")}
+        ring_cfg = dataclasses.replace(TX.attn_config(cfg), window=sc)
+        with torch.no_grad(), big:
+            yd = torch.cat([TX._decode_attn_block(params["shared"], x[:, t:t + 1], cfg, ring_cfg, ring, 0,
+                                                  None, t, None) for t in range(RECUR_LEN)], dim=1)
+            ycd = TX._apply_attn_block(params["shared"], x[:, :RECUR_LEN], cfg, positions[:, :RECUR_LEN],
+                                       attn_backend="flash_attn_torch")[0]
+        drow_dec = row_rel_err(yd, ycd)
+        print(f"  the shared block's decode over {RECUR_LEN} positions vs its forward: rows off by "
+              f"{drow_dec:.5f} of their norm (tol {FLASH_ROW_TOL})", flush=True)
+        check(bool(torch.isfinite(yd.float()).all()) and drow_dec <= FLASH_ROW_TOL,
+              f"the shared block's decode vs its forward: rows off by {drow_dec}")
+        out["forward"].update(flash_vs_chunked_max=dmax, flash_vs_chunked_row=drow,
+                              shared_block_flash_vs_chunked_row=brow, shared_block_decode_row=drow_dec)
+        del chunked, x, yf, yc, yd, ycd, ring
+    # The model's recurrence against its forward, measured: through 48 or
+    # 54 random-init layers the two paths' bf16 roundings (the forward
+    # casts the block's fp32 leaves to bf16 and rounds the scan's output,
+    # as the reference does) grow to the size of the logits themselves, so
+    # this is printed, not held; the blocks are held below.
+    t0 = time.perf_counter()
+    state = Z.init_decode_state(cfg, FWD_BATCH, FWD_SEQ, device="cuda")
+    decode = Z.make_decode_fn(cfg)
+    head = RECUR_LEN - REPLAY_TAIL
+    model = {"max_logit_diff": [], "row_rel": [], "argmax_equal": []}
+    with torch.no_grad(), big:
+        lg, state = Z.make_prefill_fn(cfg, with_cache=True)(params, {"tokens": toks[:, :head]}, state, 0)
+        for t in range(head - 1, RECUR_LEN):
+            if t >= head:
+                lg, state = decode(params, {"tokens": toks[:, t:t + 1]}, state, t)
+            got, want = lg[:, 0].float(), logits[:, t].float()
+            check(bool(torch.isfinite(got).all()), "recurrence logits not finite")
+            model["max_logit_diff"].append(float((got - want).abs().max()))
+            model["row_rel"].append(row_rel_err(got, want))
+            model["argmax_equal"].append(float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+        torch.cuda.synchronize()
+    recur_s = time.perf_counter() - t0
+    print(f"  the model's recurrence over {RECUR_LEN} positions ({recur_s:.1f} s) vs its forward at positions "
+          f"{head - 1}..{RECUR_LEN - 1} (measured, not held): max |logit diff| "
+          f"{[round(x, 4) for x in model['max_logit_diff']]}, rows off by {[round(x, 4) for x in model['row_rel']]} "
+          f"of their norm, equal argmax {model['argmax_equal']}; logits' std {float(logits.float().std()):.4f}",
+          flush=True)
+    out["forward"].update(recurrence_s=recur_s, model_recurrence=model)
+    del state, logits
+
+    # The SSD chunked scan against the recurrence, block by block at full
+    # width: layers 0, L/2 and L-1 on the same unit-RMS bf16 inputs over
+    # RECUR_LEN positions (two chunks), each block's own params.
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((FWD_BATCH, RECUR_LEN, cfg.d_model), generator=gen, device="cuda")
+    x = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
+    blocks = {}
+    for i in (0, cfg.n_layers // 2, cfg.n_layers - 1):
+        pm = TX.layer_params(params["blocks"], i)["mamba"]
+        with torch.no_grad():
+            y_scan, final = S.apply_mamba2(pm, x, cfg.ssm)
+            st = S.init_mamba2_state(FWD_BATCH, cfg.ssm, device="cuda")
+            y_rec = torch.cat([S.decode_mamba2(pm, x[:, t:t + 1], cfg.ssm, st)[0]
+                               for t in range(RECUR_LEN)], dim=1)
+        row = row_rel_err(y_scan, y_rec)
+        state_rel = float((final - st["ssm"]).norm() / st["ssm"].norm())
+        blocks[i] = {"row_rel": row, "state_rel": state_rel,
+                     "max_abs": float((y_scan.float() - y_rec.float()).abs().max())}
+        check(bool(torch.isfinite(y_scan.float()).all()) and row <= BLOCK_ROW_TOL,
+              f"layer {i}: scan vs recurrence rows off by {row} of their norm, over {BLOCK_ROW_TOL}")
+        check(state_rel <= BLOCK_ROW_TOL, f"layer {i}: final state off by {state_rel}, over {BLOCK_ROW_TOL}")
+    print(f"  the chunked scan vs the recurrence, block by block over {RECUR_LEN} positions: "
+          f"{ {i: {k: round(v, 7) for k, v in b.items()} for i, b in blocks.items()} } (rows within "
+          f"{BLOCK_ROW_TOL} of their norm, the final state within it in L2)", flush=True)
+    out["forward"]["blocks_scan_vs_recurrence"] = blocks
+    del x
+
+    # One decode step of the 12-row slot table: the padded batch's state
+    # after its prompts, timed and traced against its bytes bound.
+    b = padded.shape[0]
+    state = Z.init_decode_state(cfg, b, seq_cap, device="cuda")
+    ptoks = torch.as_tensor(padded, device="cuda")
+    with torch.no_grad(), big:
+        Z.make_prefill_fn(cfg, with_cache=True)(params, {"tokens": ptoks}, state, 0)
+    nxt = torch.as_tensor(ref[:, PROMPT_LEN:PROMPT_LEN + 1], device="cuda")
+
+    def step():
+        return decode(params, {"tokens": nxt}, state, PROMPT_LEN)[0]
+
+    with torch.no_grad(), big:
+        _, step_walls = timed_forward(torch, step)
+        trace = profile_run(torch, step, big)
+    state_b = tree_bytes(state)
+    shared_b = tree_bytes(params["shared"]) if every else 0
+    weights_b = tree_bytes(params) - tree_bytes(params.get("embed", {})) + b * cfg.d_model * 2
+    step_bytes = weights_b + (cfg.n_layers // every - 1) * shared_b if every else weights_b
+    step_bytes += 2 * state_b  # the state read and written
+    bound = step_bytes / HBM_BW * 1e3
+    sw = sorted(step_walls)[1]
+    print(f"  one decode step, {b} rows: walls {[round(x * 1e3, 2) for x in step_walls]} ms; traced wall "
+          f"{trace['wall_ms']:.2f} ms, device busy {trace['busy_ms']:.2f} ms (idle {trace['idle_share']:.3f}); "
+          f"device ms by kernel {({k: round(v, 3) for k, v in trace['ms'].items()})}, launches "
+          f"{trace['count']}; bytes bound {bound:.3f} ms ({step_bytes / 1e9:.3f} GB: weights "
+          f"{weights_b / 1e9:.3f}" + (f", the shared block's {shared_b / 1e9:.3f} x {cfg.n_layers // every}"
+                                      if every else "")
+          + f", state {state_b / 1e9:.3f} read and written); busy {trace['busy_ms'] / bound:.2f}x the bound, "
+          f"wall {sw * 1e3 / bound:.2f}x", flush=True)
+    check(trace["busy_ms"] > 0, "no device time for the decode step")
+    out.update({"dense": sd, "one_shot_little": sl, "walls_s": [walld, walll],
+                "launches": {"dense": cd, "one_shot_little": cl, "score": cs},
+                "recurrence_steps": stepsd, "little_token_agreement": agree_l,
+                "engine_equals_one_shot": same, "mixed_round_equals_alone": mixed_same,
+                "mixed_round": {"alone": alone, "mixed": mixed},
+                "step": {"walls_s": step_walls, "wall_s": sw, "traced": trace, "bytes": step_bytes,
+                         "weights_bytes": weights_b, "state_bytes": state_b, "shared_bytes": shared_b,
+                         "bound_ms": bound}})
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {cfg.name} took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def phase15(torch, counts, reset) -> dict:
+    """whisper-small and pixtral-12b at full width: the forward and the
+    eval loss through ``launch/score.py``, the forward against the chunked
+    forward, and decode steps against the forward's logits (whisper's
+    cross K/V from ``encode`` + ``encode_cross_kv``)."""
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.launch import score as SC
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo as Z
+
+    out: dict = {}
+    big = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    for arch, seq in ((ENCDEC_ARCH, DEC_CTX), (EMBED_ARCH, FWD_SEQ)):
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in _leaves(params))
+        print(f"  {cfg.name}: {n_params / 1e9:.3f} B params, {tree_bytes(params) / 1e9:.2f} GB, "
+              f"init {init_s:.1f} s", flush=True)
+        encdec = cfg.family == "encdec"
+        if encdec:
+            el, dl = cfg.enc_layers, cfg.n_layers
+            per_fwd = {"gemm_cuda": 6 * el + 10 * dl + 1, "flash_attention_cuda": el + 2 * dl}
+        else:
+            per_fwd = {"gemm_cuda": sum(c for _, c in gemm_shapes(cfg)),
+                       "flash_attention_cuda": cfg.n_layers}
+        args = SC.build_parser().parse_args(["--arch", arch, "--batch", "2", "--seq-len", str(seq),
+                                             "--seed", "0"])
+        batch, labels = SC.make_batch(cfg, 2, seq, 0, torch.device("cuda"))
+        prefill = Z.make_prefill_fn(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        score = SC.score(args, params=params)  # the forward and the loss, through the CLI's entry point
+        with big:
+            logits, walls = timed_forward(torch, lambda: prefill(params, batch))
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wall = sorted(walls)[1]
+        for name, n in per_fwd.items():
+            check(launches[name] == 6 * n, f"{cfg.name}: {name} launches {launches[name]} != 6 x {n}")
+        check(launches["gemm_cuda_lean"] == launches["paged_attention_cuda"] == 0, f"launches {launches}")
+        check(tuple(logits.shape) == (2, seq, cfg.vocab), f"logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits.float()).all()), "forward logits not finite")
+        check(math.isfinite(score["loss"]) and abs(score["loss"] - math.log(cfg.vocab)) < 3.0,
+              f"eval loss {score['loss']} far from ln V")
+        # The operations bound: every GEMM's 2MKN and every attention's 4·H·D
+        # a visible (query, key) pair, at the tensor cores' peak.
+        if encdec:
+            d, ff, se = cfg.d_model, cfg.d_ff, cfg.enc_frames
+            gemm_ops = 2 * 2 * (se * (4 * el + 2 * dl) * d * d + se * el * 2 * d * ff
+                                + seq * (6 * dl * d * d + 2 * dl * d * ff + d * cfg.vocab))
+            hd = cfg.n_heads * cfg.head_dim
+            attn_ops = 4 * 2 * hd * (el * visible_pairs(se, se, False, None)
+                                     + dl * visible_pairs(seq, seq, True, None) + dl * seq * se)
+        else:
+            gemm_ops = 2 * 2 * seq * sum(k * n * c for (k, n), c in gemm_shapes(cfg))
+            attn_ops = 4 * 2 * cfg.n_heads * cfg.head_dim * cfg.n_layers * visible_pairs(seq, seq, True, None)
+        ops_ms = (gemm_ops + attn_ops) / PEAK_BF16 * 1e3
+        split = profile_run(torch, lambda: prefill(params, batch), big)
+        print(f"  forward 2 x {seq}: walls {[round(w, 4) for w in walls]} s (median {wall:.4f} s, "
+              f"{2 * seq / wall:.0f} tokens/s); operations bound {ops_ms:.2f} ms "
+              f"({(gemm_ops + attn_ops) / 1e12:.2f} TFLOP): {ops_ms / (wall * 1e3):.3f} of it; loss "
+              f"{score['loss']:.6f} (ln V = {math.log(cfg.vocab):.4f}); launches over 6 forwards "
+              f"{launches}; peak {peak_gb:.2f} GB", flush=True)
+        print(f"  one traced forward: wall {split['wall_ms']:.1f} ms, device busy {split['busy_ms']:.1f} ms "
+              f"(idle {split['idle_share']:.3f}); device ms by kernel "
+              f"{ {k: round(v, 2) for k, v in split['ms'].items()} }", flush=True)
+        with big:
+            chunked = Z.make_prefill_fn(cfg, attn_backend="flash_attn_torch")(params, batch)
+        dmax = float((logits.float() - chunked.float()).abs().max())
+        del chunked
+        print(f"  flash vs chunked_attention forward: max |logit diff| {dmax:.4f} (tol {LOGIT_TOL})",
+              flush=True)
+        check(dmax <= LOGIT_TOL, f"{cfg.name}: flash vs chunked logits differ by {dmax}")
+
+        # Decode steps against the forward's logits.
+        decode = Z.make_decode_fn(cfg)
+        n_steps = ENC_DECODE_STEPS if encdec else REPLAY_TAIL
+        with torch.no_grad(), big:
+            state = Z.init_decode_state(cfg, 2, seq, device="cuda")
+            if encdec:
+                enc = E.encode(params, cfg, batch["frames"])
+                xcfg = E._acfg(cfg, causal=False)
+                for i in range(cfg.n_layers):
+                    xkv = {k: v[i] for k, v in params["dec_blocks"]["xkv"].items()}
+                    state["cross_k"][i], state["cross_v"][i] = L.encode_cross_kv(xkv, enc, xcfg)
+            reset()
+            steps = []
+            for t in range(n_steps):
+                key = "tokens" if encdec else "embeds"
+                lg, state = decode(params, {key: batch[key][:, t:t + 1]}, state, t)
+                steps.append(float((lg[:, 0].float() - logits[:, t].float()).abs().max()))
+            torch.cuda.synchronize()
+        dec_launches = counts()
+        print(f"  {n_steps} decode steps vs the forward, max |logit diff| per position "
+              f"{[round(x, 4) for x in steps]} (tol {LOGIT_TOL}); launches {dec_launches}", flush=True)
+        check(all(math.isfinite(x) and x <= LOGIT_TOL for x in steps),
+              f"{cfg.name}: decode vs forward logits differ by {max(steps)}")
+        if encdec:
+            check(dec_launches["flash_attention_cuda"] == n_steps * cfg.n_layers,
+                  f"cross-attention launches {dec_launches}")
+        out[arch] = {"params_b": n_params / 1e9, "init_s": init_s, "walls_s": walls, "wall_s": wall,
+                     "tokens_per_s": 2 * seq / wall, "ops_bound_ms": ops_ms,
+                     "ops_bound_share": ops_ms / (wall * 1e3), "score": score, "launches": launches,
+                     "per_forward": per_fwd, "peak_gb": peak_gb, "traced": split,
+                     "flash_vs_chunked_max": dmax, "decode_max_logit_diff": steps,
+                     "decode_launches": dec_launches, "phase_s": time.perf_counter() - t_phase}
+        print(f"  {cfg.name} took {out[arch]['phase_s']:.1f} s", flush=True)
+        del params, logits, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -1791,6 +2330,21 @@ def main() -> None:
     ring = phase12(torch, counts, reset)
     detail["ring"] = ring
 
+    later = {}
+    for phase, arch in ((13, SSM_ARCH), (14, HYBRID_ARCH)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase {phase}: {arch} at full width: engines, one-shot, forward vs recurrence, "
+              f"device time", flush=True)
+        later[arch] = recurrent_phase(torch, counts, reset, arch)
+    detail["recurrent"] = later
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15: {ENCDEC_ARCH} and {EMBED_ARCH} at full width: forward, loss, decode", flush=True)
+    fwd15 = phase15(torch, counts, reset)
+    detail["encdec_embeds"] = fwd15
+
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),
         "gemm_cuda_lean": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:273"),
@@ -1829,16 +2383,32 @@ def main() -> None:
                                  "mixtral_ring_step": ring["launches"]["paged_attention_cuda"]},
         "flash_attention_cuda": {},
     }
+    # Phases 13-15, each path's launches read from its own run.
+    for arch, rec in later.items():
+        key = arch.split("-")[0]
+        moe_launches["gemm_cuda"][f"{key}_dense_engine"] = rec["launches"]["dense"]["gemm_cuda"]
+        moe_launches["gemm_cuda"][f"{key}_score"] = rec["launches"]["score"]["gemm_cuda"]
+        moe_launches["gemm_cuda_lean"][f"{key}_one_shot_little"] = \
+            rec["launches"]["one_shot_little"]["gemm_cuda_lean"]
+        if rec["launches"]["score"]["flash_attention_cuda"]:
+            moe_launches["flash_attention_cuda"][f"{key}_score"] = \
+                rec["launches"]["score"]["flash_attention_cuda"]
+    for arch, rec in fwd15.items():
+        key = arch.split("-")[0]
+        for name in ("gemm_cuda", "flash_attention_cuda"):
+            moe_launches[name][f"{key}_forwards"] = rec["launches"][name]
+            if rec["decode_launches"][name]:
+                moe_launches[name][f"{key}_decode"] = rec["decode_launches"][name]
     for row in kernels:
         row["launches_later_paths"] = moe_launches[row["name"]]
-        if "moe_step" in records[row["name"]]:
-            row["moe_step"] = records[row["name"]]["moe_step"]
+        for key, val in records[row["name"]].items():
+            if key.endswith("_step") or key in ("later_forwards", "cases"):
+                row[key] = val
     for row in kernels:  # 13: onto the tensor cores (wgmma + TMA, mma.sync); 15: the split walk
         row["redesigned_in"] = 13
         if row["name"] == "paged_attention_cuda":
             row["redesigned_in"] = 15
             row["device_ms"] = records[row["name"]]["device_ms"]
-            row["cases"] = records[row["name"]]["cases"]
     detail["engines"] = {"dense": s2, "paged": s3, "one_shot_little": s4,
                          "paged_vs_dense_logit_diff": dlog, "paged_token_agreement": agree,
                          "little_token_agreement": agree4, "replay_logit_diff": replay}

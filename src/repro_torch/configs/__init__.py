@@ -18,8 +18,8 @@ from typing import Optional
 
 # Copies of the reference's MoE/SSM config records, so that every
 # ArchConfig field keeps its type.  ``MoEConfig`` drives the port's MoE
-# family (``repro_torch.models.moe``); the SSM family arrives with a later
-# slice.
+# family (``repro_torch.models.moe``), ``SSMConfig`` its Mamba2 blocks
+# (``repro_torch.models.ssm``).
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,9 +210,8 @@ class ArchConfig:
         return ArchConfig(**kw)
 
 
-# The architectures the port runs so far, the dense and MoE families (one
-# module per id under ``repro_torch/configs``); the rest of the reference's
-# zoo follows with the model families it needs.
+# The reference's ten architectures (one module per id under
+# ``repro_torch/configs``).
 _REGISTRY = {
     "internlm2-1.8b": "internlm2_1p8b",
     "qwen2.5-32b": "qwen2p5_32b",
@@ -220,6 +219,10 @@ _REGISTRY = {
     "deepseek-7b": "deepseek_7b",
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2p7b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "whisper-small": "whisper_small",
+    "pixtral-12b": "pixtral_12b",
 }
 
 

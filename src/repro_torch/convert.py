@@ -2,9 +2,10 @@
 
 ``params_from_jax`` takes the reference's param pytree as numpy arrays
 (``jax.tree.map(np.asarray, model_zoo.init_params(key, cfg))``) and
-returns the port's nested dict of tensors on ``device``:
+returns the port's nested dict of tensors on ``device``, the same tree:
 
-  * the layer stack keeps its leading ``L`` axis;
+  * the layer stacks keep their leading ``L`` axis (the hybrid's
+    ``shared`` block and the enc-dec's final norms have none);
   * projection weights keep the JAX ``(in, out)`` layout (the kernels
     compute ``A · B``; nothing is transposed into ``nn.Linear``'s order);
   * projection matrices, ``embed`` and ``lm_head`` are stored in bf16 once
@@ -14,7 +15,11 @@ returns the port's nested dict of tensors on ``device``:
     ``w3`` (L, E, D, F) and ``w2`` (L, E, F, D), and for Qwen2-MoE
     ``shared`` (a GLU) and ``shared_gate`` (L, D, 1), all in bf16 (the
     reference casts them to bf16 at use);
-  * norm weights and biases stay fp32, as the reference uses them.
+  * the leaves the reference uses in fp32 stay fp32, named per family
+    (:data:`FP32_LEAVES`): norm weights and qkv biases everywhere; the
+    Mamba2 block's ``ln``, its conv weights and biases (its causal conv
+    casts ``w`` to fp32), ``dt_bias``, ``A_log``, ``D`` and ``norm_w``;
+    the enc-dec's layer-norm weights and biases and its MLP biases.
 """
 
 from __future__ import annotations
@@ -24,11 +29,26 @@ import torch
 
 from repro_torch.configs import ArchConfig
 
-_FP32_LEAVES = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
+_LM = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
+_MAMBA = ("ln", "conv_w_x", "conv_b_x", "conv_w_bc", "conv_b_bc", "dt_bias", "A_log", "D",
+          "norm_w")
+_ENCDEC = ("ln1_w", "ln1_b", "lnx_w", "lnx_b", "ln2_w", "ln2_b", "enc_ln_w", "enc_ln_b",
+           "dec_ln_w", "dec_ln_b", "b1", "b2")
+
+# The leaves kept in fp32, by family; every other float leaf becomes bf16.
+FP32_LEAVES = {
+    "dense": _LM,
+    "moe": _LM,
+    "ssm": _LM + _MAMBA,
+    "hybrid": _LM + _MAMBA,
+    "encdec": _ENCDEC,
+}
 
 
 def params_from_jax(tree, cfg: ArchConfig, device="cuda"):
     """Convert a numpy param tree of the reference into the port's params."""
+
+    keep = FP32_LEAVES[cfg.family]
 
     def conv(node, name: str):
         if isinstance(node, dict):
@@ -39,11 +59,9 @@ def params_from_jax(tree, cfg: ArchConfig, device="cuda"):
         t = torch.from_numpy(np.array(arr)).to(device)
         if not t.is_floating_point():
             return t
-        return t.float() if name in _FP32_LEAVES else t.to(torch.bfloat16)
+        return t.float() if name in keep else t.to(torch.bfloat16)
 
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: only the dense and MoE families are ported")
     return conv(dict(tree), "")
 
 
-__all__ = ["params_from_jax"]
+__all__ = ["FP32_LEAVES", "params_from_jax"]

@@ -7,13 +7,17 @@ the class's kernel and every layer's attention ``flash_attention_cuda``;
 ``--device cpu`` runs the kernels' plain versions and ``chunked_attention``.
 Weights are random, from ``--seed``.  The loss is ``ce + aux``: the
 cross-entropy and, for the MoE family, the router's load-balance loss,
-reported apart.
+reported apart.  Inputs follow the family: random tokens (the loss on the
+tokens shifted by one); for whisper-small random normal bf16 ``frames``
+(B, ``enc_frames``, D) beside the decoder's tokens; for pixtral-12b random
+normal bf16 ``embeds`` (B, S, D) and random labels.
 
 Example (one H100)::
 
     PYTHONPATH=src python -m repro_torch.launch.score --arch minitron-4b \\
         --batch 2 --seq-len 2048
     PYTHONPATH=src python -m repro_torch.launch.score --arch qwen2-moe-a2.7b
+    PYTHONPATH=src python -m repro_torch.launch.score --arch whisper-small --seq-len 448
 """
 
 from __future__ import annotations
@@ -48,6 +52,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_batch(cfg, b: int, s: int, seed: int, device):
+    """The forward's inputs and the loss's labels, from numpy's generator
+    at ``seed``: ``frames`` (B, enc_frames, D) and ``tokens`` for the
+    encoder-decoder, ``embeds`` (B, S, D) with embedding inputs (normal
+    draws in bf16), else ``tokens``; token-in labels are the tokens shifted
+    by one."""
+
+    rng = np.random.default_rng(seed)
+    bf16 = lambda shape: torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,  # noqa: E731
+                                         device=device).to(torch.bfloat16)
+    ints = lambda shape: torch.as_tensor(rng.integers(0, cfg.vocab, size=shape, dtype=np.int32),  # noqa: E731
+                                         device=device)
+    if cfg.embed_inputs:
+        return {"embeds": bf16((b, s, cfg.d_model))}, ints((b, s))
+    batch = {"frames": bf16((b, cfg.enc_frames, cfg.d_model))} if cfg.family == "encdec" else {}
+    toks = ints((b, s + 1))
+    return dict(batch, tokens=toks[:, :-1]), toks[:, 1:]
+
+
 def score(args, *, params=None) -> dict:
     """One forward and one eval loss from parsed CLI ``args``; returns the
     JSON summary.  ``params`` defaults to the random weights of ``--seed``."""
@@ -58,17 +81,15 @@ def score(args, *, params=None) -> dict:
         cfg = cfg.reduced()
     if params is None:
         params = Z.init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
-    rng = np.random.default_rng(args.seed)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(args.batch, args.seq_len + 1),
-                                        dtype=np.int32), device=device)
+    batch, labels = make_batch(cfg, args.batch, args.seq_len, args.seed, device)
     ctx = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
     with ctx:
         _sync(device)
         t0 = time.perf_counter()
-        logits = Z.make_prefill_fn(cfg)(params, {"tokens": toks[:, :-1]})
+        logits = Z.make_prefill_fn(cfg)(params, batch)
         _sync(device)
         forward_s = time.perf_counter() - t0
-        loss, metrics = Z.make_loss_fn(cfg)(params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        loss, metrics = Z.make_loss_fn(cfg)(params, dict(batch, labels=labels))
     return {
         "arch": cfg.name,
         "exec_backend": ctx.backend(),

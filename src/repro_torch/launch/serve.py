@@ -11,7 +11,10 @@ engine's spans and metric families, and its default step-time probe,
 which times each class's kernel and feeds the DAS scheduler.
 ``--objective energy|edp`` lets the engine park energy-inefficient pods
 at low load; its joules are modeled from the class specs' power models,
-not read from the card.  The fleet and class-sharded branches of the
+not read from the card.  The Mamba2 families (mamba2-1.3b, zamba2-2.7b)
+serve on dense lanes: ``--paged auto`` keeps them dense and ``--paged on``
+is refused, as in the reference; the encoder-decoder and embedding-input
+archs are refused.  The fleet and class-sharded branches of the
 reference's CLI arrive with later slices.
 
 Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
@@ -19,6 +22,9 @@ Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --batch 8 --prompt-len 16 --gen-len 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --paged on
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --one-shot \\
+        --device-class little
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --batch 3 --slots-per-pod 4 --objective energy
 """

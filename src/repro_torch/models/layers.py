@@ -1,8 +1,9 @@
 """Shared neural-net layers (plain functions on tensors, explicit params).
 
 The port's counterpart of ``repro.models.layers``: the full-sequence
-attention of the prefill / scoring forward and the decode attention.
-Conventions, as in the reference:
+attention of the prefill / scoring forward, the decode attention, and the
+encoder-decoder's pieces (layer norm, the GELU MLP, sinusoidal positions,
+cross-attention).  Conventions, as in the reference:
 
   * projection weights keep the JAX ``(in, out)`` layout, because the
     GEMM kernels compute ``A · B``; they may be stored in bf16 once (the
@@ -22,6 +23,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,6 +60,14 @@ def rms_norm(x, w, eps: float = 1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * w.float()
+    return y.to(x.dtype)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
     return y.to(x.dtype)
 
 
@@ -301,6 +311,41 @@ def decode_attention_paged(
     return _finish(p, o, live, x, cfg), (pages_k, pages_v)
 
 
+def cross_attention(p, x, enc_k, enc_v, cfg: AttnConfig, *, backend: str = "auto"):
+    """Decoder-to-encoder attention (Whisper): x (B, S, D) against the
+    precomputed encoder K/V (B, Se, Hkv, Dh), non-causal.  The attention
+    routes through ``execution.dispatch_flash_attention``, as in
+    :func:`apply_attention` (the reference calls ``chunked_attention``,
+    which is what ``"auto"`` runs for CPU tensors)."""
+
+    from repro_torch.core.execution import dispatch_flash_attention
+
+    b, s, _ = x.shape
+    q = ops.linear(x, _w(p["wq"]), p.get("bq")).reshape(b, s, cfg.n_heads, cfg.d_head)
+    o = dispatch_flash_attention(q, enc_k.to(COMPUTE_DTYPE), enc_v.to(COMPUTE_DTYPE),
+                                 causal=False, backend=backend)
+    o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
+    return ops.linear(o, _w(p["wo"]))
+
+
+def init_cross_kv(generator, cfg: AttnConfig, *, device, dtype=COMPUTE_DTYPE):
+    mk = lambda shape: dense_init(generator, shape, device=device, dtype=dtype)  # noqa: E731
+    return {
+        "wk": mk((cfg.d_model, cfg.n_kv_heads * cfg.d_head)),
+        "wv": mk((cfg.d_model, cfg.n_kv_heads * cfg.d_head)),
+    }
+
+
+def encode_cross_kv(p, enc_out, cfg: AttnConfig):
+    """The cross-attention K/V of one decoder layer from the encoder's
+    output: (B, Se, Hkv, Dh) each."""
+
+    b, s, _ = enc_out.shape
+    k = ops.linear(enc_out, _w(p["wk"])).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = ops.linear(enc_out, _w(p["wv"])).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -320,20 +365,57 @@ def apply_glu(p, x):
     return ops.gemm(h, _w(p["w2"]))
 
 
+def init_mlp(generator, d_model: int, d_ff: int, *, device, dtype=COMPUTE_DTYPE):
+    return {
+        "w1": dense_init(generator, (d_model, d_ff), device=device, dtype=dtype),
+        "b1": torch.zeros((d_ff,), dtype=PARAM_DTYPE, device=device),
+        "w2": dense_init(generator, (d_ff, d_model), device=device, dtype=dtype),
+        "b2": torch.zeros((d_model,), dtype=PARAM_DTYPE, device=device),
+    }
+
+
+def apply_mlp(p, x):
+    """The GELU MLP (``jax.nn.gelu``'s default, the tanh form)."""
+
+    h = ops.linear(x, _w(p["w1"]), p["b1"])
+    h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
+    return ops.linear(h, _w(p["w2"]), p["b2"])
+
+
+def sinusoidal_positions(s: int, d: int, *, device="cpu") -> torch.Tensor:
+    """(S, D) fp32 sinusoids, computed in float64 numpy and cast, as in the
+    reference: sin on the even columns, cos on the odd."""
+
+    pos = np.arange(s)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    ang = pos / np.power(10000.0, dim / d)
+    out = np.zeros((s, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
+
+
 __all__ = [
     "COMPUTE_DTYPE",
     "PARAM_DTYPE",
     "AttnConfig",
     "apply_attention",
     "apply_glu",
+    "apply_mlp",
     "chunked_attention",
+    "cross_attention",
     "decode_attention",
     "decode_attention_paged",
     "dense_init",
     "embed_init",
+    "encode_cross_kv",
     "init_attention",
+    "init_cross_kv",
     "init_glu",
+    "init_mlp",
+    "layer_norm",
     "repeat_kv",
     "rms_norm",
     "rope",
+    "sinusoidal_positions",
 ]

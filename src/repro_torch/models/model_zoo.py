@@ -1,7 +1,8 @@
-"""Family dispatch (the port's ``repro.models.model_zoo``): the dense and
-MoE families run through :mod:`repro_torch.models.transformer` (which
-raises for the SSM and hybrid families and for embedding inputs); the
-encoder-decoder family is not ported yet.
+"""Family dispatch (the port's ``repro.models.model_zoo``): one API over
+the reference's ten architectures.  The dense, MoE, SSM and hybrid
+families (token or embedding inputs) run through
+:mod:`repro_torch.models.transformer`, the encoder-decoder family through
+:mod:`repro_torch.models.encdec`.
 
   * ``init_params(cfg, generator, device)``
   * ``make_loss_fn(cfg)``        -> (params, batch) -> (loss, metrics), no gradient
@@ -22,12 +23,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
     if cfg.family == "encdec":
-        raise NotImplementedError("the encoder-decoder family is not ported yet")
+        return E.init_encdec(generator, cfg, device=device)
     return T.init_lm(generator, cfg, device=device)
 
 
@@ -68,8 +70,10 @@ def bulk_prefill_from_decode(decode_fn):
 
 
 def make_decode_fn(cfg: ArchConfig):
+    step = E.decode_step if cfg.family == "encdec" else T.decode_step
+
     def f(params, batch, state, pos):
-        return T.decode_step(params, cfg, batch, state, pos)
+        return step(params, cfg, batch, state, pos)
 
     return f
 
@@ -78,9 +82,11 @@ def make_loss_fn(cfg: ArchConfig):
     """The eval loss, ``(params, batch) -> (loss, {"ce", "aux"})``, under
     ``torch.inference_mode()``: no gradient (training is not ported yet)."""
 
+    loss = E.loss_fn if cfg.family == "encdec" else T.loss_fn
+
     def f(params, batch):
         with torch.inference_mode():
-            return T.loss_fn(params, cfg, batch)
+            return loss(params, cfg, batch)
 
     return f
 
@@ -101,12 +107,16 @@ def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: 
 
     def f(params, batch):
         with torch.inference_mode():
+            if cfg.family == "encdec":
+                return E.forward_encdec(params, cfg, batch, attn_backend=attn_backend)[0]
             return T.prefill(params, cfg, batch, attn_backend=attn_backend)
 
     return f
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
+    if cfg.family == "encdec":
+        return E.init_decode_state(cfg, batch, seq_len, device=device)
     return T.init_decode_state(cfg, batch, seq_len, device=device)
 
 

@@ -1,0 +1,226 @@
+"""Mamba2 (state-space duality) blocks: the full-sequence chunked scan and
+the recurrent decode step (the port's ``repro.models.ssm``).
+
+The SSD chunked algorithm [arXiv:2405.21060] splits the sequence into
+chunks of ``cfg.chunk`` steps: within a chunk the output is a dense masked
+product (a (Q, Q) decay-weighted ``C · B`` matrix times ``x``), across
+chunks a recurrent state ``(B, H, d_state, headdim)`` carries the rest.
+Everything past the projections runs in fp32, as in the reference.
+
+Decode is the dual recurrent form: one step updates the constant-size
+state and the two causal-conv histories; the port writes them **in place**
+(the reference threads them through donated jit arguments).
+
+As in the reference, z/x/B·C/dt are four separate projections and every
+projection (and ``out_proj``) is a plain bf16 product (``torch.matmul``):
+the reference computes them with ``jnp.einsum``, outside its GEMM kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs import SSMConfig
+from repro_torch.models import layers as L
+
+
+def init_mamba2(generator, cfg: SSMConfig, n_layers: int, *, device,
+                dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict:
+    """``n_layers`` stacked Mamba2 blocks at the reference's scales.  The
+    projections are stored in ``dtype``; the conv weights and biases,
+    ``dt_bias``, ``A_log``, ``D`` and ``norm_w`` stay fp32 (the decode step
+    uses them in fp32)."""
+
+    nl, d, di, nh = n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads
+    gn2 = 2 * cfg.n_groups * cfg.d_state
+    dense = lambda shape, scale=None, dt=dtype: L.dense_init(  # noqa: E731
+        generator, (nl,) + shape, scale, device=device, dtype=dt)
+    full = lambda shape, value: torch.full((nl,) + shape, value, dtype=L.PARAM_DTYPE,  # noqa: E731
+                                           device=device)
+    return {
+        "wz": dense((d, di)),
+        "wx": dense((d, di)),
+        "wbc": dense((d, gn2)),
+        "wdt": dense((d, nh), 0.02),
+        "conv_w_x": dense((cfg.d_conv, di), 0.5, L.PARAM_DTYPE),
+        "conv_b_x": full((di,), 0.0),
+        "conv_w_bc": dense((cfg.d_conv, gn2), 0.5, L.PARAM_DTYPE),
+        "conv_b_bc": full((gn2,), 0.0),
+        "dt_bias": full((nh,), 0.0),
+        "A_log": full((nh,), 0.0),
+        "D": full((nh,), 1.0),
+        "norm_w": full((di,), 1.0),
+        "out_proj": dense((di, d)),
+    }
+
+
+def _causal_conv(u, w, b, d_conv: int, conv_state=None):
+    """Depthwise causal conv + SiLU in fp32. u: (B, S, C); w: (K, C).
+
+    With ``conv_state`` ((B, K-1, C), the decode form) ``u`` is one step;
+    returns ``(out, the new history)``.  The full-sequence form returns
+    ``(out, None)``."""
+
+    wf, bf = w.float(), b.float()
+    if conv_state is not None:
+        window = torch.cat([conv_state, u], dim=1)  # (B, K, C)
+        out = torch.einsum("bkc,kc->bc", window.float(), wf)
+        out = F.silu(out + bf)
+        return out[:, None].to(u.dtype), window[:, 1:]
+    s = u.shape[1]
+    pad = F.pad(u, (0, 0, d_conv - 1, 0))
+    stacked = torch.stack([pad[:, i:i + s] for i in range(d_conv)], dim=2)  # (B, S, K, C)
+    out = torch.einsum("bskc,kc->bsc", stacked.float(), wf)
+    return F.silu(out + bf).to(u.dtype), None
+
+
+def _ssd_chunked(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
+    """Chunked SSD scan.
+
+    x: (B, S, H, P); dt: (B, S, H) (post-softplus); A: (H,) negative
+    rates; Bm, Cm: (B, S, G, N).  Returns ``(y in x's dtype, final state
+    (B, H, N, P) fp32)``.
+    """
+
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    q = min(cfg.chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} not divisible by chunk {q}")
+    nc = s // q
+    rep = h // g
+    dev = x.device
+
+    xq = x.reshape(b, nc, q, h, p).float()
+    dtq = dt.reshape(b, nc, q, h)
+    bq = Bm.reshape(b, nc, q, g, n).float()
+    cq = Cm.reshape(b, nc, q, g, n).float()
+
+    # log decay per step: dA = A * dt (A < 0), its running sum l_t per chunk.
+    da = (A[None, None, None, :] * dtq).float()                   # (B, nc, Q, H)
+    cum = torch.cumsum(da, dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]            # (B, nc, Q, Q, H)
+    # Masked before the exponential: above the diagonal seg > 0 and exp
+    # overflows, and inf times the masked zero would be NaN.
+    causal = torch.ones((q, q), dtype=torch.bool, device=dev).tril()[None, None, :, :, None]
+    decay = torch.exp(torch.where(causal, seg, torch.full((), -torch.inf, device=dev)))
+    del seg
+
+    # intra-chunk: scores[t, s] = (C_t · B_s) * exp(l_t - l_s) * dt_s
+    cb = torch.einsum("bcqgn,bcsgn->bcqsg", cq, bq)
+    cb_h = cb[..., None].expand(b, nc, q, q, g, rep).reshape(b, nc, q, q, h)
+    scores = cb_h * decay * dtq[:, :, None, :, :]
+    del cb, cb_h, decay
+    y_intra = torch.einsum("bcqsh,bcshp->bcqhp", scores, xq)
+    del scores
+
+    # per-chunk state contribution: sum_s exp(l_Q - l_s) dt_s B_s ⊗ x_s
+    tail = torch.exp(cum[:, :, -1:, :] - cum)                      # (B, nc, Q, H)
+    w = tail * dtq
+    bqh = bq[:, :, :, :, None, :].expand(b, nc, q, g, rep, n).reshape(b, nc, q, h, n)
+    chunk_state = torch.einsum("bcqhn,bcqhp->bchnp", bqh * w[..., None], xq)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                      # (B, nc, H)
+    cqh = cq[:, :, :, :, None, :].expand(b, nc, q, g, rep, n).reshape(b, nc, q, h, n)
+
+    # across chunks: the reference's lax.scan, as a loop over chunks.
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((b, h, n, p), dtype=torch.float32, device=dev))
+    y_inter = []
+    for c in range(nc):
+        c_h = cqh[:, c] * torch.exp(cum[:, c])[..., None]           # (B, Q, H, N)
+        y_inter.append(torch.einsum("bqhn,bhnp->bqhp", c_h, state))
+        state = chunk_decay[:, c][..., None, None] * state + chunk_state[:, c]
+    y = (y_intra + torch.stack(y_inter, dim=1)).reshape(b, s, h, p)
+    return y.to(x.dtype), state
+
+
+def _project(p, xin, cfg: SSMConfig):
+    xc = xin.to(L.COMPUTE_DTYPE)
+    c = lambda name: p[name].to(L.COMPUTE_DTYPE)  # noqa: E731
+    return (torch.matmul(xc, c("wz")), torch.matmul(xc, c("wx")),
+            torch.matmul(xc, c("wbc")), torch.matmul(xc, c("wdt")))
+
+
+def _finalize(p, y, z, xin, cfg: SSMConfig):
+    b, s = xin.shape[0], xin.shape[1]
+    y = y.reshape(b, s, cfg.d_inner).to(L.COMPUTE_DTYPE)
+    y = y * F.silu(z.float()).to(L.COMPUTE_DTYPE)
+    y = L.rms_norm(y, p["norm_w"])
+    out = torch.matmul(y, p["out_proj"].to(L.COMPUTE_DTYPE))
+    return out.to(xin.dtype)
+
+
+def _rates(p, dt):
+    """(post-softplus dt, A) in fp32."""
+
+    dtv = F.softplus(dt.float() + p["dt_bias"].float())
+    return dtv, -torch.exp(p["A_log"].float())
+
+
+def apply_mamba2(p, xin, cfg: SSMConfig, *, init_state=None):
+    """Full-sequence Mamba2 block. xin: (B, S, D) -> (y, final SSM state)."""
+
+    z, xu, bc, dt = _project(p, xin, cfg)
+    xu, _ = _causal_conv(xu, p["conv_w_x"], p["conv_b_x"], cfg.d_conv)
+    bc, _ = _causal_conv(bc, p["conv_w_bc"], p["conv_b_bc"], cfg.d_conv)
+    b, s, _ = xu.shape
+    gn = cfg.n_groups * cfg.d_state
+    x = xu.reshape(b, s, cfg.n_heads, cfg.headdim)
+    Bm = bc[..., :gn].reshape(b, s, cfg.n_groups, cfg.d_state)
+    Cm = bc[..., gn:].reshape(b, s, cfg.n_groups, cfg.d_state)
+    dtv, A = _rates(p, dt)
+
+    y, final = _ssd_chunked(x, dtv, A, Bm, Cm, cfg, init_state=init_state)
+    y = y + p["D"].float()[None, None, :, None] * x.float()
+    return _finalize(p, y, z, xin, cfg), final
+
+
+def init_mamba2_state(batch: int, cfg: SSMConfig, *, device, dtype=torch.float32) -> dict:
+    gn2 = 2 * cfg.n_groups * cfg.d_state
+    return {
+        "ssm": torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.headdim), dtype=dtype, device=device),
+        "conv_x": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=L.COMPUTE_DTYPE, device=device),
+        "conv_bc": torch.zeros((batch, cfg.d_conv - 1, gn2), dtype=L.COMPUTE_DTYPE, device=device),
+    }
+
+
+def decode_mamba2(p, xin, cfg: SSMConfig, state):
+    """Single-token recurrent step. xin: (B, 1, D); ``state`` (one layer's
+    ``init_mamba2_state`` leaves, or views of them) is written in place.
+    Returns ``(out, state)``."""
+
+    z, xu, bc, dt = _project(p, xin, cfg)
+    xu, conv_x = _causal_conv(xu, p["conv_w_x"], p["conv_b_x"], cfg.d_conv,
+                              conv_state=state["conv_x"])
+    bc, conv_bc = _causal_conv(bc, p["conv_w_bc"], p["conv_b_bc"], cfg.d_conv,
+                               conv_state=state["conv_bc"])
+    b = xin.shape[0]
+    gn = cfg.n_groups * cfg.d_state
+    x = xu[:, 0].reshape(b, cfg.n_heads, cfg.headdim)
+    Bm = bc[:, 0, :gn].reshape(b, cfg.n_groups, cfg.d_state)
+    Cm = bc[:, 0, gn:].reshape(b, cfg.n_groups, cfg.d_state)
+    dtv, A = _rates(p, dt[:, 0])
+
+    rep = cfg.n_heads // cfg.n_groups
+    Bh = torch.repeat_interleave(Bm, rep, dim=1).float()           # (B, H, N)
+    Ch = torch.repeat_interleave(Cm, rep, dim=1).float()
+    decay = torch.exp(A[None] * dtv)                               # (B, H)
+    h = state["ssm"] * decay[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", Bh * dtv[..., None], x.float())
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h)
+    y = y + p["D"].float()[None, :, None] * x.float()
+    out = _finalize(p, y[:, None], z, xin, cfg)
+    state["ssm"].copy_(h)
+    state["conv_x"].copy_(conv_x)
+    state["conv_bc"].copy_(conv_bc)
+    return out, state
+
+
+__all__ = [
+    "SSMConfig",
+    "apply_mamba2",
+    "decode_mamba2",
+    "init_mamba2",
+    "init_mamba2_state",
+]

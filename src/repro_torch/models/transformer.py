@@ -1,19 +1,26 @@
-"""Decoder-only LM, dense and MoE families (the port's
-``repro.models.transformer``).
+"""Decoder-only LM: the dense, MoE, SSM (Mamba2) and hybrid (Zamba2)
+families (the port's ``repro.models.transformer``).
 
 Two paths: the full-sequence forward (prefill logits, scoring, the eval
 loss with the MoE router's auxiliary loss; no gradient yet) and the decode
 step.  Layer params are stacked along a leading ``L`` axis, as in the
 reference; where the reference scans over that axis, the port loops over
-it (no remat: nothing is kept for a backward pass).  Decode caches are
-written in place (dense ``(L, B, S_cache, Hkv, Dh)`` lanes or paged
-``(L, n_pages, page_size, Hkv, Dh)`` arenas); a sliding window makes them
-rings of ``min(window, seq_len)`` slots.  The SSM and hybrid families,
-embedding inputs and training are not ported yet.
+it (no remat: nothing is kept for a backward pass).  Decode state is
+written in place: dense ``(L, B, S_cache, Hkv, Dh)`` KV lanes or paged
+``(L, n_pages, page_size, Hkv, Dh)`` arenas (a sliding window makes them
+rings of ``min(window, seq_len)`` slots), or for the Mamba2 families the
+recurrent state ``{"mamba": {"ssm", "conv_x", "conv_bc"}}`` (each leaf
+``(L, B, ...)``) plus, for the hybrid, the shared attention block's
+``shared_k`` / ``shared_v`` rings ``(n_groups, B, S_cache, Hkv, Dh)``.
+The hybrid runs ``n_layers // shared_attn_every`` groups of Mamba2 layers,
+each followed by one weight-shared attention+GLU block.  With
+``cfg.embed_inputs`` the model takes ``batch["embeds"]`` (B, S, D) in
+place of tokens.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -22,6 +29,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 
 def attn_config(cfg: ArchConfig, *, causal: bool = True) -> L.AttnConfig:
@@ -43,44 +51,29 @@ def block_kind(cfg: ArchConfig) -> str:
     ]
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    """The families the port runs: dense and MoE, token in.  The SSM and
-    hybrid (Mamba2) families and embedding inputs are not ported yet."""
-
-    if block_kind(cfg) not in ("attn_mlp", "attn_moe") or cfg.shared_attn_every \
-            or cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE token-in families so far "
-            f"(family {cfg.family!r})"
-        )
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def init_lm(generator: torch.Generator, cfg: ArchConfig, *, device,
-            dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict[str, Any]:
-    """Random params at the reference's scales: projections ``dense_init``
-    (normal / sqrt(fan_in)), ``lm_head`` and ``embed`` 0.02, norms ones.
-    Projections, ``embed`` and ``lm_head`` are stored in ``dtype``; norms
-    stay fp32.  An MoE block carries ``"moe"`` params (router, experts,
-    shared expert) in place of the dense ``"mlp"``."""
+def _init_blocks(generator, cfg: ArchConfig, kind: str, nl: int, *, device, dtype) -> dict:
+    """``nl`` stacked blocks of ``kind``: attention + GLU / MoE, or Mamba2."""
 
-    _require_ported(cfg)
-    nl, d = cfg.n_layers, cfg.d_model
+    d = cfg.d_model
+    ones = lambda *shape: torch.ones(shape, dtype=L.PARAM_DTYPE, device=device)  # noqa: E731
+    if kind == "mamba":
+        return {"ln": ones(nl, d), "mamba": S.init_mamba2(generator, cfg.ssm, nl, device=device,
+                                                          dtype=dtype)}
     acfg = attn_config(cfg)
     hq, hkv = acfg.n_heads * acfg.d_head, acfg.n_kv_heads * acfg.d_head
     stack = lambda shape: L.dense_init(generator, (nl,) + shape, device=device, dtype=dtype)  # noqa: E731
-    ones = lambda *shape: torch.ones(shape, dtype=L.PARAM_DTYPE, device=device)  # noqa: E731
     attn = {"wq": stack((d, hq)), "wk": stack((d, hkv)), "wv": stack((d, hkv)), "wo": stack((hq, d))}
     if cfg.qkv_bias:
         attn["bq"] = torch.zeros((nl, hq), dtype=L.PARAM_DTYPE, device=device)
         attn["bk"] = torch.zeros((nl, hkv), dtype=L.PARAM_DTYPE, device=device)
         attn["bv"] = torch.zeros((nl, hkv), dtype=L.PARAM_DTYPE, device=device)
     blocks = {"ln1": ones(nl, d), "attn": attn, "ln2": ones(nl, d)}
-    if block_kind(cfg) == "attn_moe":
+    if kind == "attn_moe":
         blocks["moe"] = M.init_moe(generator, cfg.moe, nl, device=device, dtype=dtype)
     else:
         blocks["mlp"] = {
@@ -88,26 +81,59 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig, *, device,
             "w3": stack((d, cfg.d_ff)),
             "w2": stack((cfg.d_ff, d)),
         }
-    return {
-        "blocks": blocks,
-        "final_norm": ones(d),
+    return blocks
+
+
+def init_lm(generator: torch.Generator, cfg: ArchConfig, *, device,
+            dtype: torch.dtype = L.COMPUTE_DTYPE) -> dict[str, Any]:
+    """Random params at the reference's scales: projections ``dense_init``
+    (normal / sqrt(fan_in)), ``lm_head`` and ``embed`` 0.02, norms ones.
+    Projections, ``embed`` and ``lm_head`` are stored in ``dtype``; norms
+    (and the Mamba2 block's conv, rate and gate params) stay fp32.  An MoE
+    block carries ``"moe"`` params (router, experts, shared expert) in place
+    of the dense ``"mlp"``; a Mamba2 block ``"ln"`` and ``"mamba"``.  The
+    hybrid adds one unstacked attention+GLU block, ``"shared"``; embedding
+    inputs drop ``"embed"``."""
+
+    d = cfg.d_model
+    params = {
+        "blocks": _init_blocks(generator, cfg, block_kind(cfg), cfg.n_layers, device=device,
+                               dtype=dtype),
+        "final_norm": torch.ones((d,), dtype=L.PARAM_DTYPE, device=device),
         "lm_head": L.dense_init(generator, (d, cfg.vocab), scale=0.02, device=device, dtype=dtype),
-        "embed": L.embed_init(generator, (cfg.vocab, d), device=device, dtype=dtype),
     }
+    if not cfg.embed_inputs:
+        params["embed"] = L.embed_init(generator, (cfg.vocab, d), device=device, dtype=dtype)
+    if cfg.shared_attn_every:
+        shared = _init_blocks(generator, cfg, "attn_mlp", 1, device=device, dtype=dtype)
+        params["shared"] = layer_params(shared, 0)
+    return params
+
+
+def n_groups(cfg: ArchConfig) -> int:
+    """The hybrid's groups: Mamba2 layers ``[g·every, (g+1)·every)`` and
+    then the shared block, for ``g < n_layers // every`` (0 otherwise)."""
+
+    return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
 
 
 def gemm_shapes(cfg: ArchConfig) -> list:
     """``((K, N), calls)`` of every ``ops.gemm`` of one decode step (or one
     forward): q, k and v, o, then the dense GLU's gate, up and down or the
     MoE shared expert's (the router, the shared gate and the routed
-    experts are not ``ops.gemm`` calls), then the LM head."""
+    experts are not ``ops.gemm`` calls), then the LM head.  A Mamba2 block
+    makes none (its projections are plain products); the hybrid's shared
+    block makes its seven once a group."""
 
     d, hq = cfg.d_model, cfg.n_heads * cfg.head_dim
-    hkv, nl = cfg.n_kv_heads * cfg.head_dim, cfg.n_layers
-    ff = cfg.moe.d_ff_shared if block_kind(cfg) == "attn_moe" else cfg.d_ff
-    shapes = [((d, hq), nl), ((d, hkv), 2 * nl), ((hq, d), nl)]
-    if ff:
-        shapes += [((d, ff), 2 * nl), ((ff, d), nl)]
+    hkv, kind = cfg.n_kv_heads * cfg.head_dim, block_kind(cfg)
+    n_attn = n_groups(cfg) if kind == "mamba" else cfg.n_layers
+    ff = cfg.moe.d_ff_shared if kind == "attn_moe" else cfg.d_ff
+    shapes = []
+    if n_attn:
+        shapes = [((d, hq), n_attn), ((d, hkv), 2 * n_attn), ((hq, d), n_attn)]
+        if ff:
+            shapes += [((d, ff), 2 * n_attn), ((ff, d), n_attn)]
     return shapes + [((d, cfg.vocab), 1)]
 
 
@@ -142,12 +168,15 @@ def _apply_attn_block(p, x, cfg: ArchConfig, positions, *, attn_backend: str = "
 
 
 def _layer_fn(cfg: ArchConfig, kind: str, positions, *, attn_backend: str = "auto"):
-    """One layer's body, ``(x, p) -> (x, aux)``; a dense block's aux is 0."""
-
-    if kind not in ("attn_mlp", "attn_moe"):
-        raise NotImplementedError(f"{cfg.name}: the {kind!r} block is not ported yet")
+    """One layer's body, ``(x, p) -> (x, aux)``; a dense or Mamba2 block's
+    aux is 0."""
 
     def f(x, p):
+        if kind == "mamba":
+            h, _ = S.apply_mamba2(p["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps), cfg.ssm)
+            return x + h, 0.0
+        if kind not in ("attn_mlp", "attn_moe"):
+            raise ValueError(kind)
         x, aux, _ = _apply_attn_block(p, x, cfg, positions, attn_backend=attn_backend)
         return x, aux
 
@@ -155,8 +184,9 @@ def _layer_fn(cfg: ArchConfig, kind: str, positions, *, attn_backend: str = "aut
 
 
 def _cast_params(tree):
-    """The reference's compute cast: every fp32 leaf to bf16 (norm weights
-    and qkv biases too), as its forward does before the layers run."""
+    """The reference's compute cast: every fp32 leaf to bf16 (norm weights,
+    qkv biases and the Mamba2 block's fp32 params too), as its forward does
+    before the layers run."""
 
     if isinstance(tree, dict):
         return {k: _cast_params(v) for k, v in tree.items()}
@@ -165,20 +195,28 @@ def _cast_params(tree):
 
 def forward_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto"):
     """Returns ``(logits (B, S, V) bf16, aux_loss)``; ``batch["tokens"]``
-    is (B, S).  ``aux_loss`` is the fp32 sum of the layers' MoE router
-    losses (0 for the dense family).  ``attn_backend`` names the attention
-    route (an ``execution.BACKENDS`` entry of the ``flash_attn`` family)."""
+    is (B, S) (``batch["embeds"]`` (B, S, D) with ``cfg.embed_inputs``).
+    ``aux_loss`` is the fp32 sum of the layers' MoE router losses (0 for
+    the other families).  ``attn_backend`` names the attention route (an
+    ``execution.BACKENDS`` entry of the ``flash_attn`` family)."""
 
-    _require_ported(cfg)
     x = embed_tokens(params, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     body = _layer_fn(cfg, block_kind(cfg), positions, attn_backend=attn_backend)
     blocks = _cast_params(params["blocks"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux_i = body(x, layer_params(blocks, i))
-        aux = aux + aux_i
+    every = cfg.shared_attn_every
+    if every:  # Zamba2: groups of `every` Mamba2 layers + the shared block
+        shared = _cast_params(params["shared"])
+        for g in range(n_groups(cfg)):
+            for i in range(g * every, (g + 1) * every):
+                x, _ = body(x, layer_params(blocks, i))
+            x = _apply_attn_block(shared, x, cfg, positions, attn_backend=attn_backend)[0]
+    else:
+        for i in range(cfg.n_layers):
+            x, aux_i = body(x, layer_params(blocks, i))
+            aux = aux + aux_i
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
     return logits, aux
@@ -203,7 +241,7 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def loss_fn(params, cfg: ArchConfig, batch):
-    """``(loss, {"ce", "aux"})`` on ``batch["tokens"]`` against
+    """``(loss, {"ce", "aux"})`` on ``batch["tokens"]`` (or ``"embeds"``) against
     ``batch["labels"]`` (optionally weighted by ``batch["mask"]``)."""
 
     logits, aux = forward_lm(params, cfg, batch)
@@ -230,27 +268,42 @@ def cache_len(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device):
-    """Dense per-slot KV lanes ``(L, B, S_cache, Hkv, Dh)`` in bf16
-    (``S_cache`` is :func:`cache_len`: a ring of the window's size)."""
+    """Dense per-slot decode state, the slot (batch) dim of every leaf at 1.
 
-    _require_ported(cfg)
-    sc = cache_len(cfg, seq_len)
-    kv_shape = (cfg.n_layers, batch, sc, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device),
-        "v": torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device),
-    }
+    Attention families: KV lanes ``(L, B, S_cache, Hkv, Dh)`` in bf16
+    (``S_cache`` is :func:`cache_len`: a ring of the window's size).
+    Mamba2: ``{"mamba": {"ssm" (L, B, H, N, P) fp32, "conv_x", "conv_bc"
+    (L, B, d_conv - 1, C) bf16}}``.  The hybrid adds ``shared_k`` /
+    ``shared_v`` ``(n_groups, B, min(seq_len, 32768), Hkv, Dh)``: the
+    shared block's cache, capped at a practical window."""
+
+    nl = cfg.n_layers
+    if block_kind(cfg) == "mamba":
+        st = S.init_mamba2_state(batch, cfg.ssm, device=device)
+        state = {"mamba": {k: torch.zeros((nl,) + tuple(v.shape), dtype=v.dtype, device=device)
+                           for k, v in st.items()}}
+    else:
+        kv_shape = (nl, batch, cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
+        state = {
+            "k": torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device),
+            "v": torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device),
+        }
+    if cfg.shared_attn_every:
+        kv_shape = (n_groups(cfg), batch, min(seq_len, 32768), cfg.n_kv_heads, cfg.head_dim)
+        state["shared_k"] = torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device)
+        state["shared_v"] = torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device)
+    return state
 
 
 def init_decode_state_paged(cfg: ArchConfig, n_pages: int, page_size: int, *, device):
-    """Paged decode cache: one shared page arena per layer, no batch dim."""
+    """Paged decode cache: one shared page arena per layer, no batch dim.
+    Only the pure KV-cache families page."""
 
     if block_kind(cfg) == "mamba" or cfg.shared_attn_every:
         raise ValueError(
             f"paged KV state requires a pure KV-cache family, not "
             f"{cfg.family!r} (recurrent state has no pages to allocate)"
         )
-    _require_ported(cfg)
     kv_shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {
         "pages_k": torch.zeros(kv_shape, dtype=L.COMPUTE_DTYPE, device=device),
@@ -259,39 +312,73 @@ def init_decode_state_paged(cfg: ArchConfig, n_pages: int, page_size: int, *, de
 
 
 def embed_tokens(params, cfg: ArchConfig, batch):
+    if cfg.embed_inputs:
+        return batch["embeds"].to(L.COMPUTE_DTYPE)
     return params["embed"][batch["tokens"].long()].to(L.COMPUTE_DTYPE)
 
 
-def decode_step(params, cfg: ArchConfig, batch, state, pos):
-    """One-token serve step; the caches in ``state`` are written in place.
+def _decode_attn_block(p, x, cfg: ArchConfig, acfg: L.AttnConfig, state, i: int, batch, pos,
+                       live):
+    """Layer ``i``'s attention block on one token, its dense or paged
+    cache written in place."""
 
-    batch: ``{"tokens": (B, 1)}`` plus optionally ``"page_table"`` (B, W)
-    int32 — required when ``state`` is the paged arena — and ``"live"``
-    (B,) bool.  pos: a scalar or a (B,) vector of absolute positions.
-    Returns ``(logits (B, 1, V) bf16, state)``.  An MoE layer routes the
-    batch's rows as one merged group (``moe.apply_moe``), so rows of an MoE
-    step are coupled through the experts' capacity.
+    h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if "pages_k" in state:
+        h, _ = L.decode_attention_paged(
+            p["attn"], h_in, acfg, state["pages_k"][i], state["pages_v"][i],
+            batch["page_table"], pos, live=live,
+        )
+    else:
+        h, _ = L.decode_attention(p["attn"], h_in, acfg, state["k"][i], state["v"][i], pos,
+                                  live=live)
+    x = x + h
+    return x + _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)[0]
+
+
+def _decode_mamba(params, cfg: ArchConfig, x, state, pos):
+    """The Mamba2 layers on one token, and for the hybrid the shared block
+    after each group (its cache a ring of its own length, no ``live``
+    mask, as in the reference)."""
+
+    every = cfg.shared_attn_every
+    n_run = n_groups(cfg) * every if every else cfg.n_layers
+    if every:
+        sc = state["shared_k"].shape[2]
+        shared_cfg = dataclasses.replace(attn_config(cfg), window=sc if sc < 524288 else None)
+        shared_state = {"k": state["shared_k"], "v": state["shared_v"]}
+    for i in range(n_run):
+        p = layer_params(params["blocks"], i)
+        h, _ = S.decode_mamba2(p["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps), cfg.ssm,
+                               layer_params(state["mamba"], i))
+        x = x + h
+        if every and (i + 1) % every == 0:
+            x = _decode_attn_block(params["shared"], x, cfg, shared_cfg, shared_state,
+                                   i // every, None, pos, None)
+    return x
+
+
+def decode_step(params, cfg: ArchConfig, batch, state, pos):
+    """One-token serve step; the state in ``state`` is written in place.
+
+    batch: ``{"tokens": (B, 1)}`` (``{"embeds": (B, 1, D)}`` with
+    ``cfg.embed_inputs``) plus optionally ``"page_table"`` (B, W) int32 —
+    required when ``state`` is the paged arena — and ``"live"`` (B,) bool
+    (attention layers only; the Mamba2 recurrence takes no mask).  pos: a
+    scalar or a (B,) vector of absolute positions.  Returns ``(logits (B,
+    1, V) bf16, state)``.  An MoE layer routes the batch's rows as one
+    merged group (``moe.apply_moe``), so rows of an MoE step are coupled
+    through the experts' capacity.
     """
 
-    _require_ported(cfg)
     x = embed_tokens(params, cfg, batch)
-    live = batch.get("live")
-    acfg = attn_config(cfg)
-    paged = "pages_k" in state
-    for i in range(cfg.n_layers):
-        p = layer_params(params["blocks"], i)
-        h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        if paged:
-            h, _ = L.decode_attention_paged(
-                p["attn"], h_in, acfg, state["pages_k"][i], state["pages_v"][i],
-                batch["page_table"], pos, live=live,
-            )
-        else:
-            h, _ = L.decode_attention(
-                p["attn"], h_in, acfg, state["k"][i], state["v"][i], pos, live=live,
-            )
-        x = x + h
-        x = x + _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)[0]
+    if block_kind(cfg) == "mamba":
+        x = _decode_mamba(params, cfg, x, state, pos)
+    else:
+        live = batch.get("live")
+        acfg = attn_config(cfg)
+        for i in range(cfg.n_layers):
+            x = _decode_attn_block(layer_params(params["blocks"], i), x, cfg, acfg, state, i,
+                                   batch, pos, live)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
@@ -312,5 +399,6 @@ __all__ = [
     "init_lm",
     "layer_params",
     "loss_fn",
+    "n_groups",
     "prefill",
 ]

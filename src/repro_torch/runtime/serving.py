@@ -148,6 +148,12 @@ def _paged_supported(cfg: ArchConfig) -> tuple[bool, str]:
     return True, ""
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; ``cuda`` without a card raises."""
 
@@ -394,10 +400,18 @@ class ServingEngine:
     def _merge(self, fresh, new_tokens, take_new: torch.Tensor):
         """Lanes in ``take_new`` — the admitted slots plus every free
         (phantom) lane — take their freshly prefilled lane wholesale; busy
-        slots keep theirs bit for bit.  The slot dim of every leaf is 1."""
+        slots keep theirs bit for bit.  The slot dim of every leaf of the
+        state tree (KV lanes, the Mamba2 state, the hybrid's shared-block
+        cache) is 1."""
 
-        for name, leaf in self.state.items():
-            leaf[:, take_new] = fresh[name][:, take_new]
+        def merge(old, new):
+            for name, leaf in old.items():
+                if isinstance(leaf, dict):
+                    merge(leaf, new[name])
+                else:
+                    leaf[:, take_new] = new[name][:, take_new]
+
+        merge(self.state, fresh)
         self.tokens = torch.where(take_new[:, None], new_tokens, self.tokens)
 
     # -- page-table assembly (paged mode only; host-side, O(B·W)) -----------
@@ -809,7 +823,7 @@ class ServingEngine:
     def kv_stats(self) -> dict:
         """KV memory accounting (dense lanes, or the pool's occupancy)."""
 
-        arena = int(sum(x.numel() * x.element_size() for x in self.state.values()))
+        arena = int(sum(x.numel() * x.element_size() for x in _leaves(self.state)))
         if self.pool is None:
             return {"paged": False, "kv_bytes": arena}
         spec = self.pool.spec

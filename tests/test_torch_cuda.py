@@ -65,14 +65,17 @@ def _operands(cuda, m, k, n, seed=0):
 
 
 # Decode shapes (M = 12): internlm2-1.8b's, qwen2-moe-a2.7b's shared expert
-# (K = 5632 = 44 x 128) and LM head (N = 151,936), mixtral-8x7b's LM head;
+# (K = 5632 = 44 x 128) and LM head (N = 151,936), mixtral-8x7b's LM head,
+# whisper-small's tied head (N = 51,865, not a multiple of 8), mamba2-1.3b's
+# head and zamba2-2.7b's shared GLU;
 # then ragged ones: M = 100 and 300 against the 64/128-row tiles, N not a
 # multiple of bn, K not a multiple of bk, and K or N not a multiple of 8
 # (the wrapper's zero-padded copy for TMA).
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(12, 2048, 2048), (12, 8192, 2048), (12, 2048, 92544),
                                    (12, 2048, 5632), (12, 5632, 2048), (12, 2048, 151936),
-                                   (12, 4096, 32000),
+                                   (12, 4096, 32000), (12, 768, 51865), (12, 2048, 50280),
+                                   (12, 2560, 10240), (12, 10240, 2560),
                                    (13, 100, 77), (300, 200, 180), (1, 8, 1),
                                    (100, 320, 1000), (100, 1000, 515), (64, 96, 72)])
 def test_cuda_gemms_match_plain_and_each_other(cuda, shape):
@@ -89,6 +92,23 @@ def test_cuda_gemms_match_plain_and_each_other(cuda, shape):
             assert torch.equal(G.gemm_cuda_lean(a, b, cfg), got)  # bitwise at equal blocks
     torch.cuda.synchronize()
     assert G.LAUNCHES == {"gemm_cuda": 2, "gemm_cuda_lean": 3}
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_tied_head_reads_a_transposed_embedding(cuda):
+    """whisper-small's head: ``x · embed^T`` with the (51,865, 768)
+    embedding's transposed view as B, whose N is not a multiple of 8 (the
+    wrapper's zero-padded copy), at the decode's and the forward's M."""
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    embed = (torch.randn((51865, 768), generator=gen, device=cuda) * 0.02).bfloat16()
+    for m in (12, 896):
+        a = torch.randn((m, 768), generator=gen, device=cuda).bfloat16()
+        for stages, fn, plain in ((4, G.gemm_cuda, G.gemm_plain), (1, G.gemm_cuda_lean, G.gemm_lean_plain)):
+            cfg = G.resolve_block_config(m, 768, 51865, torch.bfloat16, stages=stages)
+            got = fn(a, embed.T, cfg)
+            assert got.shape == (m, 51865)
+            torch.testing.assert_close(got.float(), plain(a, embed.T.contiguous(), cfg).float(), **BF16)
 
 
 @pytest.mark.cuda
@@ -282,7 +302,8 @@ def test_cuda_paged_attention_rejects_what_it_cannot_run(cuda):
 
 # (B, Sq, Sk, Hq, Hkv, D, causal, window): the forward's layer shape at full
 # width of minitron-4b, a ragged suffix, a window, a non-causal call, small
-# heads, and GQA groups of 1, 2 and 3.
+# heads, GQA groups of 1, 2 and 3, and the new families' shapes (head dim
+# 80; non-causal over 1,500 keys, not a multiple of the 64-key block).
 FLASH_CASES = [
     (2, 2048, 2048, 24, 8, 128, True, None),
     (2, 100, 300, 24, 8, 128, True, None),
@@ -294,6 +315,10 @@ FLASH_CASES = [
     (2, 200, 200, 8, 8, 128, True, None),      # GQA group 1
     (1, 300, 300, 16, 8, 128, True, 100),      # GQA group 2, window
     (1, 200, 260, 6, 2, 72, False, None),      # GQA group 3, D padded to 128
+    (2, 2048, 2048, 32, 32, 80, True, None),   # zamba2-2.7b's shared block: D 80
+    (2, 1500, 1500, 12, 12, 64, False, None),  # whisper-small's encoder: 1,500 keys
+    (2, 448, 1500, 12, 12, 64, False, None),   # its cross-attention in the forward
+    (12, 1, 1500, 12, 12, 64, False, None),    # and in a decode step
 ]
 
 

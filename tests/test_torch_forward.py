@@ -163,13 +163,26 @@ def test_params_from_jax_keeps_qwen_biases_fp32():
 
 
 def test_forward_rejects_unported_families():
-    *_, cfg, params = _model("minitron-4b", {})
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for rep in ({"family": "ssm"}, {"family": "hybrid"}):
-        with pytest.raises(NotImplementedError):
-            T.forward_lm(params, dataclasses.replace(cfg, **rep), {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T._layer_fn(cfg, "mamba", None)
+    """The SSM and hybrid families once refused now run their forward from
+    their own init (the Mamba2 layer body, the hybrid's groups); a block
+    kind no family has is still refused."""
+
+    *_, cfg, _ = _model("minitron-4b", {})
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (1, 8), dtype=np.int32))
+    ssm = get_config("mamba2-1.3b").reduced().ssm
+    for rep in ({"family": "ssm"}, {"family": "hybrid", "shared_attn_every": 2}):
+        mcfg = dataclasses.replace(cfg, ssm=ssm, **rep)
+        params = T.init_lm(torch.Generator().manual_seed(0), mcfg, device="cpu")
+        logits, aux = T.forward_lm(params, mcfg, {"tokens": toks})
+        assert logits.shape == (1, 8, cfg.vocab) and bool(torch.isfinite(logits.float()).all())
+        assert float(aux) == 0.0
+    body = T._layer_fn(mcfg, "mamba", None)
+    x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
+    p = T.layer_params(T.init_lm(torch.Generator().manual_seed(0), mcfg, device="cpu")["blocks"], 0)
+    out, aux = body(x, T._cast_params(p))
+    assert out.shape == x.shape and aux == 0.0
+    with pytest.raises(ValueError, match="conv"):
+        T._layer_fn(cfg, "conv", None)(x, p)
 
 
 def test_score_cli_runs_the_forward_on_the_cpu():

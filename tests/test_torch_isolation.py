@@ -76,7 +76,10 @@ def test_port_covers_the_slice_modules():
         "repro_torch.tuning", "repro_torch.tuning.cache", "repro_torch.tuning.candidates",
         "repro_torch.tuning.measure", "repro_torch.tuning.ratio", "repro_torch.tuning.tune",
         "repro_torch.models.moe", "repro_torch.configs.qwen2_moe_a2p7b",
-        "repro_torch.configs.mixtral_8x7b",
+        "repro_torch.configs.mixtral_8x7b", "repro_torch.models.ssm",
+        "repro_torch.models.encdec", "repro_torch.configs.mamba2_1p3b",
+        "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.whisper_small",
+        "repro_torch.configs.pixtral_12b", "repro_torch.launch.score",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):

@@ -175,13 +175,32 @@ def test_bulk_prefill_equals_token_by_token_replay_bitwise(model):
 
 
 def test_decode_rejects_unported_variants(model):
-    *_, cfg, params = model
+    """The variants once refused now decode: embedding inputs (the same
+    params, the embedded tokens in: the token path's logits bitwise) and
+    the SSM / hybrid families from their own init; what stays refused is a
+    paged state for the recurrent families."""
+
     import dataclasses
 
-    tokens = {"tokens": torch.zeros((2, 1), dtype=torch.int32)}
-    for rep in ({"family": "ssm"}, {"family": "hybrid"}, {"embed_inputs": True}):
-        bad = dataclasses.replace(cfg, **rep)
-        with pytest.raises(NotImplementedError, match="dense and MoE"):
-            Z.make_decode_fn(bad)(params, tokens, {}, torch.zeros(2, dtype=torch.int32))
-        with pytest.raises(NotImplementedError):
-            T.init_lm(torch.Generator(), bad, device="cpu")
+    *_, cfg, params = model
+    toks = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab, (2, 3), dtype=np.int32))
+    emb_cfg = dataclasses.replace(cfg, embed_inputs=True)
+    st_tok = Z.init_decode_state(cfg, 2, 3, device="cpu")
+    st_emb = Z.init_decode_state(emb_cfg, 2, 3, device="cpu")
+    with torch.no_grad():
+        for t in range(3):
+            want, _ = Z.make_decode_fn(cfg)(params, {"tokens": toks[:, t:t + 1]}, st_tok, t)
+            embeds = params["embed"][toks[:, t:t + 1].long()]
+            got, _ = Z.make_decode_fn(emb_cfg)(params, {"embeds": embeds}, st_emb, t)
+            assert torch.equal(got, want)
+    for rep in ({"family": "ssm"}, {"family": "hybrid"}):
+        bad = dataclasses.replace(get_config(ARCH).reduced(), ssm=get_config("mamba2-1.3b").reduced().ssm,
+                                  shared_attn_every=2 if rep["family"] == "hybrid" else 0, **rep)
+        p = T.init_lm(torch.Generator().manual_seed(0), bad, device="cpu")
+        assert set(p["blocks"]) == {"ln", "mamba"} and ("shared" in p) == (rep["family"] == "hybrid")
+        state = Z.init_decode_state(bad, 2, 4, device="cpu")
+        with torch.no_grad():
+            lg, _ = Z.make_decode_fn(bad)(p, {"tokens": toks[:, :1]}, state, 0)
+        assert lg.shape == (2, 1, cfg.vocab) and bool(torch.isfinite(lg.float()).all())
+        with pytest.raises(ValueError, match="recurrent state has no pages"):
+            Z.init_decode_state_paged(bad, 4, 4, device="cpu")
