@@ -30,7 +30,18 @@ Phases (any failed check exits non-zero and prints no result line):
      head groups at 4,096 in pages of 16), each also held in L2 row by row,
      bitwise equal to itself on a second call, and timed on the device
      with ``torch.profiler`` beside the CUDA events, with the share of its
-     bytes bound and its number of splits;
+     bytes bound and its number of splits; last, the GEMM autograd
+     Function (``ops.GemmFn``) at the training shapes of phase 16 (M = 8 x
+     512), with a unit-scale dC: its output, dA and dB through
+     ``gemm_cuda`` at the big class's blocks and ``gemm_cuda_lean`` at the
+     little class's against the same Function on their plain versions,
+     and ``gemm_cuda``'s against ``torch.matmul`` autograd, element by
+     element and row by row in L2 (``GEMM_ROW_TOL``); each backward
+     product with one K-tile of its reduction planted as dropped must fail
+     that check; ``gemm_cuda_lean`` bitwise equal to ``gemm_cuda`` at equal
+     blocks, the two backward products of each kernel timed beside
+     ``torch.matmul`` and their bound, and the transposed copies timed
+     apart;
   2. the dense serving engine on the full-width 24-layer internlm2-1.8b
      (random weights from a fixed seed), through ``repro_torch.launch.serve``:
      every GEMM of the decode recurrence must launch ``gemm_cuda``;
@@ -116,11 +127,26 @@ Phases (any failed check exits non-zero and prints no result line):
      ``launch/score.py``'s forward and loss, the forward timed against its
      operations bound and traced, the forward through ``chunked_attention``
      within ``LOGIT_TOL``, and decode steps (whisper's cross K/V from
-     ``encode``) within ``LOGIT_TOL`` of the forward's logits.
+     ``encode``) within ``LOGIT_TOL`` of the forward's logits;
+ 16. training the full-width internlm2-1.8b (random fp32 masters from
+     seed 0) through ``launch/train.py``'s trainer: 8 x 512 tokens a step,
+     6 steps and one injected failure at step 2 that restores the step-0
+     checkpoint (written to a temporary directory the phase deletes);
+     every step launches 675 ``gemm_cuda`` (169 forward, 168 recomputed,
+     338 backward) and no flash attention; the step-0 loss finite, within
+     0.5 of ln V and within ``TRAIN_EVAL_LOSS_TOL`` of the eval loss (the
+     flash kernel) on the same batch; the replayed step-0 loss bitwise
+     equal, later ones within ``TRAIN_REPLAY_RTOL``; step ms, tokens/s,
+     peak memory, the checkpoint's bytes, save and restore seconds beside
+     free disk and host memory; one step under the little class's tree
+     (675 ``gemm_cuda_lean``, no ``gemm_cuda``) and one step traced in
+     three segments against the GEMMs' operations bound and AdamW's bytes
+     bound (the split by family only from a trace that saw every GEMM
+     launched, up to ``TRACE_ATTEMPTS`` steps tried).
 
 Each of phases 2-4, the forward of phase 7, the steps of phase 8, the
-engines and the kernel step of phases 11 and 12, and the paths of phases
-13-15 resets the kernels' launch counters just before it and reads them
+engines and the kernel step of phases 11 and 12, the paths of phases
+13-15 and the training run and little-tree step of phase 16 resets the kernels' launch counters just before it and reads them
 just after; the launches of phases 1, 5, 6, 10 and the comparisons of
 phases 7, 8, 11, 12 and 13-15 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
@@ -155,6 +181,13 @@ FP32_TOL = 1e-4
 # output, which 32 layers of bf16 residual stream carry to the logits
 # (standard deviation near 1.1 at minitron-4b's width).
 LOGIT_TOL = 0.25
+# The GEMM autograd Function's output and gradients (phase 1), also in L2
+# relative to each row's norm: both sides round the same fp32 sums to bf16
+# (at most 2^-9 of an element), a fraction of a percent of a row; a product
+# that skipped one K-tile of 64 of its reduction moves a row by sqrt(64 / K)
+# of its norm at unit-scale operands, 2.6% at the head's dA (K = 92,544)
+# and more at every other backward shape.
+GEMM_ROW_TOL = 1e-2
 # Flash attention's rows, in L2 relative to the row's own norm: late causal
 # rows average up to 2048 values of v down to a few hundredths, where
 # BF16_TOL's absolute 0.02 is wide; a row that lost a key block moves by
@@ -2197,6 +2230,522 @@ def phase15(torch, counts, reset) -> dict:
     return out
 
 
+# The training step of phase 16: full-width internlm2-1.8b, 8 x 512 tokens
+# (M = 4,096 rows in every GEMM), 6 steps and one failure at step 2 that
+# restores the step-0 checkpoint.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL_AT = 8, 512, 6, 2
+# The step-0 training loss (chunked attention, fp32 masters cast at use)
+# against the eval loss on the same batch (the flash kernel): the two
+# attentions round p to bf16 before or after normalising, a bf16 ulp of
+# the attention output; the loss is a mean over 4,096 tokens of those
+# rounding differences, a few thousandths at most.
+TRAIN_EVAL_LOSS_TOL = 0.01
+# Later replayed losses against the first run's: the embedding's backward
+# scatters with atomics, so the step-0 update differs in the last bits.
+TRAIN_REPLAY_RTOL = 1e-3
+# The trainer's GEMM shapes (K, N) (internlm2-1.8b).
+TRAIN_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), (2048, 92544))
+
+
+def train_gemm_flops(cfg, m: int) -> dict:
+    """Operations of one training step's GEMMs: the forward (every
+    projection and the head), the recompute (the layers again, not the
+    head) and the backward (two products per forward GEMM)."""
+
+    fwd = sum(2 * m * k * n * c for (k, n), c in gemm_shapes(cfg))
+    head = 2 * m * cfg.d_model * cfg.vocab
+    return {"forward": fwd, "remat": fwd - head, "backward": 2 * fwd}
+
+
+def phase1_backward(torch, detail: dict, records: dict) -> None:
+    """The GEMM autograd Function's backward on the card at the trainer's
+    shapes (M = 8 x 512): the output, dA and dB through ``gemm_cuda`` (the
+    big class's blocks) and ``gemm_cuda_lean`` (the little class's) against
+    the same Function on their plain versions, and ``gemm_cuda``'s against
+    ``torch.matmul`` autograd, each within ``BF16_TOL`` and
+    ``GEMM_ROW_TOL``; a planted dropped K-tile of every backward product
+    failing that check; ``gemm_cuda_lean`` bitwise equal to ``gemm_cuda``
+    at equal blocks (the output and both gradients); the two backward
+    GEMMs timed against ``torch.matmul`` and their bound, the transposed
+    copies apart.  ``torch.matmul`` reduces in fp32 here
+    (``allow_bf16_reduced_precision_reduction`` off), as the kernels do."""
+
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import control_tree as CT
+    from repro_torch.core import execution as X
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ops
+
+    cfg = get_config(ARCH)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    big, little = asym.execution_context("big"), asym.execution_context("little")
+    plain_big = X.context_for_tree(dataclasses.replace(big.tree, backend="torch_ref"))
+    plain_little = X.context_for_tree(dataclasses.replace(little.tree, backend="torch_ref_lean"))
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    calls: dict = {}
+    for kn, c in gemm_shapes(cfg):  # q and o share (2048, 2048)
+        calls[kn] = calls.get(kn, 0) + c
+    check(set(calls) == set(TRAIN_SHAPES) and sum(calls.values()) == 7 * cfg.n_layers + 1,
+          f"training shapes {calls}")
+
+    def grads(ctx, a, b, dc, fn=None):
+        a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        with ctx:
+            out = (fn or ops.gemm)(a, b)
+            out.backward(dc)
+        return out.detach(), a.grad, b.grad
+
+    def close(got, ref) -> tuple[bool, float, float]:
+        ok, err = within(torch, got, ref, BF16_TOL)
+        row = row_rel_err(got, ref)
+        return ok and row <= GEMM_ROW_TOL, err, row
+
+    rows, tot = [], {}
+    for k, n in TRAIN_SHAPES:
+        # Unit-scale dC: dA's entries are O(sqrt(N / K)) and dB's
+        # O(sqrt(M)), far above BF16_TOL's absolute part.
+        a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        b = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+        dc = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+        err, row_err = 0.0, 0.0
+        for cls, ctx, plain_ctx, kernel in (("big", big, plain_big, "gemm_cuda"),
+                                            ("little", little, plain_little, "gemm_cuda_lean")):
+            G.reset_launches()
+            got = grads(ctx, a, b, dc)
+            torch.cuda.synchronize()
+            check(G.LAUNCHES[kernel] == 3 and sum(G.LAUNCHES.values()) == 3,
+                  f"the Function under the {cls} class launched {G.LAUNCHES} at {m}x{k}x{n}")
+            plain = grads(plain_ctx, a, b, dc)
+            refs = [("the plain version", plain)]
+            if cls == "big":
+                refs.append(("torch.matmul autograd", grads(big, a, b, dc, torch.matmul)))
+                plain_grads = plain
+            for name, x, *want in zip(("out", "dA", "dB"), got, *(r for _, r in refs)):
+                for (label, _), y in zip(refs, want):
+                    ok, e, r = close(x, y)
+                    check(ok, f"GemmFn {name} {m}x{k}x{n} under {kernel}'s class blocks: max err {e}, "
+                              f"row L2 {r} vs {label} over {BF16_TOL} / {GEMM_ROW_TOL}")
+                    if label == "the plain version":
+                        err, row_err = max(err, e), max(row_err, r)
+            del got, plain, refs
+        # Lean == pipelined bitwise at equal blocks: one hand-built block
+        # (the big class's for the forward shape) for every product.
+        blk = big.block_config(m, k, n, "bfloat16", 2)
+        pair = [grads(X.context_for_tree(CT.ControlTree(device_class=f"hand-{be}", block=blk,
+                                                        backend=be)), a, b, dc)
+                for be in ("cuda", "cuda_lean")]
+        for name, x, y in zip(("out", "dA", "dB"), *pair):
+            check(torch.equal(x, y), f"lean != pipelined bitwise for {name} at {m}x{k}x{n} {blk}")
+        del pair
+        # The two backward products on their kernels at the class's blocks,
+        # against torch.matmul on the same (untransposed) operands; then a
+        # planted fault: the product on its kernel with the middle K-tile of
+        # its reduction zeroed (what a kernel that skipped it would return)
+        # must fail the check above against the plain gradient.
+        bt, at = b.t().contiguous(), a.t().contiguous()
+        row = {"shape": [m, k, n], "calls_per_step": calls[(k, n)], "max_abs_err": err,
+               "max_row_rel_err": row_err}
+        for label, x, y, lx, ly, want in (("dA", dc, bt, dc, b.t(), plain_grads[1]),
+                                          ("dB", at, dc, a.t(), dc, plain_grads[2])):
+            mm, kk, nn = x.shape[0], x.shape[1], y.shape[1]
+            b_ms, by = bound_ms((mm * kk + kk * nn + mm * nn) * 2, 2 * mm * kk * nn)
+            rec = {"shape": [mm, kk, nn], "bound_ms": b_ms, "bound_by": by,
+                   "library_ms": time_ms(torch, torch.matmul, [(lx, ly)], 5, 1)}
+            for name, ctx, fn, plain in (("gemm_cuda", big, G.gemm_cuda, G.gemm_plain),
+                                         ("gemm_cuda_lean", little, G.gemm_cuda_lean,
+                                          G.gemm_lean_plain)):
+                blk = ctx.block_config(mm, kk, nn, "bfloat16", 2)
+                rec[name] = {"block": [blk.bm, blk.bk, blk.bn],
+                             "ms": time_ms(torch, lambda p, q: fn(p, q, blk), [(x, y)], 5, 1),
+                             "plain_ms": time_ms(torch, lambda p, q: plain(p, q, blk), [(x, y)], 1, 1)}
+            blk = big.block_config(mm, kk, nn, "bfloat16", 2)
+            t0 = blk.bk * ((kk // blk.bk) // 2)
+            dropped = x.clone()
+            dropped[:, t0:t0 + blk.bk] = 0
+            ok, e, r = close(G.gemm_cuda(dropped, y, blk), want)
+            check(not ok, f"{label} {mm}x{kk}x{nn} with K-tile [{t0}, {t0 + blk.bk}) dropped passed "
+                          f"the check (max err {e}, row L2 {r})")
+            rec["dropped_k_tile"] = {"k0": t0, "bk": blk.bk, "max_abs_err": e, "max_row_rel_err": r}
+            del dropped
+            row[label] = rec
+        row["transpose_ms"] = {
+            "B": time_ms(torch, lambda t: t.t().contiguous(), [(b,)], 5, 1),
+            "A": time_ms(torch, lambda t: t.t().contiguous(), [(a,)], 5, 1),
+        }
+        rows.append(row)
+        print(f"  GemmFn backward {m}x{k}x{n} (x{calls[(k, n)]} a step): err {err:.3g}, row L2 "
+              f"{row_err:.3g} (both classes); a dropped K-tile shows row L2 "
+              f"{row['dA']['dropped_k_tile']['max_row_rel_err']:.3g} (dA) "
+              f"{row['dB']['dropped_k_tile']['max_row_rel_err']:.3g} (dB); "
+              f"dA {row['dA']['shape']} gemm_cuda {row['dA']['gemm_cuda']['ms']:.4f} ms "
+              f"lean {row['dA']['gemm_cuda_lean']['ms']:.4f} matmul {row['dA']['library_ms']:.4f} "
+              f"bound {row['dA']['bound_ms']:.4f}; dB {row['dB']['shape']} gemm_cuda "
+              f"{row['dB']['gemm_cuda']['ms']:.4f} lean {row['dB']['gemm_cuda_lean']['ms']:.4f} "
+              f"matmul {row['dB']['library_ms']:.4f} bound {row['dB']['bound_ms']:.4f}; "
+              f"transposes B {row['transpose_ms']['B']:.4f} A {row['transpose_ms']['A']:.4f} ms",
+              flush=True)
+        del a, b, dc, bt, at, plain_grads
+    for name in ("gemm_cuda", "gemm_cuda_lean"):
+        tot[name] = sum(r["calls_per_step"] * (r["dA"][name]["ms"] + r["dB"][name]["ms"]) for r in rows)
+        tot[f"{name}_plain"] = sum(r["calls_per_step"] * (r["dA"][name]["plain_ms"]
+                                                          + r["dB"][name]["plain_ms"]) for r in rows)
+    tot["library_ms"] = sum(r["calls_per_step"] * (r["dA"]["library_ms"] + r["dB"]["library_ms"])
+                            for r in rows)
+    tot["bound_ms"] = sum(r["calls_per_step"] * (r["dA"]["bound_ms"] + r["dB"]["bound_ms"]) for r in rows)
+    tot["transpose_ms"] = sum(r["calls_per_step"] * (r["transpose_ms"]["A"] + r["transpose_ms"]["B"])
+                              for r in rows)
+    print(f"  the backward GEMMs of one training step ({2 * sum(calls.values())} products): gemm_cuda "
+          f"{tot['gemm_cuda']:.2f} ms (plain {tot['gemm_cuda_plain']:.2f}), lean "
+          f"{tot['gemm_cuda_lean']:.2f} (plain {tot['gemm_cuda_lean_plain']:.2f}), matmul {tot['library_ms']:.2f}, "
+          f"bound {tot['bound_ms']:.2f}; their transposed copies {tot['transpose_ms']:.2f} ms", flush=True)
+    for name in ("gemm_cuda", "gemm_cuda_lean"):
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], max(r["max_abs_err"] for r in rows))
+        records[name]["train_backward_step"] = {"ms": tot[name], "plain_ms": tot[f"{name}_plain"],
+                                                "library_ms": tot["library_ms"],
+                                                "bound_ms": tot["bound_ms"],
+                                                "transpose_ms": tot["transpose_ms"]}
+    detail["train_backward_gemms"] = {"rows": rows, "totals": tot}
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _families(events) -> dict:
+    """Device ms by family of a list of kernel events."""
+
+    ms: dict = {}
+    for e in events:
+        name = e.name.lower()
+        fam = ("gemm_cuda" if "gemm_kernel<" in name else
+               "attention_einsums" if any(k in name for k in ("gemm", "gemv", "nvjet", "xmma",
+                                                               "cutlass", "cublas")) else
+               "copies" if "copy" in name else "element_wise")
+        ms[fam] = ms.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+    return ms
+
+
+# Traced training steps to try for one whose trace holds an event for
+# every GEMM launched: the profiler has dropped a few kernel events of a
+# step's segments (3 of 169 and 2 of 506, spin kernels around each segment
+# meant to absorb it), and the split by family below reads kernels by
+# their position, which a lost event shifts.
+TRACE_ATTEMPTS = 3
+
+
+def traced_train_step(torch, trainer, batch, counts) -> dict:
+    """One training step in three profiled segments (forward and loss,
+    backward, optimizer), the card synchronised between them: device busy
+    and idle share, and device ms by family.  Kernels run in launch order
+    on one stream, so the cross-entropy is what runs after the forward's
+    last GEMM (the head) and before the backward's first.  The backward
+    segment's GEMMs are the recomputed forward's and the backward
+    products; the recompute is taken as the forward's GEMM time less the
+    head's (the same 168 launches at the same blocks), the rest is the
+    backward's.  That split holds only for a trace with an event for every
+    GEMM launched: up to ``TRACE_ATTEMPTS`` steps are traced for one, and
+    ``"ms"`` is None (the split unavailable) when none is complete."""
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_decode import _union_us
+    from repro_torch.optim import adamw as O
+
+    state = {}
+
+    def forward():
+        state["loss"], _ = trainer.loss_fn(trainer.params, batch)
+
+    def backward():
+        state["grads"] = torch.autograd.grad(state.pop("loss"), O.tree_leaves(trainer.params))
+
+    def optimizer():
+        tree = O.tree_unflatten(trainer.params, state.pop("grads"))
+        trainer.params, trainer.opt_state, _ = O.adamw_update(trainer.params, tree, trainer.opt_state,
+                                                              trainer.opt_cfg)
+
+    def guard():
+        """Spin kernels (filtered out of the trace) on both sides of a
+        segment, so that events the profiler loses as it starts or stops
+        are theirs."""
+
+        for _ in range(8):
+            torch.cuda._sleep(10_000)
+        torch.cuda.synchronize()
+
+    is_gemm = lambda e: "gemm_kernel<" in e.name.lower()  # noqa: E731
+    dur = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3  # noqa: E731
+    n = 7 * trainer.arch.n_layers + 1
+    attempts = []
+    for _ in range(TRACE_ATTEMPTS):
+        seg = {}
+        for label, run in (("forward", forward), ("backward", backward), ("optimizer", optimizer)):
+            torch.cuda.synchronize()
+            c0 = counts()["gemm_cuda"]
+            with trainer.exec_ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                guard()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                guard()
+            dev = sorted((e for e in prof.events() if e.device_type != DeviceType.CPU
+                          and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
+            check(bool(dev), f"the profiler saw no device activity in the {label} segment")
+            gemm_us = [round(e.time_range.elapsed_us(), 1) for e in dev if is_gemm(e)]
+            seg[label] = {"wall_ms": wall, "busy_ms": _union_us((e.time_range.start, e.time_range.end)
+                                                                for e in dev) / 1e3,
+                          "gemm_launches": counts()["gemm_cuda"] - c0,
+                          "gemm_events": len(gemm_us), "events": dev,
+                          "first_last_gemm_us": gemm_us[:4] + gemm_us[-4:]}
+        check(seg["forward"]["gemm_launches"] == n and seg["backward"]["gemm_launches"] == 3 * n - 1,
+              f"traced GEMM launches {seg['forward']['gemm_launches']} / {seg['backward']['gemm_launches']}")
+        attempts.append({k: {"gemm_events": v["gemm_events"], "gemm_launches": v["gemm_launches"]}
+                         for k, v in seg.items()})
+        if all(v["gemm_events"] == v["gemm_launches"] for v in seg.values()):
+            break
+    complete = all(v["gemm_events"] == v["gemm_launches"] for v in seg.values())
+    ms = None
+    if complete:
+        fams = {}
+        for label, sg in seg.items():
+            dev = sg["events"]
+            gemm_idx = [i for i, e in enumerate(dev) if is_gemm(e)]
+            if label == "forward":
+                fams[label] = _families(dev[:gemm_idx[-1] + 1])
+                fams[label]["cross_entropy"] = dur(dev[gemm_idx[-1] + 1:])
+                fams[label]["head_gemm"] = dur([dev[gemm_idx[-1]]])
+            elif label == "backward":
+                fams[label] = _families(dev[gemm_idx[0]:])
+                fams[label]["cross_entropy"] = dur(dev[:gemm_idx[0]])
+            else:
+                fams[label] = {"optimizer": dur(dev)}
+        fwd, bwd = fams["forward"], fams["backward"]
+        remat = fwd["gemm_cuda"] - fwd.pop("head_gemm")
+        ms = {"gemm_cuda_forward": fwd.pop("gemm_cuda"), "gemm_cuda_remat": remat,
+              "gemm_cuda_backward": bwd.pop("gemm_cuda") - remat}
+        for f in fams.values():
+            for k, v in f.items():
+                ms[k] = ms.get(k, 0.0) + v
+    for sg in seg.values():
+        del sg["events"]
+    wall = sum(s["wall_ms"] for s in seg.values())
+    busy = sum(s["busy_ms"] for s in seg.values())
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall, "ms": ms,
+            "complete": complete, "attempts": attempts, "segments": seg}
+
+
+def phase16(torch, counts, reset, transpose_ms: float) -> dict:
+    """Training full-width internlm2-1.8b through ``launch/train.py``'s
+    code path: 6 steps, one injected failure at step 2 restoring the
+    step-0 checkpoint, launch counts, losses, memory, checkpoint I/O, one
+    step under the little class's tree and one traced step.
+    ``transpose_ms`` is phase 1's time of a step's transposed copies (the
+    trace cannot tell them from the casts: both are copy kernels)."""
+
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.launch import train as TL
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw as O
+    from repro_torch.runtime.trainer import SimulatedFailure
+
+    def mem_available_gb() -> float:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return float("nan")
+
+    t_phase = time.perf_counter()
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        args = TL.build_parser().parse_args([
+            "--arch", ARCH, "--steps", str(TRAIN_STEPS), "--global-batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckdir, "--ckpt-every", "100", "--seed", "0"])
+        fails = {TRAIN_FAIL_AT}
+
+        def hook(step):
+            if step in fails:
+                fails.discard(step)
+                raise SimulatedFailure(step)
+
+        t0 = time.perf_counter()
+        trainer = TL.make_trainer(args, failure_hook=hook)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = trainer.arch
+        check(trainer.exec_ctx.backend() == "cuda", f"trainer exec_backend {trainer.exec_ctx.backend()}")
+        n_params = sum(p.numel() for p in O.tree_leaves(trainer.params))
+        batch0, _ = trainer.next_batch(0)
+        check(tuple(batch0["tokens"].shape) == (TRAIN_BATCH, TRAIN_SEQ), f"batch {batch0['tokens'].shape}")
+        with trainer.exec_ctx, torch.inference_mode():
+            eval_loss = float(Z.make_loss_fn(cfg)(trainer.params, batch0)[0])
+
+        # Instrument the loop: each step's launches and wall, the save's and
+        # the restore's seconds.
+        steps, io = [], {"saves": [], "writes": [], "restores": []}
+        orig_step, orig_ckpt, orig_restart = trainer.train_step, trainer._checkpoint, trainer._restart
+        orig_write = trainer.ckpt._write
+
+        def step_fn(batch):
+            c0 = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig_step(batch)
+            torch.cuda.synchronize()
+            c1 = counts()
+            steps.append({"step": trainer.step, "wall_s": time.perf_counter() - t,
+                          "launches": {k: c1[k] - c0[k] for k in c1}})
+            return out
+
+        def ckpt_fn():
+            io["disk_free_gb"] = shutil.disk_usage(ckdir).free / 1e9
+            io["mem_available_gb"] = mem_available_gb()
+            t = time.perf_counter()
+            orig_ckpt()
+            io["saves"].append(time.perf_counter() - t)
+
+        def write_fn(*a):
+            t = time.perf_counter()
+            orig_write(*a)
+            io["writes"].append(time.perf_counter() - t)
+
+        def restart_fn():
+            t = time.perf_counter()
+            trainer.ckpt.wait()
+            t_wait = time.perf_counter() - t
+            t = time.perf_counter()
+            orig_restart()
+            torch.cuda.synchronize()
+            io["restores"].append({"wait_s": t_wait, "restore_s": time.perf_counter() - t})
+
+        trainer.train_step, trainer._checkpoint, trainer._restart = step_fn, ckpt_fn, restart_fn
+        trainer.ckpt._write = write_fn
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        history = trainer.run()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_dir = os.path.join(ckdir, "step_00000000")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        trainer.train_step = orig_step
+
+        n_steps = len(history)
+        per_step = 7 * cfg.n_layers + 1 + 7 * cfg.n_layers + 2 * (7 * cfg.n_layers + 1)
+        losses = [h["loss"] for h in history]
+        walls = [s["wall_s"] for s in steps]
+        step_s = statistics.median(walls[-4:])
+        print(f"phase 16: {cfg.name} ({n_params / 1e9:.3f} B parameters) trained {n_steps} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {run_s:.1f} s with {trainer.restarts} restart; "
+              f"losses {[round(x, 5) for x in losses]}; eval loss of batch 0 {eval_loss:.5f}; "
+              f"step wall {[round(w, 4) for w in walls]} s (median of steps 2-5 {step_s * 1e3:.1f} ms, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s); launches {launches}; peak "
+              f"{peak_gb:.2f} GB; init {init_s:.1f} s", flush=True)
+        print(f"  checkpoint: {ckpt_bytes / 1e9:.2f} GB; save {io['saves']} s on the loop, write "
+              f"{io['writes']} s on its thread; restore {io['restores']}; free disk "
+              f"{io.get('disk_free_gb', float('nan')):.1f} GB, host memory available "
+              f"{io.get('mem_available_gb', float('nan')):.1f} GB", flush=True)
+        check(n_steps == TRAIN_STEPS + TRAIN_FAIL_AT and trainer.restarts == 1 and trainer.step == TRAIN_STEPS,
+              f"steps {n_steps}, restarts {trainer.restarts}, step {trainer.step}")
+        for s in steps:
+            check(s["launches"]["gemm_cuda"] == per_step and s["launches"]["gemm_cuda_lean"] == 0
+                  and s["launches"]["flash_attention_cuda"] == 0 and s["launches"]["paged_attention_cuda"] == 0,
+                  f"step {s['step']} launched {s['launches']}, want {per_step} gemm_cuda only")
+        check(launches["gemm_cuda"] == per_step * n_steps, f"gemm_cuda launches {launches['gemm_cuda']}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
+              f"step-0 loss {losses[0]} not within 0.5 of ln V = {math.log(cfg.vocab):.3f}")
+        check(abs(losses[0] - eval_loss) <= TRAIN_EVAL_LOSS_TOL,
+              f"step-0 training loss {losses[0]} vs eval loss {eval_loss}")
+        # history: steps 0 .. FAIL_AT-1, then the replay from step 0.
+        first, replay = history[:TRAIN_FAIL_AT], history[TRAIN_FAIL_AT:2 * TRAIN_FAIL_AT]
+        check(replay[0]["loss"] == first[0]["loss"], f"replayed step-0 loss {replay[0]['loss']} != "
+              f"{first[0]['loss']}")
+        bitwise = [r["loss"] == f["loss"] for f, r in zip(first, replay)]
+        for f, r in zip(first, replay):
+            check(abs(r["loss"] - f["loss"]) <= TRAIN_REPLAY_RTOL * abs(f["loss"]),
+                  f"replayed loss {r['loss']} vs {f['loss']}")
+        print(f"  replay of steps 0-{TRAIN_FAIL_AT - 1}: bitwise equal {bitwise}; "
+              f"grad_norm {[round(h['grad_norm'], 4) for h in history]}; lr {[h['lr'] for h in history]}",
+              flush=True)
+
+        # One step under the little class's tree: every GEMM of the
+        # forward, the recompute and the backward on the lean kernel.
+        little = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("little")
+        check(little.backend() == "cuda_lean", f"little backend {little.backend()}")
+        big_ctx, trainer.exec_ctx = trainer.exec_ctx, little
+        batch, _ = trainer.next_batch(TRAIN_STEPS)
+        reset()
+        t0 = time.perf_counter()
+        lm = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        little_s = time.perf_counter() - t0
+        lc = counts()
+        trainer.exec_ctx = big_ctx
+        print(f"  one step under the little tree: {little_s * 1e3:.1f} ms, loss {float(lm['loss']):.5f}, "
+              f"launches {lc}", flush=True)
+        check(lc["gemm_cuda_lean"] == per_step and lc["gemm_cuda"] == 0,
+              f"little-tree step launched {lc}, want {per_step} gemm_cuda_lean and no gemm_cuda")
+        check(math.isfinite(float(lm["loss"])), "little-tree loss not finite")
+
+        traced = traced_train_step(torch, trainer, batch, counts)
+        flops = train_gemm_flops(cfg, TRAIN_BATCH * TRAIN_SEQ)
+        gemm_bound = sum(flops.values()) / PEAK_BF16 * 1e3
+        opt_bytes = 7 * 4 * n_params
+        opt_bound = opt_bytes / HBM_BW * 1e3
+        tm = traced["ms"]
+        gemm_ms = sum(v for k, v in tm.items() if k.startswith("gemm_cuda")) if tm else None
+        idle_untraced = 1 - traced["busy_ms"] / (step_s * 1e3)
+        seen = [[a[k]["gemm_events"] for k in a] for a in traced["attempts"]]
+        print(f"  traced step ({len(seen)} tried; GEMM events the profiler saw {seen} of "
+              f"{[s['gemm_launches'] for s in traced['segments'].values()]} launched): wall "
+              f"{traced['wall_ms']:.1f} ms, device busy {traced['busy_ms']:.1f} ms (idle "
+              f"{traced['idle_share']:.3f} traced, {idle_untraced:.3f} of the untraced median step"
+              f"{'' if traced['complete'] else '; the trace lost events, so busy is a lower bound'})",
+              flush=True)
+        if tm:
+            print(f"  device ms by family { {k: round(v, 2) for k, v in sorted(tm.items())} }; of the "
+                  f"copies, the transposes {transpose_ms:.1f} ms (phase 1)", flush=True)
+        else:
+            print(f"  device ms by family: unavailable (no trace of {TRACE_ATTEMPTS} held every GEMM "
+                  f"launched; the split reads kernels by position)", flush=True)
+        gemm_read, opt_read = "unavailable", "unavailable"
+        if tm:
+            gemm_read = f"{gemm_ms:.1f} ms ({gemm_bound / gemm_ms:.3f} of the bound)"
+            opt_read = f"{tm['optimizer']:.1f} ms"
+        print(f"  bounds: GEMMs {sum(flops.values()) / 1e12:.1f} TFLOP (forward {flops['forward'] / 1e12:.1f}, "
+              f"remat {flops['remat'] / 1e12:.1f}, backward {flops['backward'] / 1e12:.1f}) -> "
+              f"{gemm_bound:.1f} ms at 989 TFLOP/s, measured {gemm_read}; AdamW {opt_bytes / 1e9:.1f} GB "
+              f"-> {opt_bound:.1f} ms at 3.35 TB/s, measured {opt_read}", flush=True)
+        out = {
+            "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "losses": losses, "eval_loss_step0": eval_loss, "replay_bitwise": bitwise,
+            "grad_norms": [h["grad_norm"] for h in history], "lrs": [h["lr"] for h in history],
+            "restarts": trainer.restarts, "step_walls_s": walls, "step_ms": step_s * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "run_s": run_s, "init_s": init_s,
+            "peak_gb": peak_gb, "ckpt_bytes": ckpt_bytes, "ckpt_io": io, "launches": launches,
+            "launches_per_step": per_step, "little_step": {"ms": little_s * 1e3, "launches": lc},
+            "traced_step": traced, "idle_share_untraced_step": idle_untraced,
+            "transpose_ms_phase1": transpose_ms, "gemm_flops": flops, "gemm_bound_ms": gemm_bound,
+            "gemm_traced_ms": gemm_ms, "optimizer_bytes": opt_bytes, "optimizer_bound_ms": opt_bound,
+        }
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 16 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2223,6 +2772,11 @@ def main() -> None:
           f"{BF16_TOL}, fp32 tol {FP32_TOL})", flush=True)
     records = phase1(torch, detail)
     records["flash_attention_cuda"] = phase1_flash(torch, detail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 1: the GEMM autograd Function's backward at the training shapes "
+          f"(M = {TRAIN_BATCH} x {TRAIN_SEQ})", flush=True)
+    phase1_backward(torch, detail, records)
 
     def counts():
         return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES}
@@ -2345,6 +2899,13 @@ def main() -> None:
     fwd15 = phase15(torch, counts, reset)
     detail["encdec_embeds"] = fwd15
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16: training {ARCH} at full width through launch/train.py, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, one failure at step {TRAIN_FAIL_AT}", flush=True)
+    train = phase16(torch, counts, reset, records["gemm_cuda"]["train_backward_step"]["transpose_ms"])
+    detail["train"] = train
+
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),
         "gemm_cuda_lean": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:273"),
@@ -2399,6 +2960,9 @@ def main() -> None:
             moe_launches[name][f"{key}_forwards"] = rec["launches"][name]
             if rec["decode_launches"][name]:
                 moe_launches[name][f"{key}_decode"] = rec["decode_launches"][name]
+    moe_launches["gemm_cuda"]["internlm2_train"] = train["launches"]["gemm_cuda"]
+    moe_launches["gemm_cuda_lean"]["internlm2_train_little_step"] = \
+        train["little_step"]["launches"]["gemm_cuda_lean"]
     for row in kernels:
         row["launches_later_paths"] = moe_launches[row["name"]]
         for key, val in records[row["name"]].items():

@@ -20,6 +20,11 @@ returns the port's nested dict of tensors on ``device``, the same tree:
     Mamba2 block's ``ln``, its conv weights and biases (its causal conv
     casts ``w`` to fp32), ``dt_bias``, ``A_log``, ``D`` and ``norm_w``;
     the enc-dec's layer-norm weights and biases and its MLP biases.
+
+``params_from_jax`` is for serving.  ``train_state_from_jax`` carries a
+training state across: the reference's fp32 params stay fp32 masters (the
+same tree), and its AdamW state ``{"m", "v", "step"}`` becomes the port's,
+so both packages start a trainer from the same numbers.
 """
 
 from __future__ import annotations
@@ -64,4 +69,29 @@ def params_from_jax(tree, cfg: ArchConfig, device="cuda"):
     return conv(dict(tree), "")
 
 
-__all__ = ["FP32_LEAVES", "params_from_jax"]
+def _tensors(node, device, requires_grad: bool = False):
+    if isinstance(node, dict):
+        return {k: _tensors(v, device, requires_grad) for k, v in node.items()}
+    t = torch.from_numpy(np.array(node)).to(device)
+    return t.requires_grad_(requires_grad and t.is_floating_point())
+
+
+def train_state_from_jax(params, opt_state, cfg: ArchConfig, device="cuda"):
+    """``(params, opt_state)`` of the port's trainer from the reference's
+    (numpy trees): fp32 master params that require grad, in the
+    reference's tree, and ``{"m", "v"}`` fp32 with ``"step"`` a 0-d int32
+    tensor.  ``opt_state=None`` gives a fresh state (zeros, step 0)."""
+
+    if cfg.family != "dense":
+        raise ValueError(f"training ports the dense family, not {cfg.family!r}")
+    p = _tensors(dict(params), device, requires_grad=True)
+    if opt_state is None:
+        from repro_torch.optim.adamw import init_opt_state
+
+        return p, init_opt_state(p)
+    opt = {"m": _tensors(dict(opt_state["m"]), device), "v": _tensors(dict(opt_state["v"]), device),
+           "step": torch.as_tensor(np.array(opt_state["step"]), dtype=torch.int32, device=device)}
+    return p, opt
+
+
+__all__ = ["FP32_LEAVES", "params_from_jax", "train_state_from_jax"]

@@ -1,0 +1,116 @@
+"""End-to-end training entry point on one card (the port's ``repro.launch.train``).
+
+Every projection and the LM head run through ``ops.gemm`` in both
+directions, on the kernel of the primary class's control tree
+(``gemm_cuda`` on the card); attention through ``chunked_attention``.
+Weights are random fp32 masters from ``--seed``; data is ``SyntheticLM``.
+
+Examples::
+
+    # one H100: full-width internlm2-1.8b, 8 x 512 tokens a step
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --steps 6
+    # the CPU, reduced config, the kernels' plain versions
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --reduced \\
+        --device cpu --steps 3 --seq 64
+
+Flags are the reference's, less ``--mesh`` and ``--class-sharded`` (one
+card; the class-sharded step is not ported, so ``class_sharded`` is
+always false and ``shard_classes`` null), plus ``--device`` and
+``--seed``; ``--seq`` defaults to 512.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+from repro_torch.configs import get_config
+from repro_torch.core import execution
+from repro_torch.core.asymmetric import AsymmetricMesh, DeviceClass, biglittle_classes
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.serving import resolve_device
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--strategy", default="ca-das",
+                    choices=["sss", "sas", "ca-sas", "das", "ca-das", "none"])
+    ap.add_argument("--heterogeneous", action="store_true",
+                    help="simulate a big+little two-pod fleet for the scheduler")
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    return ap
+
+
+def make_trainer(args, **hooks) -> Trainer:
+    """The trainer the CLI runs for parsed ``args``; ``hooks`` are passed
+    on (``failure_hook``, ``pod_time_hook``)."""
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    asym = None
+    if args.strategy != "none":
+        classes = (
+            biglittle_classes(chips_per_pod=1)
+            if args.heterogeneous
+            else [DeviceClass("pod0", chips_per_pod=1), DeviceClass("pod1", chips_per_pod=1)]
+        )
+        asym = AsymmetricMesh(classes, strategy=args.strategy, batch_tile=2)
+    # The asymmetric mesh's primary control tree governs every GEMM of the
+    # step; homogeneous runs get the default single-class context.
+    exec_ctx = asym.execution_context() if asym is not None else execution.default_context()
+    tcfg = TrainerConfig(
+        steps=args.steps,
+        global_batch=args.global_batch,
+        seq_len=args.seq,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        n_micro=args.n_micro,
+    )
+    return Trainer(cfg, tcfg=tcfg, opt_cfg=AdamWConfig(lr=args.lr, total_steps=args.steps),
+                   asym=asym, exec_ctx=exec_ctx, seed=args.seed, device=device, **hooks)
+
+
+def main(argv=None) -> dict:
+    """Train from CLI ``argv``; prints and returns the reference's summary."""
+
+    args = build_parser().parse_args(argv)
+    trainer = make_trainer(args)
+    t0 = time.time()
+    history = trainer.run()
+    ctx, asym = trainer.exec_ctx, trainer.asym
+    out = {
+        "arch": trainer.arch.name,
+        "device_class": ctx.device_class,
+        "exec_backend": ctx.backend(),
+        "class_sharded": False,
+        "shard_classes": None,
+        "steps": len(history),
+        "first_loss": history[0]["loss"],
+        "last_loss": history[-1]["loss"],
+        "restarts": trainer.restarts,
+        "wall_s": round(time.time() - t0, 2),
+        "chunk_sizes": asym.batch_layout(args.global_batch).sizes if asym else None,
+    }
+    print(json.dumps(out, indent=1))
+    return out
+
+
+if __name__ == "__main__":
+    main()

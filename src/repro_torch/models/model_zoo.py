@@ -5,7 +5,8 @@ families (token or embedding inputs) run through
 :mod:`repro_torch.models.encdec`.
 
   * ``init_params(cfg, generator, device)``
-  * ``make_loss_fn(cfg)``        -> (params, batch) -> (loss, metrics), no gradient
+  * ``make_loss_fn(cfg)``        -> (params, batch) -> (loss, metrics): the
+    training loss for params that require grad, else the eval loss
   * ``make_prefill_fn(cfg)``     -> (params, batch) -> logits
     (``with_cache=True``: the bulk prefill from decode,
     (params, batch, state, pos0) -> (last_logits, state))
@@ -27,10 +28,14 @@ from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
+def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda", *,
+                dtype: torch.dtype = torch.bfloat16):
+    """Random params; ``dtype`` stores the projections, ``embed`` and
+    ``lm_head`` (bf16 to serve, fp32 masters to train)."""
+
     if cfg.family == "encdec":
-        return E.init_encdec(generator, cfg, device=device)
-    return T.init_lm(generator, cfg, device=device)
+        return E.init_encdec(generator, cfg, device=device, dtype=dtype)
+    return T.init_lm(generator, cfg, device=device, dtype=dtype)
 
 
 def bulk_prefill_from_decode(decode_fn):
@@ -78,15 +83,37 @@ def make_decode_fn(cfg: ArchConfig):
     return f
 
 
-def make_loss_fn(cfg: ArchConfig):
-    """The eval loss, ``(params, batch) -> (loss, {"ce", "aux"})``, under
-    ``torch.inference_mode()``: no gradient (training is not ported yet)."""
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
 
-    loss = E.loss_fn if cfg.family == "encdec" else T.loss_fn
+
+def make_loss_fn(cfg: ArchConfig, *, remat: bool = True):
+    """``(params, batch) -> (loss, {"ce", "aux"})``.
+
+    When autograd will differentiate it (grad mode on and a leaf of
+    ``params`` requires grad: the trainer's fp32 masters) it is the
+    training loss: attention through ``chunked_attention``, as the
+    reference trains (``flash_attention_cuda`` has no backward), and with
+    ``remat`` each layer body recomputed in the backward.  Otherwise
+    (serving params, ``no_grad``, ``inference_mode``) it is the eval loss,
+    its attention by ``"auto"`` (the flash kernel for tensors on a card).
+    The enc-dec family has the eval loss only: it always runs under
+    ``inference_mode`` (its training is not ported).
+    """
+
+    if cfg.family == "encdec":
+        def f(params, batch):
+            with torch.inference_mode():
+                return E.loss_fn(params, cfg, batch)
+
+        return f
 
     def f(params, batch):
-        with torch.inference_mode():
-            return loss(params, cfg, batch)
+        if torch.is_grad_enabled() and _requires_grad(params):
+            return T.loss_fn(params, cfg, batch, attn_backend="flash_attn_torch", remat=remat)
+        return T.loss_fn(params, cfg, batch)
 
     return f
 

@@ -2,10 +2,14 @@
 families (the port's ``repro.models.transformer``).
 
 Two paths: the full-sequence forward (prefill logits, scoring, the eval
-loss with the MoE router's auxiliary loss; no gradient yet) and the decode
-step.  Layer params are stacked along a leading ``L`` axis, as in the
-reference; where the reference scans over that axis, the port loops over
-it (no remat: nothing is kept for a backward pass).  Decode state is
+loss with the MoE router's auxiliary loss, and the training loss, which
+autograd differentiates through the GEMM funnel) and the decode step.
+Layer params are stacked along a leading ``L`` axis, as in the reference;
+where the reference scans over that axis, the port loops over the layers,
+taken out of the cast stack by one ``torch.unbind`` (whose backward is a
+single ``stack``).  With ``remat=True`` each layer body runs under
+``torch.utils.checkpoint`` and is recomputed in the backward under the
+execution context it first ran under.  Decode state is
 written in place: dense ``(L, B, S_cache, Hkv, Dh)`` KV lanes or paged
 ``(L, n_pages, page_size, Hkv, Dh)`` arenas (a sliding window makes them
 rings of ``min(window, seq_len)`` slots), or for the Mamba2 families the
@@ -20,12 +24,15 @@ place of tokens.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core import execution as X
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -193,29 +200,69 @@ def _cast_params(tree):
     return tree.to(L.COMPUTE_DTYPE) if tree.dtype == torch.float32 else tree
 
 
-def forward_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto"):
+def _unstack(blocks, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf split by one
+    ``torch.unbind`` (indexing a stack per layer would give every layer's
+    backward a zero tensor the size of the whole stack)."""
+
+    if isinstance(blocks, dict):
+        per_key = {k: _unstack(v, n) for k, v in blocks.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(blocks, 0))
+
+
+def _remat(fn):
+    """``fn`` under ``torch.utils.checkpoint``: its activations are dropped
+    and recomputed in the backward, under the execution context active
+    now (the recompute runs on autograd's thread, which does not see this
+    one's ``ContextVar``)."""
+
+    ctx = X.current_context()
+
+    def context_fn():
+        return contextlib.nullcontext(), (ctx if ctx is not None else contextlib.nullcontext())
+
+    def f(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 context_fn=context_fn)
+
+    return f
+
+
+def forward_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto",
+               remat: bool = False):
     """Returns ``(logits (B, S, V) bf16, aux_loss)``; ``batch["tokens"]``
     is (B, S) (``batch["embeds"]`` (B, S, D) with ``cfg.embed_inputs``).
     ``aux_loss`` is the fp32 sum of the layers' MoE router losses (0 for
     the other families).  ``attn_backend`` names the attention route (an
-    ``execution.BACKENDS`` entry of the ``flash_attn`` family)."""
+    ``execution.BACKENDS`` entry of the ``flash_attn`` family).  ``params``
+    may be fp32 masters (cast to bf16 once here) or stored in bf16;
+    ``remat`` recomputes each layer body (and the hybrid's shared block) in
+    the backward, the LM head excepted, as the reference's
+    ``jax.checkpoint`` does."""
 
     x = embed_tokens(params, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     body = _layer_fn(cfg, block_kind(cfg), positions, attn_backend=attn_backend)
-    blocks = _cast_params(params["blocks"])
+    layers = _unstack(_cast_params(params["blocks"]), cfg.n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = cfg.shared_attn_every
     if every:  # Zamba2: groups of `every` Mamba2 layers + the shared block
         shared = _cast_params(params["shared"])
+        shared_fn = lambda xx: _apply_attn_block(shared, xx, cfg, positions,  # noqa: E731
+                                                 attn_backend=attn_backend)[0]
+        if remat:
+            body, shared_fn = _remat(body), _remat(shared_fn)
         for g in range(n_groups(cfg)):
             for i in range(g * every, (g + 1) * every):
-                x, _ = body(x, layer_params(blocks, i))
-            x = _apply_attn_block(shared, x, cfg, positions, attn_backend=attn_backend)[0]
+                x, _ = body(x, layers[i])
+            x = shared_fn(x)
     else:
+        if remat:
+            body = _remat(body)
         for i in range(cfg.n_layers):
-            x, aux_i = body(x, layer_params(blocks, i))
+            x, aux_i = body(x, layers[i])
             aux = aux + aux_i
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
@@ -227,11 +274,13 @@ def cross_entropy(logits, labels, mask=None):
 
     The reference sums ``shifted * one_hot(labels)`` so that the vocab axis
     stays sharded; on one card a gather reads the same element (every other
-    term of that sum is an exact zero) without a (B, S, V) one-hot.
+    term of that sum is an exact zero) without a (B, S, V) one-hot.  The
+    row max is a constant to the gradient, as the reference's
+    ``stop_gradient`` makes it.
     """
 
     lf = logits.float()
-    shifted = lf - lf.amax(dim=-1, keepdim=True)
+    shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
     ll = shifted.gather(-1, labels.long()[..., None])[..., 0] - lse
     if mask is None:
@@ -240,11 +289,11 @@ def cross_entropy(logits, labels, mask=None):
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(params, cfg: ArchConfig, batch):
+def loss_fn(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto", remat: bool = False):
     """``(loss, {"ce", "aux"})`` on ``batch["tokens"]`` (or ``"embeds"``) against
     ``batch["labels"]`` (optionally weighted by ``batch["mask"]``)."""
 
-    logits, aux = forward_lm(params, cfg, batch)
+    logits, aux = forward_lm(params, cfg, batch, attn_backend=attn_backend, remat=remat)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 

@@ -2,8 +2,8 @@
 
 Every kernel test here is marked ``cuda`` and skips without a card (the
 kernels have no CPU mode; ``test_torch_kernels.py`` holds the plain
-versions against the JAX package here); the one unmarked test calibrates
-flash attention's row check on the CPU.  The file imports neither ``jax`` nor the
+versions against the JAX package here); the unmarked tests calibrate
+the row checks (paged and flash attention, the GEMM) on the CPU.  The file imports neither ``jax`` nor the
 JAX package, so it also runs on a machine with only PyTorch and ``nvcc``;
 ``tests/conftest.py`` imports jax, so run it there without the conftest::
 
@@ -18,9 +18,13 @@ attention is held to its plain version at the bf16 tolerance: both round
 must also lie within ``FLASH_ROW_TOL`` of the plain version's in L2,
 relative to the row's own norm: late causal rows average thousands of
 values down to a few hundredths, where the bf16 tolerance's absolute 0.02
-would pass a row that lost a key block.
+would pass a row that lost a key block.  The GEMM autograd Function's
+output and gradients (unit-scale cotangents) are held row by row in L2
+within ``GEMM_ROW_TOL`` too: a product that skipped one K-tile of its
+reduction moves a row by ``sqrt(bk / K)`` of its norm.
 """
 
+import contextlib
 import math
 
 import pytest
@@ -40,6 +44,7 @@ from repro_torch.runtime.paging import SENTINEL
 BF16 = dict(rtol=2e-2, atol=2e-2)
 FP32 = dict(rtol=1e-4, atol=1e-4)
 FLASH_ROW_TOL = 2e-2
+GEMM_ROW_TOL = 1e-2
 
 
 def row_rel_err(got, ref):
@@ -492,3 +497,108 @@ def test_probe_times_each_class_kernel_on_the_card(cuda):
     assert G.LAUNCHES["gemm_cuda"] > 0 and G.LAUNCHES["gemm_cuda_lean"] > 0
     assert probe._operands[0].dtype == probe._operands[1].dtype == torch.bfloat16
     assert len(rows) == 2 and all(r > 0 for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# Training: the GEMM autograd Function's backward, one step on the card
+# ---------------------------------------------------------------------------
+
+
+def _function_grads(ctx, a, b, dc, fn=None):
+    from repro_torch.kernels import ops
+
+    a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    with ctx:
+        out = (fn or ops.gemm)(a, b)
+        out.backward(dc)
+    return out.detach(), a.grad, b.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 256, 384), (1024, 2048, 1024), (200, 136, 328)])
+def test_gemm_function_backward_matches_plain(cuda, shape):
+    """The Function's output, dA and dB through ``gemm_cuda`` and
+    ``gemm_cuda_lean`` against the same Function on their plain versions
+    (bf16 tolerance), and lean == pipelined bitwise at one hand-built
+    block for every product."""
+
+    import dataclasses
+
+    from repro_torch.core import control_tree as CT
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+
+    m, k, n = shape
+    a, b = _operands(cuda, m, k, n, seed=4)
+    dc = _operands(cuda, m, n, 8, seed=5)[0]  # unit scale: dA, dB are O(1) and more
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    for cls, kernel in (("big", "gemm_cuda"), ("little", "gemm_cuda_lean")):
+        ctx = asym.execution_context(cls)
+        plain = X.context_for_tree(dataclasses.replace(ctx.tree, backend=X.plain_twin(ctx.backend())))
+        G.reset_launches()
+        got = _function_grads(ctx, a, b, dc)
+        torch.cuda.synchronize()
+        assert G.LAUNCHES[kernel] == 3 and sum(G.LAUNCHES.values()) == 3
+        want = _function_grads(plain, a, b, dc)
+        for x, y in zip(got, want):
+            assert x.dtype == torch.bfloat16
+            torch.testing.assert_close(x.float(), y.float(), **BF16)
+            assert row_rel_err(x, y) <= GEMM_ROW_TOL
+        # A dA that skipped its reduction's first K-tile fails the row check.
+        blk = ctx.block_config(m, n, k, "bfloat16", 2)
+        dropped = dc.clone()
+        dropped[:, :blk.bk] = 0
+        fn = G.gemm_cuda if kernel == "gemm_cuda" else G.gemm_cuda_lean
+        assert row_rel_err(fn(dropped, b.t().contiguous(), blk), want[1]) > 2 * GEMM_ROW_TOL
+    blk = BlockConfig(bm=64, bk=64, bn=64)
+    pair = [_function_grads(X.context_for_tree(CT.ControlTree(device_class="hand", block=blk,
+                                                              backend=be)), a, b, dc)
+            for be in ("cuda", "cuda_lean")]
+    for x, y in zip(*pair):
+        assert torch.equal(x, y)
+
+
+def test_gemm_row_check_separates_a_dropped_k_tile():
+    """On the CPU, at the head's dA reduction (N = 92,544) with a
+    unit-scale cotangent: the Function's dA through the plain version
+    stays within ``GEMM_ROW_TOL`` of ``torch.matmul`` autograd, while the
+    plain product with one K-tile of 64 dropped lies outside twice it."""
+
+    from repro_torch.core import control_tree as CT
+
+    gen = torch.Generator().manual_seed(6)
+    m, k, n = 64, 128, 92544
+    a = torch.randn((m, k), generator=gen).bfloat16()
+    b = (torch.randn((k, n), generator=gen) / math.sqrt(k)).bfloat16()
+    dc = torch.randn((m, n), generator=gen).bfloat16()
+    blk = BlockConfig(bm=64, bk=64, bn=64)
+    tree = CT.ControlTree(device_class="hand", block=blk, backend=X.plain_twin("cuda"))
+    da = _function_grads(X.context_for_tree(tree), a, b, dc)[1]
+    want = _function_grads(contextlib.nullcontext(), a, b, dc, torch.matmul)[1]
+    assert row_rel_err(da, want) <= GEMM_ROW_TOL / 2
+    dropped = dc.clone()
+    dropped[:, n // 2:n // 2 + blk.bk] = 0
+    assert row_rel_err(G.gemm_plain(dropped, b.t().contiguous(), blk), da) > 2 * GEMM_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_one_training_step_runs_every_gemm_on_the_kernel(cuda, tmp_path):
+    """One step of the reduced internlm2 on the card: (7L+1) forward GEMMs,
+    7L recomputed and 2(7L+1) backward, all ``gemm_cuda``; no flash
+    attention (training attends through ``chunked_attention``)."""
+
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("internlm2-1.8b").reduced()
+    trainer = Trainer(cfg, tcfg=TrainerConfig(steps=1, global_batch=4, seq_len=64,
+                                              ckpt_dir=str(tmp_path)),
+                      exec_ctx=X.default_context(), device=cuda)
+    assert trainer.exec_ctx.backend() == "cuda"
+    batch, _ = trainer.next_batch(0)
+    G.reset_launches()
+    FA.reset_launches()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    n = 7 * cfg.n_layers + 1
+    assert G.LAUNCHES["gemm_cuda"] == n + 7 * cfg.n_layers + 2 * n
+    assert G.LAUNCHES["gemm_cuda_lean"] == 0 and FA.LAUNCHES["flash_attention_cuda"] == 0
+    assert math.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0

@@ -80,6 +80,10 @@ def test_port_covers_the_slice_modules():
         "repro_torch.models.encdec", "repro_torch.configs.mamba2_1p3b",
         "repro_torch.configs.zamba2_2p7b", "repro_torch.configs.whisper_small",
         "repro_torch.configs.pixtral_12b", "repro_torch.launch.score",
+        "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.data",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint",
+        "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.trainer",
+        "repro_torch.launch.train",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):
