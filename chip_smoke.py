@@ -32,13 +32,13 @@ Phases (any failed check exits non-zero and prints no result line):
      with ``torch.profiler`` beside the CUDA events, with the share of its
      bytes bound and its number of splits; last, the GEMM autograd
      Function (``ops.GemmFn``) at the training shapes of phase 16 (M = 8 x
-     512), with a unit-scale dC: its output, dA and dB through
+     512; ``gemm_backward_check``), with a unit-scale dC: its output, dA and dB through
      ``gemm_cuda`` at the big class's blocks and ``gemm_cuda_lean`` at the
      little class's against the same Function on their plain versions,
      and ``gemm_cuda``'s against ``torch.matmul`` autograd, element by
      element and row by row in L2 (``GEMM_ROW_TOL``); each backward
-     product with one K-tile of its reduction planted as dropped must fail
-     that check; ``gemm_cuda_lean`` bitwise equal to ``gemm_cuda`` at equal
+     product on each kernel with one K-tile of its reduction planted as
+     dropped must fail that check; ``gemm_cuda_lean`` bitwise equal to ``gemm_cuda`` at equal
      blocks, the two backward products of each kernel timed beside
      ``torch.matmul`` and their bound, and the transposed copies timed
      apart;
@@ -142,12 +142,40 @@ Phases (any failed check exits non-zero and prints no result line):
      (675 ``gemm_cuda_lean``, no ``gemm_cuda``) and one step traced in
      three segments against the GEMMs' operations bound and AdamW's bytes
      bound (the split by family only from a trace that saw every GEMM
-     launched, up to ``TRACE_ATTEMPTS`` steps tried).
+     launched, up to ``TRACE_ATTEMPTS`` steps tried);
+ 17. training the full-width qwen2-moe-a2.7b at ``MOE_TRAIN_LAYERS`` of its
+     24 layers through ``launch/train.py``'s trainer (its step, so no
+     checkpoint is written): 6 steps of 8 x 512 tokens, each launching 115
+     ``gemm_cuda`` (29 forward, 28 recomputed, 58 backward) and no other
+     kernel; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
+     loss (the flash kernel), the router's aux loss above 0 and finite,
+     grad norms finite; the share of routing decisions the training and
+     eval forwards agree on (printed); one step under the little tree (115
+     ``gemm_cuda_lean``); one traced step split by kernel family (the
+     experts' bf16 cuBLAS ``bmm``, fp32 cuBLAS, indexing, AdamW, ...)
+     against the GEMMs' and the experts' operations bounds and AdamW's
+     bytes bound;
+ 18. the same at full width and depth for mamba2-1.3b (3 ``gemm_cuda`` a
+     step: the head's forward and backward) and zamba2-2.7b (255), 4 steps
+     each, and mamba2's layer 0 block: its output's, input's and
+     parameters' gradients against the same block in float64 (the SSD in
+     its quadratic form) within ``BLOCK_GRAD_ROW_TOL`` of each row's norm
+     at each of ``BLOCK_GRAD_SEEDS``, and each planted fault of
+     ``BLOCK_FAULTS`` in the float64 block outside it;
+ 19. gradient steps of the full-width whisper-small through
+     ``make_loss_fn``, ``value_and_grad`` and ``adamw_update`` over 2 x 448
+     tokens and 1,500 frames: 771 ``gemm_cuda`` a step and no flash
+     attention; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
+     loss, which runs ``flash_attention_cuda``; one traced step against
+     its bounds.
+ Each of phases 17-19 ends with the GEMM autograd Function's check of
+ phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
 Each of phases 2-4, the forward of phase 7, the steps of phase 8, the
 engines and the kernel step of phases 11 and 12, the paths of phases
-13-15 and the training run and little-tree step of phase 16 resets the kernels' launch counters just before it and reads them
-just after; the launches of phases 1, 5, 6, 10 and the comparisons of
+13-15, the training runs and little-tree steps of phases 16-17, the
+training runs of phase 18 and the steps of phase 19 resets the kernels'
+launch counters just before it and reads them just after; the launches of phases 1, 5, 6, 10 and the comparisons of
 phases 7, 8, 11, 12 and 13-15 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
 
@@ -164,6 +192,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -2247,52 +2276,75 @@ TRAIN_REPLAY_RTOL = 1e-3
 TRAIN_SHAPES = ((2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048), (2048, 92544))
 
 
-def train_gemm_flops(cfg, m: int) -> dict:
-    """Operations of one training step's GEMMs: the forward (every
-    projection and the head), the recompute (the layers again, not the
-    head) and the backward (two products per forward GEMM)."""
+def train_gemm_flops(cfg, b: int, s: int) -> dict:
+    """Operations of the GEMMs of one training step over ``b`` x ``s``
+    tokens (``step_gemm_shapes``): the forward (every projection and the
+    head), the recompute (the layers again, not the head) and the backward
+    (two products per forward GEMM)."""
 
-    fwd = sum(2 * m * k * n * c for (k, n), c in gemm_shapes(cfg))
-    head = 2 * m * cfg.d_model * cfg.vocab
+    fwd = sum(2 * m * k * n * c for m, k, n, c in step_gemm_shapes(cfg, b, s))
+    head = 2 * b * s * cfg.d_model * cfg.vocab
     return {"forward": fwd, "remat": fwd - head, "backward": 2 * fwd}
 
 
 def phase1_backward(torch, detail: dict, records: dict) -> None:
-    """The GEMM autograd Function's backward on the card at the trainer's
-    shapes (M = 8 x 512): the output, dA and dB through ``gemm_cuda`` (the
-    big class's blocks) and ``gemm_cuda_lean`` (the little class's) against
-    the same Function on their plain versions, and ``gemm_cuda``'s against
-    ``torch.matmul`` autograd, each within ``BF16_TOL`` and
-    ``GEMM_ROW_TOL``; a planted dropped K-tile of every backward product
-    failing that check; ``gemm_cuda_lean`` bitwise equal to ``gemm_cuda``
-    at equal blocks (the output and both gradients); the two backward
-    GEMMs timed against ``torch.matmul`` and their bound, the transposed
-    copies apart.  ``torch.matmul`` reduces in fp32 here
+    """The GEMM autograd Function's backward at internlm2-1.8b's training
+    shapes (M = 8 x 512), through ``gemm_backward_check``; the kernels'
+    ``max_abs_err`` takes its errors, and ``train_backward_step`` its step
+    totals."""
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    shapes = step_gemm_shapes(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    check({(k, n) for _, k, n, _ in shapes} == set(TRAIN_SHAPES)
+          and sum(c for *_, c in shapes) == 7 * cfg.n_layers + 1, f"training shapes {shapes}")
+    res = gemm_backward_check(torch, ARCH, shapes, seed=2)
+    tot = res["totals"]
+    for name in ("gemm_cuda", "gemm_cuda_lean"):
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], res["max_abs_err"][name])
+        records[name]["train_backward_step"] = {"ms": tot[name], "plain_ms": tot[f"{name}_plain"],
+                                                "library_ms": tot["library_ms"],
+                                                "bound_ms": tot["bound_ms"],
+                                                "transpose_ms": tot["transpose_ms"]}
+    detail["train_backward_gemms"] = res
+
+
+def gemm_backward_check(torch, label: str, shapes: list, seed: int) -> dict:
+    """The GEMM autograd Function's backward on the card at a training
+    step's shapes (``shapes``: (M, K, N, calls) of its forward GEMMs): the
+    output, dA and dB through ``gemm_cuda`` (the big class's blocks) and
+    ``gemm_cuda_lean`` (the little class's) against the same Function on
+    their plain versions, and ``gemm_cuda``'s against ``torch.matmul``
+    autograd, each within ``BF16_TOL`` and ``GEMM_ROW_TOL``; for each
+    backward product on each kernel, a planted dropped K-tile failing that
+    check; ``gemm_cuda_lean`` bitwise equal to ``gemm_cuda`` at equal
+    blocks (the output and both gradients); the two backward products on
+    both kernels timed against their plain versions, ``torch.matmul`` and
+    their bound, the transposed copies apart; totals over a step (each
+    shape times its calls).  ``torch.matmul`` reduces in fp32 here
     (``allow_bf16_reduced_precision_reduction`` off), as the kernels do."""
 
     import dataclasses
 
-    from repro_torch.configs import get_config
     from repro_torch.core import control_tree as CT
     from repro_torch.core import execution as X
     from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import ops
 
-    cfg = get_config(ARCH)
-    m = TRAIN_BATCH * TRAIN_SEQ
     asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
     big, little = asym.execution_context("big"), asym.execution_context("little")
     plain_big = X.context_for_tree(dataclasses.replace(big.tree, backend="torch_ref"))
     plain_little = X.context_for_tree(dataclasses.replace(little.tree, backend="torch_ref_lean"))
+    classes = (("gemm_cuda", big, plain_big, G.gemm_cuda, G.gemm_plain),
+               ("gemm_cuda_lean", little, plain_little, G.gemm_cuda_lean, G.gemm_lean_plain))
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     calls: dict = {}
-    for kn, c in gemm_shapes(cfg):  # q and o share (2048, 2048)
-        calls[kn] = calls.get(kn, 0) + c
-    check(set(calls) == set(TRAIN_SHAPES) and sum(calls.values()) == 7 * cfg.n_layers + 1,
-          f"training shapes {calls}")
+    for m, k, n, c in shapes:  # q and o share a shape
+        calls[(m, k, n)] = calls.get((m, k, n), 0) + c
 
     def grads(ctx, a, b, dc, fn=None):
         a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
@@ -2306,34 +2358,33 @@ def phase1_backward(torch, detail: dict, records: dict) -> None:
         row = row_rel_err(got, ref)
         return ok and row <= GEMM_ROW_TOL, err, row
 
-    rows, tot = [], {}
-    for k, n in TRAIN_SHAPES:
+    rows, tot, max_err = [], {}, {name: 0.0 for name, *_ in classes}
+    for (m, k, n), count in calls.items():
         # Unit-scale dC: dA's entries are O(sqrt(N / K)) and dB's
         # O(sqrt(M)), far above BF16_TOL's absolute part.
         a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         b = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
         dc = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
-        err, row_err = 0.0, 0.0
-        for cls, ctx, plain_ctx, kernel in (("big", big, plain_big, "gemm_cuda"),
-                                            ("little", little, plain_little, "gemm_cuda_lean")):
+        row_err, row_abs, plain_grads = 0.0, {name: 0.0 for name, *_ in classes}, {}
+        for kernel, ctx, plain_ctx, _, _ in classes:
             G.reset_launches()
             got = grads(ctx, a, b, dc)
             torch.cuda.synchronize()
             check(G.LAUNCHES[kernel] == 3 and sum(G.LAUNCHES.values()) == 3,
-                  f"the Function under the {cls} class launched {G.LAUNCHES} at {m}x{k}x{n}")
-            plain = grads(plain_ctx, a, b, dc)
-            refs = [("the plain version", plain)]
-            if cls == "big":
+                  f"the Function under {kernel}'s class launched {G.LAUNCHES} at {m}x{k}x{n}")
+            plain_grads[kernel] = grads(plain_ctx, a, b, dc)
+            refs = [("the plain version", plain_grads[kernel])]
+            if kernel == "gemm_cuda":
                 refs.append(("torch.matmul autograd", grads(big, a, b, dc, torch.matmul)))
-                plain_grads = plain
             for name, x, *want in zip(("out", "dA", "dB"), got, *(r for _, r in refs)):
-                for (label, _), y in zip(refs, want):
+                for (ref_label, _), y in zip(refs, want):
                     ok, e, r = close(x, y)
                     check(ok, f"GemmFn {name} {m}x{k}x{n} under {kernel}'s class blocks: max err {e}, "
-                              f"row L2 {r} vs {label} over {BF16_TOL} / {GEMM_ROW_TOL}")
-                    if label == "the plain version":
-                        err, row_err = max(err, e), max(row_err, r)
-            del got, plain, refs
+                              f"row L2 {r} vs {ref_label} over {BF16_TOL} / {GEMM_ROW_TOL}")
+                    if ref_label == "the plain version":
+                        row_abs[kernel], row_err = max(row_abs[kernel], e), max(row_err, r)
+            max_err[kernel] = max(max_err[kernel], row_abs[kernel])
+            del got, refs
         # Lean == pipelined bitwise at equal blocks: one hand-built block
         # (the big class's for the forward shape) for every product.
         blk = big.block_config(m, k, n, "bfloat16", 2)
@@ -2343,111 +2394,124 @@ def phase1_backward(torch, detail: dict, records: dict) -> None:
         for name, x, y in zip(("out", "dA", "dB"), *pair):
             check(torch.equal(x, y), f"lean != pipelined bitwise for {name} at {m}x{k}x{n} {blk}")
         del pair
-        # The two backward products on their kernels at the class's blocks,
+        # The two backward products on each kernel at its class's blocks,
         # against torch.matmul on the same (untransposed) operands; then a
-        # planted fault: the product on its kernel with the middle K-tile of
+        # planted fault: the product on the kernel with the middle K-tile of
         # its reduction zeroed (what a kernel that skipped it would return)
-        # must fail the check above against the plain gradient.
+        # must fail the check above against the class's plain gradient.
         bt, at = b.t().contiguous(), a.t().contiguous()
-        row = {"shape": [m, k, n], "calls_per_step": calls[(k, n)], "max_abs_err": err,
+        row = {"shape": [m, k, n], "calls_per_step": count, "max_abs_err": row_abs,
                "max_row_rel_err": row_err}
-        for label, x, y, lx, ly, want in (("dA", dc, bt, dc, b.t(), plain_grads[1]),
-                                          ("dB", at, dc, a.t(), dc, plain_grads[2])):
+        for prod, x, y, lx, ly, g in (("dA", dc, bt, dc, b.t(), 1), ("dB", at, dc, a.t(), dc, 2)):
             mm, kk, nn = x.shape[0], x.shape[1], y.shape[1]
             b_ms, by = bound_ms((mm * kk + kk * nn + mm * nn) * 2, 2 * mm * kk * nn)
             rec = {"shape": [mm, kk, nn], "bound_ms": b_ms, "bound_by": by,
                    "library_ms": time_ms(torch, torch.matmul, [(lx, ly)], 5, 1)}
-            for name, ctx, fn, plain in (("gemm_cuda", big, G.gemm_cuda, G.gemm_plain),
-                                         ("gemm_cuda_lean", little, G.gemm_cuda_lean,
-                                          G.gemm_lean_plain)):
+            for name, ctx, _, fn, plain in classes:
                 blk = ctx.block_config(mm, kk, nn, "bfloat16", 2)
+                t0 = blk.bk * ((kk // blk.bk) // 2)
+                dropped = x.clone()
+                dropped[:, t0:t0 + blk.bk] = 0
+                ok, e, r = close(fn(dropped, y, blk), plain_grads[name][g])
+                check(not ok, f"{prod} {mm}x{kk}x{nn} on {name} with K-tile [{t0}, {t0 + blk.bk}) "
+                              f"dropped passed the check (max err {e}, row L2 {r})")
+                del dropped
                 rec[name] = {"block": [blk.bm, blk.bk, blk.bn],
                              "ms": time_ms(torch, lambda p, q: fn(p, q, blk), [(x, y)], 5, 1),
-                             "plain_ms": time_ms(torch, lambda p, q: plain(p, q, blk), [(x, y)], 1, 1)}
-            blk = big.block_config(mm, kk, nn, "bfloat16", 2)
-            t0 = blk.bk * ((kk // blk.bk) // 2)
-            dropped = x.clone()
-            dropped[:, t0:t0 + blk.bk] = 0
-            ok, e, r = close(G.gemm_cuda(dropped, y, blk), want)
-            check(not ok, f"{label} {mm}x{kk}x{nn} with K-tile [{t0}, {t0 + blk.bk}) dropped passed "
-                          f"the check (max err {e}, row L2 {r})")
-            rec["dropped_k_tile"] = {"k0": t0, "bk": blk.bk, "max_abs_err": e, "max_row_rel_err": r}
-            del dropped
-            row[label] = rec
+                             "plain_ms": time_ms(torch, lambda p, q: plain(p, q, blk), [(x, y)], 1, 1),
+                             "dropped_k_tile": {"k0": t0, "bk": blk.bk, "max_abs_err": e,
+                                                "max_row_rel_err": r}}
+            row[prod] = rec
         row["transpose_ms"] = {
             "B": time_ms(torch, lambda t: t.t().contiguous(), [(b,)], 5, 1),
             "A": time_ms(torch, lambda t: t.t().contiguous(), [(a,)], 5, 1),
         }
         rows.append(row)
-        print(f"  GemmFn backward {m}x{k}x{n} (x{calls[(k, n)]} a step): err {err:.3g}, row L2 "
-              f"{row_err:.3g} (both classes); a dropped K-tile shows row L2 "
-              f"{row['dA']['dropped_k_tile']['max_row_rel_err']:.3g} (dA) "
-              f"{row['dB']['dropped_k_tile']['max_row_rel_err']:.3g} (dB); "
-              f"dA {row['dA']['shape']} gemm_cuda {row['dA']['gemm_cuda']['ms']:.4f} ms "
-              f"lean {row['dA']['gemm_cuda_lean']['ms']:.4f} matmul {row['dA']['library_ms']:.4f} "
-              f"bound {row['dA']['bound_ms']:.4f}; dB {row['dB']['shape']} gemm_cuda "
-              f"{row['dB']['gemm_cuda']['ms']:.4f} lean {row['dB']['gemm_cuda_lean']['ms']:.4f} "
-              f"matmul {row['dB']['library_ms']:.4f} bound {row['dB']['bound_ms']:.4f}; "
-              f"transposes B {row['transpose_ms']['B']:.4f} A {row['transpose_ms']['A']:.4f} ms",
-              flush=True)
+        drop = {p: min(row[p][name]["dropped_k_tile"]["max_row_rel_err"] for name, *_ in classes)
+                for p in ("dA", "dB")}
+        print(f"  GemmFn backward {label} {m}x{k}x{n} (x{count} a step): err "
+              f"{max(row_abs.values()):.3g}, row L2 {row_err:.3g} (both classes); a dropped K-tile "
+              f"shows row L2 {drop['dA']:.3g} (dA) {drop['dB']:.3g} (dB); dA {row['dA']['shape']} "
+              f"gemm_cuda {row['dA']['gemm_cuda']['ms']:.4f} ms lean {row['dA']['gemm_cuda_lean']['ms']:.4f} "
+              f"matmul {row['dA']['library_ms']:.4f} bound {row['dA']['bound_ms']:.4f}; dB "
+              f"{row['dB']['shape']} gemm_cuda {row['dB']['gemm_cuda']['ms']:.4f} lean "
+              f"{row['dB']['gemm_cuda_lean']['ms']:.4f} matmul {row['dB']['library_ms']:.4f} bound "
+              f"{row['dB']['bound_ms']:.4f}; transposes B {row['transpose_ms']['B']:.4f} "
+              f"A {row['transpose_ms']['A']:.4f} ms", flush=True)
         del a, b, dc, bt, at, plain_grads
-    for name in ("gemm_cuda", "gemm_cuda_lean"):
-        tot[name] = sum(r["calls_per_step"] * (r["dA"][name]["ms"] + r["dB"][name]["ms"]) for r in rows)
-        tot[f"{name}_plain"] = sum(r["calls_per_step"] * (r["dA"][name]["plain_ms"]
-                                                          + r["dB"][name]["plain_ms"]) for r in rows)
-    tot["library_ms"] = sum(r["calls_per_step"] * (r["dA"]["library_ms"] + r["dB"]["library_ms"])
-                            for r in rows)
-    tot["bound_ms"] = sum(r["calls_per_step"] * (r["dA"]["bound_ms"] + r["dB"]["bound_ms"]) for r in rows)
-    tot["transpose_ms"] = sum(r["calls_per_step"] * (r["transpose_ms"]["A"] + r["transpose_ms"]["B"])
-                              for r in rows)
-    print(f"  the backward GEMMs of one training step ({2 * sum(calls.values())} products): gemm_cuda "
+    step = lambda f: sum(r["calls_per_step"] * f(r) for r in rows)  # noqa: E731
+    for name, *_ in classes:
+        tot[name] = step(lambda r: r["dA"][name]["ms"] + r["dB"][name]["ms"])
+        tot[f"{name}_plain"] = step(lambda r: r["dA"][name]["plain_ms"] + r["dB"][name]["plain_ms"])
+    tot["library_ms"] = step(lambda r: r["dA"]["library_ms"] + r["dB"]["library_ms"])
+    tot["bound_ms"] = step(lambda r: r["dA"]["bound_ms"] + r["dB"]["bound_ms"])
+    tot["transpose_ms"] = step(lambda r: r["transpose_ms"]["A"] + r["transpose_ms"]["B"])
+    tot["launches"] = 2 * sum(calls.values())
+    print(f"  the backward GEMMs of one {label} training step ({tot['launches']} products): gemm_cuda "
           f"{tot['gemm_cuda']:.2f} ms (plain {tot['gemm_cuda_plain']:.2f}), lean "
           f"{tot['gemm_cuda_lean']:.2f} (plain {tot['gemm_cuda_lean_plain']:.2f}), matmul {tot['library_ms']:.2f}, "
           f"bound {tot['bound_ms']:.2f}; their transposed copies {tot['transpose_ms']:.2f} ms", flush=True)
-    for name in ("gemm_cuda", "gemm_cuda_lean"):
-        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], max(r["max_abs_err"] for r in rows))
-        records[name]["train_backward_step"] = {"ms": tot[name], "plain_ms": tot[f"{name}_plain"],
-                                                "library_ms": tot["library_ms"],
-                                                "bound_ms": tot["bound_ms"],
-                                                "transpose_ms": tot["transpose_ms"]}
-    detail["train_backward_gemms"] = {"rows": rows, "totals": tot}
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    return {"rows": rows, "totals": tot, "max_abs_err": max_err}
 
 
-def _families(events) -> dict:
-    """Device ms by family of a list of kernel events."""
+def kernel_family(name: str) -> str:
+    """The family of a kernel by its name: ``gemm_cuda``; cuBLAS in bf16
+    on the tensor cores (the MoE experts' ``bmm``, the Mamba2 projections)
+    or in fp32 (the attention's and the router's einsums: TF32 is off);
+    indexing (gathers, scatters, ``index_put``); copies; the element-wise
+    rest."""
+
+    name = name.lower()
+    if "gemm_kernel<" in name:
+        return "gemm_cuda"
+    if any(k in name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
+        tensor_core = any(k in name for k in ("bf16", "bfloat16", "nvjet", "tensorop", "gmma", "hmma"))
+        return "cublas_bf16" if tensor_core else "cublas_fp32"
+    if any(k in name for k in ("index", "scatter", "gather")):
+        return "index_scatter"
+    return "copies" if "copy" in name else "element_wise"
+
+
+def _families(events, names: dict | None = None) -> dict:
+    """Device ms by family of a list of kernel events; ``names`` collects
+    each family's ms by kernel name."""
 
     ms: dict = {}
     for e in events:
-        name = e.name.lower()
-        fam = ("gemm_cuda" if "gemm_kernel<" in name else
-               "attention_einsums" if any(k in name for k in ("gemm", "gemv", "nvjet", "xmma",
-                                                               "cutlass", "cublas")) else
-               "copies" if "copy" in name else "element_wise")
-        ms[fam] = ms.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+        fam, t = kernel_family(e.name), e.time_range.elapsed_us() / 1e3
+        ms[fam] = ms.get(fam, 0.0) + t
+        if names is not None:
+            by = names.setdefault(fam, {})
+            by[e.name[:120]] = by.get(e.name[:120], 0.0) + t
     return ms
 
 
 # Traced training steps to try for one whose trace holds an event for
 # every GEMM launched: the profiler has dropped a few kernel events of a
 # step's segments (3 of 169 and 2 of 506, spin kernels around each segment
-# meant to absorb it), and the split by family below reads kernels by
-# their position, which a lost event shifts.
+# meant to absorb it; zamba2's backward 1-2 of 191 in each try of two
+# calls, 8 tries), and the split by family below reads kernels by their
+# position, which a lost event shifts.
 TRACE_ATTEMPTS = 3
 
 
-def traced_train_step(torch, trainer, batch, counts) -> dict:
-    """One training step in three profiled segments (forward and loss,
-    backward, optimizer), the card synchronised between them: device busy
-    and idle share, and device ms by family.  Kernels run in launch order
-    on one stream, so the cross-entropy is what runs after the forward's
-    last GEMM (the head) and before the backward's first.  The backward
-    segment's GEMMs are the recomputed forward's and the backward
-    products; the recompute is taken as the forward's GEMM time less the
-    head's (the same 168 launches at the same blocks), the rest is the
-    backward's.  That split holds only for a trace with an event for every
-    GEMM launched: up to ``TRACE_ATTEMPTS`` steps are traced for one, and
-    ``"ms"`` is None (the split unavailable) when none is complete."""
+def traced_train_step(torch, trainer, batch, counts, n: int) -> dict:
+    """One training step of ``trainer`` (its ``loss_fn``, ``params``,
+    ``opt_state``, ``opt_cfg`` and ``exec_ctx``) in three profiled segments
+    (forward and loss, backward, optimizer), the card synchronised between
+    them: device busy and idle share, and device ms by family.  Kernels run
+    in launch order on one stream, so the cross-entropy is what runs after
+    the forward's last GEMM (the head) and before the backward's first.
+    The backward segment's GEMMs are the recomputed forward's and the
+    backward products; the recompute is taken as the forward's GEMM time
+    less the head's (the same ``n`` - 1 launches at the same blocks: ``n``
+    is the forward's), the rest is the backward's.  That split holds only
+    for a trace with an event for every GEMM launched: up to
+    ``TRACE_ATTEMPTS`` steps are traced for one, and ``"ms"`` is None (the
+    split unavailable) when none is complete; ``"ms_by_name"`` (the families
+    by kernel name, the cross-entropy and the GEMMs' roles not split out)
+    is there either way, a lower bound from an incomplete trace."""
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2460,8 +2524,10 @@ def traced_train_step(torch, trainer, batch, counts) -> dict:
     def forward():
         state["loss"], _ = trainer.loss_fn(trainer.params, batch)
 
-    def backward():
-        state["grads"] = torch.autograd.grad(state.pop("loss"), O.tree_leaves(trainer.params))
+    def backward():  # leaves the loss does not reach (the enc-dec's unused xattn K/V) get zeros
+        leaves = O.tree_leaves(trainer.params)
+        grads = torch.autograd.grad(state.pop("loss"), leaves, allow_unused=True)
+        state["grads"] = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
 
     def optimizer():
         tree = O.tree_unflatten(trainer.params, state.pop("grads"))
@@ -2479,7 +2545,6 @@ def traced_train_step(torch, trainer, batch, counts) -> dict:
 
     is_gemm = lambda e: "gemm_kernel<" in e.name.lower()  # noqa: E731
     dur = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3  # noqa: E731
-    n = 7 * trainer.arch.n_layers + 1
     attempts = []
     for _ in range(TRACE_ATTEMPTS):
         seg = {}
@@ -2509,18 +2574,18 @@ def traced_train_step(torch, trainer, batch, counts) -> dict:
         if all(v["gemm_events"] == v["gemm_launches"] for v in seg.values()):
             break
     complete = all(v["gemm_events"] == v["gemm_launches"] for v in seg.values())
-    ms = None
+    ms, names = None, {}
     if complete:
         fams = {}
         for label, sg in seg.items():
             dev = sg["events"]
             gemm_idx = [i for i, e in enumerate(dev) if is_gemm(e)]
             if label == "forward":
-                fams[label] = _families(dev[:gemm_idx[-1] + 1])
+                fams[label] = _families(dev[:gemm_idx[-1] + 1], names)
                 fams[label]["cross_entropy"] = dur(dev[gemm_idx[-1] + 1:])
                 fams[label]["head_gemm"] = dur([dev[gemm_idx[-1]]])
             elif label == "backward":
-                fams[label] = _families(dev[gemm_idx[0]:])
+                fams[label] = _families(dev[gemm_idx[0]:], names)
                 fams[label]["cross_entropy"] = dur(dev[:gemm_idx[0]])
             else:
                 fams[label] = {"optimizer": dur(dev)}
@@ -2531,12 +2596,135 @@ def traced_train_step(torch, trainer, batch, counts) -> dict:
         for f in fams.values():
             for k, v in f.items():
                 ms[k] = ms.get(k, 0.0) + v
+    # The sums by kernel name alone read no position: from a trace that lost
+    # events they are lower bounds, short by the lost kernels only.
+    by_name = _families(seg["forward"]["events"] + seg["backward"]["events"])
+    by_name["optimizer"] = dur(seg["optimizer"]["events"])
     for sg in seg.values():
         del sg["events"]
     wall = sum(s["wall_ms"] for s in seg.values())
     busy = sum(s["busy_ms"] for s in seg.values())
+    top = {fam: dict(sorted(by.items(), key=lambda kv: -kv[1])[:8]) for fam, by in names.items()}
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall, "ms": ms,
-            "complete": complete, "attempts": attempts, "segments": seg}
+            "ms_by_name": by_name, "complete": complete, "attempts": attempts, "segments": seg,
+            "kernels_by_family": top}
+
+
+def timed_step(torch, counts, fn):
+    """``fn()`` timed on the host with the card synchronised on both sides;
+    returns its result and ``{"wall_s", "launches"}`` (the launches it
+    made, by kernel)."""
+
+    c0 = counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    c1 = counts()
+    return out, {"wall_s": wall, "launches": {k: c1[k] - c0[k] for k in c1}}
+
+
+def eval_loss_of(torch, loss_fn, params, batch, ctx, counts, reset) -> tuple[float, dict]:
+    """The eval loss of ``batch`` under ``inference_mode`` (attention on the
+    flash kernel) and the launches it made."""
+
+    reset()
+    with ctx, torch.inference_mode():
+        loss = float(loss_fn(params, batch)[0])
+    return loss, counts()
+
+
+def check_train_steps(cfg, steps: list, per_step: int, eval_loss: float) -> None:
+    """Each of ``steps`` (``launches``, ``loss``, ``grad_norm``, the MoE's
+    ``aux``) launched ``per_step`` ``gemm_cuda`` and no other kernel, with a
+    finite loss and a finite, positive grad norm (and aux); the step-0 loss
+    within ``TRAIN_EVAL_LOSS_TOL`` of the eval loss on the same batch."""
+
+    for i, s in enumerate(steps):
+        lc = s["launches"]
+        check(lc["gemm_cuda"] == per_step and all(v == 0 for k, v in lc.items() if k != "gemm_cuda"),
+              f"{cfg.name} step {i} launched {lc}, want {per_step} gemm_cuda only")
+        check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) and s["grad_norm"] > 0,
+              f"{cfg.name} step {i}: loss {s['loss']}, grad_norm {s['grad_norm']}")
+        if cfg.family == "moe":
+            check(math.isfinite(s["aux"]) and s["aux"] > 0, f"{cfg.name} step {i}: aux {s['aux']}")
+    check(abs(steps[0]["loss"] - eval_loss) <= TRAIN_EVAL_LOSS_TOL,
+          f"{cfg.name} step-0 training loss {steps[0]['loss']} vs eval loss {eval_loss}")
+
+
+def little_tree_step(torch, trainer, batch, counts, per_step: int) -> dict:
+    """One step of ``trainer`` under the little class's tree: every GEMM of
+    the forward, the recompute and the backward on ``gemm_cuda_lean``."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+
+    ctx = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("little")
+    check(ctx.backend() == "cuda_lean", f"little backend {ctx.backend()}")
+    big_ctx, trainer.exec_ctx = trainer.exec_ctx, ctx
+    try:
+        metrics, rec = timed_step(torch, counts, lambda: trainer.train_step(batch))
+    finally:
+        trainer.exec_ctx = big_ctx
+    lc = rec["launches"]
+    print(f"  one step under the little tree: {rec['wall_s'] * 1e3:.1f} ms, loss {float(metrics['loss']):.5f}, "
+          f"launches {lc}", flush=True)
+    check(lc["gemm_cuda_lean"] == per_step and lc["gemm_cuda"] == 0,
+          f"little-tree step launched {lc}, want {per_step} gemm_cuda_lean and no gemm_cuda")
+    check(math.isfinite(float(metrics["loss"])), "little-tree loss not finite")
+    return {"ms": rec["wall_s"] * 1e3, "launches": lc}
+
+
+def traced_bounds(torch, trainer, batch, counts, cfg, b: int, s: int, n_params: int, step_s: float, *,
+                  transpose_ms: float | None = None, expert_flops: float | None = None) -> dict:
+    """One traced step of ``trainer`` (``traced_train_step``) beside its
+    bounds: the GEMMs' operations (``train_gemm_flops`` over ``b`` x ``s``
+    tokens) at the bf16 peak, AdamW's bytes (7 fp32 words a parameter: read
+    the master, its gradient and two moments, write three) at the memory
+    rate, and, given ``expert_flops``, the MoE experts' ``bmm``;
+    ``transpose_ms`` (phase 1's transposed copies of a step) is printed
+    beside the copies.  ``step_s`` is the untraced median step."""
+
+    n = forward_gemm_calls(cfg)
+    traced = traced_train_step(torch, trainer, batch, counts, n)
+    flops = train_gemm_flops(cfg, b, s)
+    gemm_bound = sum(flops.values()) / PEAK_BF16 * 1e3
+    opt_bytes = 7 * 4 * n_params
+    opt_bound = opt_bytes / HBM_BW * 1e3
+    tm = traced["ms"]
+    gemm_ms = sum(v for k, v in tm.items() if k.startswith("gemm_cuda")) if tm else None
+    idle_untraced = 1 - traced["busy_ms"] / (step_s * 1e3)
+    seen = [[a[k]["gemm_events"] for k in a] for a in traced["attempts"]]
+    print(f"  traced step ({len(seen)} tried; GEMM events the profiler saw {seen} of "
+          f"{[g['gemm_launches'] for g in traced['segments'].values()]} launched): wall "
+          f"{traced['wall_ms']:.1f} ms, device busy {traced['busy_ms']:.1f} ms (idle "
+          f"{traced['idle_share']:.3f} traced, {idle_untraced:.3f} of the untraced median step"
+          f"{'' if traced['complete'] else '; the trace lost events, so busy is a lower bound'})", flush=True)
+    if tm:
+        note = "" if transpose_ms is None else f"; of the copies, the transposes {transpose_ms:.1f} ms (phase 1)"
+        print(f"  device ms by family { {k: round(v, 2) for k, v in sorted(tm.items())} }{note}", flush=True)
+    else:
+        print(f"  device ms by family: unavailable (no trace of {TRACE_ATTEMPTS} held every GEMM "
+              f"launched; the split reads kernels by position); by kernel name, lower bounds "
+              f"{ {k: round(v, 2) for k, v in sorted(traced['ms_by_name'].items())} }", flush=True)
+    for fam in ("cublas_bf16", "cublas_fp32", "index_scatter"):
+        top = list(traced["kernels_by_family"].get(fam, {}).items())[:3]
+        if top:
+            print(f"    {fam}: {[(k[:60], round(v, 2)) for k, v in top]}", flush=True)
+    gemm_read = "unavailable" if gemm_ms is None else f"{gemm_ms:.1f} ms ({gemm_bound / gemm_ms:.3f} of the bound)"
+    opt_read = "unavailable" if not tm else f"{tm['optimizer']:.1f} ms"
+    extra = ""
+    if expert_flops is not None:
+        bmm_read = f"{tm['cublas_bf16']:.1f} ms" if tm and "cublas_bf16" in tm else "unavailable"
+        extra = (f"; the experts' bmm {expert_flops / 1e12:.2f} TFLOP -> {expert_flops / PEAK_BF16 * 1e3:.1f} "
+                 f"ms, measured (cuBLAS bf16) {bmm_read}")
+    print(f"  bounds: GEMMs {sum(flops.values()) / 1e12:.2f} TFLOP (forward {flops['forward'] / 1e12:.2f}, "
+          f"remat {flops['remat'] / 1e12:.2f}, backward {flops['backward'] / 1e12:.2f}) -> {gemm_bound:.1f} ms "
+          f"at 989 TFLOP/s, measured {gemm_read}; AdamW {opt_bytes / 1e9:.1f} GB -> {opt_bound:.1f} ms at "
+          f"3.35 TB/s, measured {opt_read}{extra}", flush=True)
+    return {"traced_step": traced, "idle_share_untraced_step": idle_untraced, "gemm_flops": flops,
+            "gemm_bound_ms": gemm_bound, "gemm_traced_ms": gemm_ms, "optimizer_bytes": opt_bytes,
+            "optimizer_bound_ms": opt_bound}
 
 
 def phase16(torch, counts, reset, transpose_ms: float) -> dict:
@@ -2551,7 +2739,6 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
     import statistics
     import tempfile
 
-    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
     from repro_torch.launch import train as TL
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim import adamw as O
@@ -2586,8 +2773,8 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
         n_params = sum(p.numel() for p in O.tree_leaves(trainer.params))
         batch0, _ = trainer.next_batch(0)
         check(tuple(batch0["tokens"].shape) == (TRAIN_BATCH, TRAIN_SEQ), f"batch {batch0['tokens'].shape}")
-        with trainer.exec_ctx, torch.inference_mode():
-            eval_loss = float(Z.make_loss_fn(cfg)(trainer.params, batch0)[0])
+        eval_loss, _ = eval_loss_of(torch, Z.make_loss_fn(cfg), trainer.params, batch0, trainer.exec_ctx,
+                                    counts, reset)
 
         # Instrument the loop: each step's launches and wall, the save's and
         # the restore's seconds.
@@ -2596,14 +2783,8 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
         orig_write = trainer.ckpt._write
 
         def step_fn(batch):
-            c0 = counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = orig_step(batch)
-            torch.cuda.synchronize()
-            c1 = counts()
-            steps.append({"step": trainer.step, "wall_s": time.perf_counter() - t,
-                          "launches": {k: c1[k] - c0[k] for k in c1}})
+            out, rec = timed_step(torch, counts, lambda: orig_step(batch))
+            steps.append({"step": trainer.step, **rec})
             return out
 
         def ckpt_fn():
@@ -2641,7 +2822,7 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
         trainer.train_step = orig_step
 
         n_steps = len(history)
-        per_step = 7 * cfg.n_layers + 1 + 7 * cfg.n_layers + 2 * (7 * cfg.n_layers + 1)
+        per_step = 4 * forward_gemm_calls(cfg) - 1
         losses = [h["loss"] for h in history]
         walls = [s["wall_s"] for s in steps]
         step_s = statistics.median(walls[-4:])
@@ -2657,16 +2838,10 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
               f"{io.get('mem_available_gb', float('nan')):.1f} GB", flush=True)
         check(n_steps == TRAIN_STEPS + TRAIN_FAIL_AT and trainer.restarts == 1 and trainer.step == TRAIN_STEPS,
               f"steps {n_steps}, restarts {trainer.restarts}, step {trainer.step}")
-        for s in steps:
-            check(s["launches"]["gemm_cuda"] == per_step and s["launches"]["gemm_cuda_lean"] == 0
-                  and s["launches"]["flash_attention_cuda"] == 0 and s["launches"]["paged_attention_cuda"] == 0,
-                  f"step {s['step']} launched {s['launches']}, want {per_step} gemm_cuda only")
+        check_train_steps(cfg, [{**s, **h} for s, h in zip(steps, history)], per_step, eval_loss)
         check(launches["gemm_cuda"] == per_step * n_steps, f"gemm_cuda launches {launches['gemm_cuda']}")
-        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
         check(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
               f"step-0 loss {losses[0]} not within 0.5 of ln V = {math.log(cfg.vocab):.3f}")
-        check(abs(losses[0] - eval_loss) <= TRAIN_EVAL_LOSS_TOL,
-              f"step-0 training loss {losses[0]} vs eval loss {eval_loss}")
         # history: steps 0 .. FAIL_AT-1, then the replay from step 0.
         first, replay = history[:TRAIN_FAIL_AT], history[TRAIN_FAIL_AT:2 * TRAIN_FAIL_AT]
         check(replay[0]["loss"] == first[0]["loss"], f"replayed step-0 loss {replay[0]['loss']} != "
@@ -2679,54 +2854,7 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
               f"grad_norm {[round(h['grad_norm'], 4) for h in history]}; lr {[h['lr'] for h in history]}",
               flush=True)
 
-        # One step under the little class's tree: every GEMM of the
-        # forward, the recompute and the backward on the lean kernel.
-        little = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("little")
-        check(little.backend() == "cuda_lean", f"little backend {little.backend()}")
-        big_ctx, trainer.exec_ctx = trainer.exec_ctx, little
         batch, _ = trainer.next_batch(TRAIN_STEPS)
-        reset()
-        t0 = time.perf_counter()
-        lm = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        little_s = time.perf_counter() - t0
-        lc = counts()
-        trainer.exec_ctx = big_ctx
-        print(f"  one step under the little tree: {little_s * 1e3:.1f} ms, loss {float(lm['loss']):.5f}, "
-              f"launches {lc}", flush=True)
-        check(lc["gemm_cuda_lean"] == per_step and lc["gemm_cuda"] == 0,
-              f"little-tree step launched {lc}, want {per_step} gemm_cuda_lean and no gemm_cuda")
-        check(math.isfinite(float(lm["loss"])), "little-tree loss not finite")
-
-        traced = traced_train_step(torch, trainer, batch, counts)
-        flops = train_gemm_flops(cfg, TRAIN_BATCH * TRAIN_SEQ)
-        gemm_bound = sum(flops.values()) / PEAK_BF16 * 1e3
-        opt_bytes = 7 * 4 * n_params
-        opt_bound = opt_bytes / HBM_BW * 1e3
-        tm = traced["ms"]
-        gemm_ms = sum(v for k, v in tm.items() if k.startswith("gemm_cuda")) if tm else None
-        idle_untraced = 1 - traced["busy_ms"] / (step_s * 1e3)
-        seen = [[a[k]["gemm_events"] for k in a] for a in traced["attempts"]]
-        print(f"  traced step ({len(seen)} tried; GEMM events the profiler saw {seen} of "
-              f"{[s['gemm_launches'] for s in traced['segments'].values()]} launched): wall "
-              f"{traced['wall_ms']:.1f} ms, device busy {traced['busy_ms']:.1f} ms (idle "
-              f"{traced['idle_share']:.3f} traced, {idle_untraced:.3f} of the untraced median step"
-              f"{'' if traced['complete'] else '; the trace lost events, so busy is a lower bound'})",
-              flush=True)
-        if tm:
-            print(f"  device ms by family { {k: round(v, 2) for k, v in sorted(tm.items())} }; of the "
-                  f"copies, the transposes {transpose_ms:.1f} ms (phase 1)", flush=True)
-        else:
-            print(f"  device ms by family: unavailable (no trace of {TRACE_ATTEMPTS} held every GEMM "
-                  f"launched; the split reads kernels by position)", flush=True)
-        gemm_read, opt_read = "unavailable", "unavailable"
-        if tm:
-            gemm_read = f"{gemm_ms:.1f} ms ({gemm_bound / gemm_ms:.3f} of the bound)"
-            opt_read = f"{tm['optimizer']:.1f} ms"
-        print(f"  bounds: GEMMs {sum(flops.values()) / 1e12:.1f} TFLOP (forward {flops['forward'] / 1e12:.1f}, "
-              f"remat {flops['remat'] / 1e12:.1f}, backward {flops['backward'] / 1e12:.1f}) -> "
-              f"{gemm_bound:.1f} ms at 989 TFLOP/s, measured {gemm_read}; AdamW {opt_bytes / 1e9:.1f} GB "
-              f"-> {opt_bound:.1f} ms at 3.35 TB/s, measured {opt_read}", flush=True)
         out = {
             "arch": cfg.name, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "losses": losses, "eval_loss_step0": eval_loss, "replay_bitwise": bitwise,
@@ -2734,15 +2862,384 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
             "restarts": trainer.restarts, "step_walls_s": walls, "step_ms": step_s * 1e3,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "run_s": run_s, "init_s": init_s,
             "peak_gb": peak_gb, "ckpt_bytes": ckpt_bytes, "ckpt_io": io, "launches": launches,
-            "launches_per_step": per_step, "little_step": {"ms": little_s * 1e3, "launches": lc},
-            "traced_step": traced, "idle_share_untraced_step": idle_untraced,
-            "transpose_ms_phase1": transpose_ms, "gemm_flops": flops, "gemm_bound_ms": gemm_bound,
-            "gemm_traced_ms": gemm_ms, "optimizer_bytes": opt_bytes, "optimizer_bound_ms": opt_bound,
+            "launches_per_step": per_step, "transpose_ms_phase1": transpose_ms,
+            "little_step": little_tree_step(torch, trainer, batch, counts, per_step),
+            **traced_bounds(torch, trainer, batch, counts, cfg, TRAIN_BATCH, TRAIN_SEQ, n_params, step_s,
+                            transpose_ms=transpose_ms),
         }
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 16 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# Training the other families (phases 17-19), 8 x 512 tokens a step as in
+# phase 16 unless named.  qwen2-moe-a2.7b keeps MOE_TRAIN_LAYERS of its 24
+# layers: fp32 masters, their gradients, AdamW's two moments and the bf16
+# cast take 18 B a parameter, 258 GB for the 14.32 B parameters of 24
+# layers and 52.3 GB for the 2.905 B of 4.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, FAMILY_TRAIN_STEPS = 4, 6, 4
+# whisper-small's gradient steps: phase 15's batch, its published 448-token
+# decoder context over 1,500 frames, 2 rows.
+ENCDEC_TRAIN_BATCH = 2
+# One Mamba2 block's gradients against the float64 block (phase 18): 2 rows
+# of 512 tokens (two of the scan's 256-step chunks, so the gradient of the
+# state carried across a chunk is held), input and cotangent drawn from each
+# of BLOCK_GRAD_SEEDS, each gradient row within BLOCK_GRAD_ROW_TOL of its
+# norm.  The bf16 block rounds a dozen intermediates (the projections, the
+# convs, the scan's output, the gate, the norm) that float64 keeps; every
+# planted fault of BLOCK_FAULTS in the float64 block must put some row
+# outside the limit, at every seed.  The sound block's worst row is the input
+# gradient's (its four paths' contributions partly cancel), the subtlest
+# fault is norm_eps; PERF.md gives both readings on an H100 for these seeds,
+# and the limit lies between them.
+BLOCK_GRAD_ROWS, BLOCK_GRAD_ROW_TOL = 2, 5e-2
+BLOCK_GRAD_SEEDS = tuple(range(1, 13))
+BLOCK_FAULTS = {
+    "chunk_state": "each 256-token chunk run apart: the conv history and the state across the boundary dropped",
+    "no_D": "the D skip dropped",
+    "exclusive_cumsum": "the decay from s to t summed over dt_s .. dt_t-1 (an exclusive cumsum)",
+    "norm_eps": "the gated norm's eps 1e-2 in place of 1e-5",
+}
+
+
+def forward_gemm_calls(cfg) -> int:
+    """``ops.gemm`` calls of one forward (``step_gemm_shapes``).  A
+    training step launches 4n - 1 of them: the forward, its recompute less
+    the head, and two backward products each."""
+
+    return sum(c for *_, c in step_gemm_shapes(cfg, 1, 1))
+
+
+def step_gemm_shapes(cfg, b: int, s: int) -> list:
+    """``(M, K, N, calls)`` of every forward GEMM of a training step over
+    ``b`` x ``s`` tokens: the decoder-only families' (``gemm_shapes``) at M
+    = b x s; the enc-dec's at its frames' rows (6 an encoder layer: q, k,
+    v, o, the MLP's two; the cross K and V of each decoder layer) and at
+    its tokens' (10 a decoder layer less the cross K and V, the tied
+    head)."""
+
+    if cfg.family != "encdec":
+        return [(b * s, k, n, c) for (k, n), c in gemm_shapes(cfg)]
+    d, ff, le, ld = cfg.d_model, cfg.d_ff, cfg.enc_layers, cfg.n_layers
+    me, md = b * cfg.enc_frames, b * s
+    return [(me, d, d, 4 * le + 2 * ld), (me, d, ff, le), (me, ff, d, le),
+            (md, d, d, 6 * ld), (md, d, ff, ld), (md, ff, d, ld), (md, d, cfg.vocab, 1)]
+
+
+def mamba2_block_f64(torch, p, x, cfg, fault: str | None = None):
+    """A Mamba2 block in float64, written apart from ``models/ssm.py``: the
+    projections, the causal depthwise convs and the SSD in its quadratic
+    form (every position against every earlier one, no chunks).  ``p``
+    holds one layer's params, ``x`` is (B, S, D); returns (B, S, D).
+    ``fault`` plants one of ``BLOCK_FAULTS`` (not ``chunk_state``, which
+    ``mamba2_block_grads`` makes by cutting the sequence)."""
+
+    import torch.nn.functional as F
+
+    b, s, _ = x.shape
+    h, hp, n, gn = cfg.n_heads, cfg.headdim, cfg.d_state, cfg.n_groups * cfg.d_state
+
+    def conv(u, w, bias):
+        pad = F.pad(u, (0, 0, cfg.d_conv - 1, 0))
+        return F.silu(sum(pad[:, i:i + s] * w[i] for i in range(cfg.d_conv)) + bias)
+
+    z = x @ p["wz"]
+    xu = conv(x @ p["wx"], p["conv_w_x"], p["conv_b_x"]).reshape(b, s, h, hp)
+    bc = conv(x @ p["wbc"], p["conv_w_bc"], p["conv_b_bc"])
+    rep = h // cfg.n_groups
+    bm = bc[..., :gn].reshape(b, s, cfg.n_groups, n).repeat_interleave(rep, dim=2)
+    cm = bc[..., gn:].reshape(b, s, cfg.n_groups, n).repeat_interleave(rep, dim=2)
+    dt = F.softplus(x @ p["wdt"] + p["dt_bias"])                             # (B, S, H)
+    a = -torch.exp(p["A_log"]) * dt
+    cum = torch.cumsum(a, dim=1) - (a if fault == "exclusive_cumsum" else 0)
+    cum = cum.transpose(1, 2)                                                # (B, H, S)
+    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(causal, cum[:, :, :, None] - cum[:, :, None, :],
+                      torch.full((), -torch.inf, dtype=x.dtype, device=x.device))
+    scores = torch.einsum("bthn,bshn->bhts", cm, bm) * torch.exp(seg) * dt.transpose(1, 2)[:, :, None, :]
+    y = torch.einsum("bhts,bshp->bthp", scores, xu)
+    if fault != "no_D":
+        y = y + p["D"][None, None, :, None] * xu
+    y = y.reshape(b, s, h * hp) * F.silu(z)
+    eps = 1e-2 if fault == "norm_eps" else 1e-5
+    y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + eps) * p["norm_w"]
+    return y @ p["out_proj"]
+
+
+def mamba2_block_grads(torch, masters, cfg, seed: int) -> dict:
+    """One Mamba2 block at full width on the card: its output's, its
+    input's and every parameter's gradient through the model's block
+    (``ssm.apply_mamba2`` on the bf16 cast of the fp32 masters, as training
+    casts them) against the float64 block on the same values and the same
+    unit-scale cotangent, in L2 relative to each row's norm (a vector's one
+    row); then against the float64 block with each planted fault of
+    ``BLOCK_FAULTS``: its worst row over every leaf the faulty block still
+    reaches, and over the parameters' gradients alone."""
+
+    from repro_torch.models import ssm as S
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (BLOCK_GRAD_ROWS, TRAIN_SEQ, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_(True)
+    ct = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    pb = {k: v.detach().to(torch.bfloat16).requires_grad_(True) for k, v in masters.items()}
+    y, _ = S.apply_mamba2(pb, x, cfg)
+    y.backward(ct)
+    got = {"y": y.detach(), "x": x.grad, **{k: v.grad for k, v in pb.items()}}
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    rel = lambda a, b: row_rel_err(a if a.ndim > 1 else a[None], b if b.ndim > 1 else b[None])  # noqa: E731
+
+    def against(fault):
+        pd = {k: v.detach().double().requires_grad_(True) for k, v in pb.items()}
+        xd = x.detach().double().requires_grad_(True)
+        if fault == "chunk_state":
+            yd = torch.cat([mamba2_block_f64(torch, pd, xd[:, i:i + cfg.chunk], cfg)
+                            for i in range(0, shape[1], cfg.chunk)], dim=1)
+        else:
+            yd = mamba2_block_f64(torch, pd, xd, cfg, fault)
+        yd.backward(ct.double())
+        want = {"y": yd.detach(), "x": xd.grad, **{k: v.grad for k, v in pd.items()}}
+        return {k: rel(got[k].double(), want[k]) for k in sorted(got) if want[k] is not None}
+
+    faults = {}
+    for fault in BLOCK_FAULTS:
+        e = against(fault)
+        faults[fault] = {"worst": list(max(e.items(), key=lambda kv: kv[1])), "x": e["x"],
+                         "worst_param": list(max(((k, v) for k, v in e.items() if k not in ("x", "y")),
+                                                 key=lambda kv: kv[1]))}
+    return {"rows": list(shape[:2]), "max_row_rel_err": against(None), "finite": finite, "faults": faults}
+
+
+def check_mamba2_block(torch, masters, cfg) -> dict:
+    """Layer 0's Mamba2 block against float64 (``mamba2_block_grads``) at
+    each of ``BLOCK_GRAD_SEEDS``: every gradient row within
+    ``BLOCK_GRAD_ROW_TOL``, and every planted fault, at every seed, outside
+    it."""
+
+    runs = {seed: mamba2_block_grads(torch, masters, cfg, seed) for seed in BLOCK_GRAD_SEEDS}
+    worst = {seed: max(r["max_row_rel_err"].items(), key=lambda kv: kv[1]) for seed, r in runs.items()}
+    by_leaf = {k: max(r["max_row_rel_err"][k] for r in runs.values()) for k in runs[BLOCK_GRAD_SEEDS[0]]
+               ["max_row_rel_err"]}
+    print(f"  layer 0's Mamba2 block, {BLOCK_GRAD_ROWS} x {TRAIN_SEQ} tokens a seed, against float64 (tol "
+          f"{BLOCK_GRAD_ROW_TOL}): worst row by seed {[(s, k, round(v, 4)) for s, (k, v) in worst.items()]}; "
+          f"by leaf over the seeds { {k: round(v, 4) for k, v in by_leaf.items()} }", flush=True)
+    for seed, r in runs.items():
+        check(r["finite"] and worst[seed][1] <= BLOCK_GRAD_ROW_TOL,
+              f"the Mamba2 block's gradients off float64 by {worst[seed][1]} ({worst[seed][0]}) at seed "
+              f"{seed}, over {BLOCK_GRAD_ROW_TOL}")
+    for fault, what in BLOCK_FAULTS.items():
+        reads = {seed: r["faults"][fault] for seed, r in runs.items()}
+        least = min(reads.items(), key=lambda kv: kv[1]["worst"][1])
+        print(f"  planted fault {fault} ({what}): worst row (leaf, all leaves, parameters alone) by seed "
+              f"{[(s, v['worst'][0], round(v['worst'][1], 4), round(v['worst_param'][1], 4)) for s, v in reads.items()]}",
+              flush=True)
+        check(least[1]["worst"][1] > BLOCK_GRAD_ROW_TOL,
+              f"planted fault {fault} passed the block check at seed {least[0]} ({least[1]['worst']})")
+    return {"seeds": runs, "tol": BLOCK_GRAD_ROW_TOL}
+
+
+def train_family(torch, counts, reset, arch: str, *, steps: int, layers: int | None = None,
+                 little: bool = False, block_check: bool = False) -> dict:
+    """Train ``arch`` at full width (depth cut to ``layers``) through
+    ``launch/train.py``'s trainer: ``steps`` steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens (``check_train_steps``: each 4n - 1 ``gemm_cuda``, n
+    the forward's GEMMs, and no other kernel; the step-0 loss against the
+    eval loss, whose attention runs the flash kernel); step ms (median of
+    the steps after the first two, after the first for 4 steps), tokens/s
+    and peak memory; for the MoE the share of routing decisions the
+    training and eval forwards agree on (printed: random init makes
+    routing fragile); with ``little`` one step under the little class's
+    tree; with ``block_check`` layer 0's Mamba2 block against float64; one
+    traced step against its bounds; the step's GEMM backward against the
+    plain versions (``gemm_backward_check``).  The loop calls the
+    trainer's step: ``run`` would first save a step-0 checkpoint (35 GB
+    for the MoE)."""
+
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TL
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
+    from repro_torch.optim import adamw as O
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    per_step = 4 * forward_gemm_calls(cfg) - 1
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    real_route = M.route
+    try:
+        args = TL.build_parser().parse_args([
+            "--arch", arch, "--steps", str(steps), "--global-batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-dir", ckdir, "--seed", "0"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = TL.make_trainer(args, cfg=cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        check(trainer.exec_ctx.backend() == "cuda", f"trainer exec_backend {trainer.exec_ctx.backend()}")
+        n_params = sum(p.numel() for p in O.tree_leaves(trainer.params))
+        batch0, _ = trainer.next_batch(0)
+
+        # The MoE's routing: layer by layer, the eval forward's and the
+        # training step 0's (its forward, not the recompute).
+        routes = {"eval": [], "train": []}
+        mode = {"now": "eval"}
+
+        def route(p, x, mcfg):
+            out = real_route(p, x, mcfg)
+            if len(routes[mode["now"]]) < cfg.n_layers:
+                routes[mode["now"]].append(out[1].clone())
+            return out
+
+        if cfg.family == "moe":
+            M.route = route
+        eval_loss, eval_launches = eval_loss_of(torch, Z.make_loss_fn(cfg), trainer.params, batch0,
+                                                trainer.exec_ctx, counts, reset)
+        mode["now"] = "train"
+
+        steps_rec = []
+        reset()
+        for step in range(steps):
+            batch, _ = trainer.next_batch(step)
+            metrics, rec = timed_step(torch, counts, lambda: trainer.train_step(batch))
+            steps_rec.append({**rec, **{k: float(v) for k, v in metrics.items()}})
+            trainer.step += 1
+            M.route = real_route
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        losses = [s["loss"] for s in steps_rec]
+        walls = [s["wall_s"] for s in steps_rec]
+        step_s = statistics.median(walls[2:] if steps > 4 else walls[1:])
+        agree = None
+        if cfg.family == "moe":
+            agree = float(torch.stack([(a == b).float().mean() for a, b in
+                                       zip(routes["train"], routes["eval"])]).mean())
+        print(f"  {cfg.name} ({cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters): {steps} steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; losses {[round(x, 5) for x in losses]}; eval loss "
+              f"{eval_loss:.5f} (launches {eval_launches}); grad_norm "
+              f"{[round(s['grad_norm'], 4) for s in steps_rec]}"
+              f"{'; aux ' + str([round(s['aux'], 6) for s in steps_rec]) if cfg.family == 'moe' else ''}; "
+              f"step wall {[round(w, 4) for w in walls]} s (median {step_s * 1e3:.1f} ms, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s); launches {launches} "
+              f"({per_step} gemm_cuda a step); peak {peak_gb:.2f} GB; init {init_s:.1f} s"
+              f"{'' if agree is None else f'; train vs eval routing agrees on {agree:.3f} of decisions'}",
+              flush=True)
+        check_train_steps(cfg, steps_rec, per_step, eval_loss)
+        out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": TRAIN_BATCH,
+               "seq": TRAIN_SEQ, "losses": losses, "eval_loss_step0": eval_loss,
+               "eval_launches": eval_launches, "steps": steps_rec, "step_ms": step_s * 1e3,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_gb": peak_gb, "init_s": init_s,
+               "launches": launches, "launches_per_step": per_step, "routing_agreement": agree}
+        if little:
+            out["little_step"] = little_tree_step(torch, trainer, trainer.next_batch(steps)[0], counts, per_step)
+        if block_check:
+            out["block_grads"] = check_mamba2_block(
+                torch, {k: v[0] for k, v in trainer.params["blocks"]["mamba"].items()}, cfg.ssm)
+
+        expert_flops = None
+        if cfg.family == "moe":
+            # The experts' three products a layer over every capacity slot:
+            # forward, recompute and the backward's two products each.
+            from repro_torch.models.moe import _capacity
+
+            rows = TRAIN_BATCH * _capacity(TRAIN_SEQ, cfg.moe)
+            expert_flops = 4 * cfg.n_layers * 3 * 2 * cfg.moe.n_experts * rows * cfg.d_model * cfg.moe.d_ff_expert
+            out["expert_flops"], out["expert_bound_ms"] = expert_flops, expert_flops / PEAK_BF16 * 1e3
+        out.update(traced_bounds(torch, trainer, trainer.next_batch(steps + 1)[0], counts, cfg, TRAIN_BATCH,
+                                 TRAIN_SEQ, n_params, step_s, expert_flops=expert_flops))
+        del trainer, batch, batch0
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["backward_products"] = gemm_backward_check(torch, cfg.name,
+                                                       step_gemm_shapes(cfg, TRAIN_BATCH, TRAIN_SEQ), seed=4)
+    finally:
+        M.route = real_route
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {cfg.name} took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def phase19(torch, counts, reset) -> dict:
+    """Gradient steps of the full-width whisper-small (random fp32 masters
+    from seed 0) through ``make_loss_fn``, ``value_and_grad`` and
+    ``adamw_update``, over 2 x 448 tokens and 1,500 frames from
+    ``launch/score.make_batch``: 771 ``gemm_cuda`` a step (193 forward, 192
+    recomputed: the encoder always, the decoder under remat; 386 backward)
+    and no flash attention; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL``
+    of the eval loss, which runs ``flash_attention_cuda``; step ms, one
+    traced step against its bounds (the device's idle share), the step's
+    GEMM backward against the plain versions."""
+
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.launch import score as SC
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw as O
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    n = forward_gemm_calls(cfg)
+    per_step = 4 * n - 1
+    params = O.tree_map(lambda p: p.requires_grad_(True),
+                        Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                                      dtype=torch.float32))
+    n_params = sum(p.numel() for p in O.tree_leaves(params))
+    ctx = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    state = types.SimpleNamespace(loss_fn=Z.make_loss_fn(cfg), params=params, opt_state=O.init_opt_state(params),
+                                  opt_cfg=O.AdamWConfig(total_steps=FAMILY_TRAIN_STEPS), exec_ctx=ctx)
+    del params
+    batch, labels = SC.make_batch(cfg, ENCDEC_TRAIN_BATCH, DEC_CTX, 0, "cuda")
+    batch["labels"] = labels
+    eval_loss, eval_launches = eval_loss_of(torch, state.loss_fn, state.params, batch, ctx, counts, reset)
+
+    def step():
+        with ctx:
+            loss, _, grads = O.value_and_grad(state.loss_fn, state.params, batch)
+            state.params, state.opt_state, om = O.adamw_update(state.params, grads, state.opt_state,
+                                                               state.opt_cfg)
+        return {"loss": loss, "grad_norm": om["grad_norm"]}
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = []
+    reset()
+    for _ in range(FAMILY_TRAIN_STEPS):
+        metrics, r = timed_step(torch, counts, step)
+        rec.append({**r, **{k: float(v) for k, v in metrics.items()}})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median([r["wall_s"] for r in rec[1:]])
+    print(f"phase 19: {cfg.name} ({n_params / 1e9:.3f} B parameters) {FAMILY_TRAIN_STEPS} gradient steps of "
+          f"{ENCDEC_TRAIN_BATCH} x {DEC_CTX} tokens over {cfg.enc_frames} frames: losses "
+          f"{[round(r['loss'], 5) for r in rec]}; eval loss {eval_loss:.5f} (launches {eval_launches}); "
+          f"grad_norm {[round(r['grad_norm'], 4) for r in rec]}; step wall "
+          f"{[round(r['wall_s'], 4) for r in rec]} s (median {step_s * 1e3:.1f} ms); launches a step "
+          f"{rec[0]['launches']} ({per_step} gemm_cuda); peak {peak_gb:.2f} GB", flush=True)
+    check(n == 193, f"whisper-small's forward makes {n} GEMMs, want 193")
+    check(eval_launches["flash_attention_cuda"] > 0, f"the eval loss launched {eval_launches}")
+    check_train_steps(cfg, rec, per_step, eval_loss)
+    out = {"arch": cfg.name, "params": n_params, "batch": ENCDEC_TRAIN_BATCH, "dec_tokens": DEC_CTX,
+           "frames": cfg.enc_frames, "eval_loss_step0": eval_loss, "eval_launches": eval_launches,
+           "steps": rec, "step_ms": step_s * 1e3, "peak_gb": peak_gb, "launches_per_step": per_step,
+           "launches": {k: sum(r["launches"][k] for r in rec) for k in rec[0]["launches"]},
+           **traced_bounds(torch, state, batch, counts, cfg, ENCDEC_TRAIN_BATCH, DEC_CTX, n_params, step_s)}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["backward_products"] = gemm_backward_check(torch, cfg.name,
+                                                   step_gemm_shapes(cfg, ENCDEC_TRAIN_BATCH, DEC_CTX), seed=4)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 19 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2906,6 +3403,31 @@ def main() -> None:
     train = phase16(torch, counts, reset, records["gemm_cuda"]["train_backward_step"]["transpose_ms"])
     detail["train"] = train
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 17: training {MOE_ARCH} at full width, {MOE_TRAIN_LAYERS} of 24 layers, through "
+          f"launch/train.py's trainer, {MOE_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens",
+          flush=True)
+    train_moe = train_family(torch, counts, reset, MOE_ARCH, steps=MOE_TRAIN_STEPS,
+                             layers=MOE_TRAIN_LAYERS, little=True)
+    detail["train_moe"] = train_moe
+    train_ssm = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 18: training {arch} at full width and depth through launch/train.py's trainer, "
+              f"{FAMILY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens", flush=True)
+        train_ssm[arch] = train_family(torch, counts, reset, arch, steps=FAMILY_TRAIN_STEPS,
+                                       block_check=arch == SSM_ARCH)
+    detail["train_ssm"] = train_ssm
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_encdec = phase19(torch, counts, reset)
+    detail["train_encdec"] = train_encdec
+    for run in (train_moe, *train_ssm.values(), train_encdec):
+        for name, err in run["backward_products"]["max_abs_err"].items():
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+
     meta = {
         "gemm_cuda": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:182"),
         "gemm_cuda_lean": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:273"),
@@ -2963,6 +3485,13 @@ def main() -> None:
     moe_launches["gemm_cuda"]["internlm2_train"] = train["launches"]["gemm_cuda"]
     moe_launches["gemm_cuda_lean"]["internlm2_train_little_step"] = \
         train["little_step"]["launches"]["gemm_cuda_lean"]
+    # Phases 17-19, each training run's launches read from its own run.
+    moe_launches["gemm_cuda"]["qwen2_moe_train"] = train_moe["launches"]["gemm_cuda"]
+    moe_launches["gemm_cuda_lean"]["qwen2_moe_train_little_step"] = \
+        train_moe["little_step"]["launches"]["gemm_cuda_lean"]
+    for arch, rec in train_ssm.items():
+        moe_launches["gemm_cuda"][f"{arch.split('-')[0]}_train"] = rec["launches"]["gemm_cuda"]
+    moe_launches["gemm_cuda"]["whisper_train"] = train_encdec["launches"]["gemm_cuda"]
     for row in kernels:
         row["launches_later_paths"] = moe_launches[row["name"]]
         for key, val in records[row["name"]].items():

@@ -76,14 +76,15 @@ def _tensors(node, device, requires_grad: bool = False):
     return t.requires_grad_(requires_grad and t.is_floating_point())
 
 
-def train_state_from_jax(params, opt_state, cfg: ArchConfig, device="cuda"):
+def train_state_from_jax(params, opt_state, device="cuda"):
     """``(params, opt_state)`` of the port's trainer from the reference's
     (numpy trees): fp32 master params that require grad, in the
     reference's tree, and ``{"m", "v"}`` fp32 with ``"step"`` a 0-d int32
-    tensor.  ``opt_state=None`` gives a fresh state (zeros, step 0)."""
+    tensor.  ``opt_state=None`` gives a fresh state (zeros, step 0).  Every
+    family's tree carries over as it is (the MoE stacks, the Mamba2 leaves,
+    the hybrid's unstacked ``shared`` block, the enc-dec's two stacks):
+    the masters are fp32 everywhere, so :data:`FP32_LEAVES` plays no part."""
 
-    if cfg.family != "dense":
-        raise ValueError(f"training ports the dense family, not {cfg.family!r}")
     p = _tensors(dict(params), device, requires_grad=True)
     if opt_state is None:
         from repro_torch.optim.adamw import init_opt_state

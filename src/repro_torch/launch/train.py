@@ -4,10 +4,13 @@ Every projection and the LM head run through ``ops.gemm`` in both
 directions, on the kernel of the primary class's control tree
 (``gemm_cuda`` on the card); attention through ``chunked_attention``.
 Weights are random fp32 masters from ``--seed``; data is ``SyntheticLM``.
+``--arch`` takes every token-in family (dense, MoE, Mamba2, hybrid); the
+enc-dec and embedding-input configs need batch keys ``SyntheticLM`` does
+not give, and the trainer refuses them.
 
 Examples::
 
-    # one H100: full-width internlm2-1.8b, 8 x 512 tokens a step
+    # one H100: full-width internlm2-1.8b (or mamba2-1.3b, zamba2-2.7b), 8 x 512 tokens a step
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --steps 6
     # the CPU, reduced config, the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --reduced \\
@@ -56,14 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_trainer(args, **hooks) -> Trainer:
-    """The trainer the CLI runs for parsed ``args``; ``hooks`` are passed
-    on (``failure_hook``, ``pod_time_hook``)."""
+def make_trainer(args, cfg=None, **hooks) -> Trainer:
+    """The trainer the CLI runs for parsed ``args``; ``cfg`` replaces the
+    config of ``--arch`` (a caller's depth cut), ``hooks`` are passed on
+    (``failure_hook``, ``pod_time_hook``)."""
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     asym = None
     if args.strategy != "none":
         classes = (

@@ -6,7 +6,10 @@ precomputed frame embeddings (B, S_enc, d_model).  Pre-LN transformer with
 sinusoidal positions, multi-head attention without RoPE, GELU MLPs; the
 output projection is the decoder's token embedding, transposed (tied, as
 in Whisper).  Layer params are stacked along a leading axis and looped
-over, as in :mod:`repro_torch.models.transformer`.
+over, as in :mod:`repro_torch.models.transformer`: the forward takes the
+layers out of the stacks by one ``unbind`` and may recompute them in the
+backward (training attends through ``chunked_attention``, as the
+reference does: ``flash_attention_cuda`` has no backward).
 
 Decode: a self-attention KV cache of ``seq_len`` per layer, written in
 place, plus cross-attention K/V computed once from the encoder output
@@ -21,7 +24,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import cross_entropy, layer_params
+from repro_torch.models.transformer import _remat, _unstack, cross_entropy, layer_params
 
 
 def _acfg(cfg: ArchConfig, causal: bool) -> L.AttnConfig:
@@ -67,19 +70,45 @@ def init_encdec(generator, cfg: ArchConfig, *, device, dtype=L.COMPUTE_DTYPE) ->
     }
 
 
-def encode(params, cfg: ArchConfig, frames, *, attn_backend: str = "auto"):
-    """frames: (B, S_enc, D) stub embeddings -> encoder states (bf16)."""
-
-    s = frames.shape[1]
+def _enc_layer(cfg: ArchConfig, attn_backend: str):
     acfg = _acfg(cfg, causal=False)
-    pe = L.sinusoidal_positions(s, cfg.d_model, device=frames.device).to(L.COMPUTE_DTYPE)
-    x = frames.to(L.COMPUTE_DTYPE) + pe
-    for i in range(cfg.enc_layers):
-        p = layer_params(params["enc_blocks"], i)
+
+    def f(x, p):
         h, _ = L.apply_attention(p["attn"], L.layer_norm(x, p["ln1_w"], p["ln1_b"]), acfg,
                                  backend=attn_backend)
         x = x + h
-        x = x + L.apply_mlp(p["mlp"], L.layer_norm(x, p["ln2_w"], p["ln2_b"]))
+        return x + L.apply_mlp(p["mlp"], L.layer_norm(x, p["ln2_w"], p["ln2_b"]))
+
+    return f
+
+
+def _dec_layer(cfg: ArchConfig, enc_out, attn_backend: str):
+    acfg, xcfg = _acfg(cfg, causal=True), _acfg(cfg, causal=False)
+
+    def f(x, p):
+        h, _ = L.apply_attention(p["attn"], L.layer_norm(x, p["ln1_w"], p["ln1_b"]), acfg,
+                                 backend=attn_backend)
+        x = x + h
+        ek, ev = L.encode_cross_kv(p["xkv"], enc_out, xcfg)
+        x = x + L.cross_attention(p["xattn"], L.layer_norm(x, p["lnx_w"], p["lnx_b"]), ek, ev,
+                                  xcfg, backend=attn_backend)
+        return x + L.apply_mlp(p["mlp"], L.layer_norm(x, p["ln2_w"], p["ln2_b"]))
+
+    return f
+
+
+def encode(params, cfg: ArchConfig, frames, *, attn_backend: str = "auto", remat: bool = False):
+    """frames: (B, S_enc, D) stub embeddings -> encoder states (bf16).
+    ``remat`` recomputes each layer in the backward."""
+
+    s = frames.shape[1]
+    pe = L.sinusoidal_positions(s, cfg.d_model, device=frames.device).to(L.COMPUTE_DTYPE)
+    x = frames.to(L.COMPUTE_DTYPE) + pe
+    body = _enc_layer(cfg, attn_backend)
+    if remat:
+        body = _remat(body)
+    for p in _unstack(params["enc_blocks"], cfg.enc_layers):
+        x = body(x, p)
     return L.layer_norm(x, params["enc_ln_w"], params["enc_ln_b"])
 
 
@@ -89,25 +118,24 @@ def _head(params, x):
     return ops.gemm(x, params["embed"].T.to(L.COMPUTE_DTYPE))
 
 
-def forward_encdec(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto"):
+def forward_encdec(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto",
+                   remat: bool = False):
     """batch: ``{"frames": (B, Se, D), "tokens": (B, Sd)}`` -> ``(logits
-    (B, Sd, V) bf16, aux 0)``."""
+    (B, Sd, V) bf16, aux 0)``.  ``params`` may be fp32 masters, cast at
+    each use as the reference casts them.  The encoder's layers are always
+    under ``checkpoint``, as the reference's are (where autograd records
+    nothing it only calls them); ``remat`` recomputes the decoder's."""
 
-    enc_out = encode(params, cfg, batch["frames"], attn_backend=attn_backend)
+    enc_out = encode(params, cfg, batch["frames"], attn_backend=attn_backend, remat=True)
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    acfg, xcfg = _acfg(cfg, causal=True), _acfg(cfg, causal=False)
     x = params["embed"][tokens.long()].to(L.COMPUTE_DTYPE)
     x = x + L.sinusoidal_positions(s, cfg.d_model, device=x.device).to(L.COMPUTE_DTYPE)
-    for i in range(cfg.n_layers):
-        p = layer_params(params["dec_blocks"], i)
-        h, _ = L.apply_attention(p["attn"], L.layer_norm(x, p["ln1_w"], p["ln1_b"]), acfg,
-                                 backend=attn_backend)
-        x = x + h
-        ek, ev = L.encode_cross_kv(p["xkv"], enc_out, xcfg)
-        x = x + L.cross_attention(p["xattn"], L.layer_norm(x, p["lnx_w"], p["lnx_b"]), ek, ev,
-                                  xcfg, backend=attn_backend)
-        x = x + L.apply_mlp(p["mlp"], L.layer_norm(x, p["ln2_w"], p["ln2_b"]))
+    body = _dec_layer(cfg, enc_out, attn_backend)
+    if remat:
+        body = _remat(body)
+    for p in _unstack(params["dec_blocks"], cfg.n_layers):
+        x = body(x, p)
     x = L.layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
     return _head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -161,11 +189,11 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
     return _head(params, x), state
 
 
-def loss_fn(params, cfg: ArchConfig, batch):
+def loss_fn(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto", remat: bool = False):
     """``(loss, {"ce", "aux"})`` of the forward's logits against
     ``batch["labels"]`` (optionally weighted by ``batch["mask"]``)."""
 
-    logits, aux = forward_encdec(params, cfg, batch)
+    logits, aux = forward_encdec(params, cfg, batch, attn_backend=attn_backend, remat=remat)
     ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 

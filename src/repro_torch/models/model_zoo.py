@@ -99,21 +99,15 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True):
     ``remat`` each layer body recomputed in the backward.  Otherwise
     (serving params, ``no_grad``, ``inference_mode``) it is the eval loss,
     its attention by ``"auto"`` (the flash kernel for tensors on a card).
-    The enc-dec family has the eval loss only: it always runs under
-    ``inference_mode`` (its training is not ported).
+    The enc-dec's cross-attention takes the route of its self-attention.
     """
 
-    if cfg.family == "encdec":
-        def f(params, batch):
-            with torch.inference_mode():
-                return E.loss_fn(params, cfg, batch)
-
-        return f
+    loss = E.loss_fn if cfg.family == "encdec" else T.loss_fn
 
     def f(params, batch):
         if torch.is_grad_enabled() and _requires_grad(params):
-            return T.loss_fn(params, cfg, batch, attn_backend="flash_attn_torch", remat=remat)
-        return T.loss_fn(params, cfg, batch)
+            return loss(params, cfg, batch, attn_backend="flash_attn_torch", remat=remat)
+        return loss(params, cfg, batch)
 
     return f
 

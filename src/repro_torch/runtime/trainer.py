@@ -5,8 +5,10 @@ Composes:
 
   * the model zoo's training loss (``make_loss_fn``: attention through
     ``chunked_attention``, each layer recomputed in the backward), whose
-    every projection and LM head goes through ``ops.gemm`` in both
-    directions (``kernels/ops.GemmFn``),
+    every projection, shared-expert GLU and LM head goes through
+    ``ops.gemm`` in both directions (``kernels/ops.GemmFn``); the MoE
+    experts and the Mamba2 projections are plain products, as in the
+    reference,
   * class-routed execution: the whole step runs under one
     :class:`~repro_torch.core.execution.ExecutionContext`, the asymmetric
     mesh's primary class by default, so its control tree picks each
@@ -22,7 +24,11 @@ Left out on one card: the class-sharded step (per-class programs in one
 step, ROADMAP Queue 1's class-sharded mixed step: ``class_sharded=True``
 raises) and
 ``reshard``; ``fsdp`` is accepted and has no effect (nothing is sharded).
-Training ports the dense family; the others raise.
+It trains the families whose batches ``SyntheticLM`` gives (tokens and
+labels): dense, MoE (the router's auxiliary loss in the gradient), Mamba2
+and hybrid.  The enc-dec family (``frames``) and embedding inputs
+(``embeds``) raise at construction, where the reference's trainer fails
+at its first step.
 """
 
 from __future__ import annotations
@@ -96,9 +102,11 @@ class Trainer:
         params: Optional[dict] = None,
         opt_state: Optional[dict] = None,
     ):
-        if arch.family != "dense":
-            raise ValueError(f"training ports the dense family, not {arch.family!r} "
-                             "(ROADMAP Queue 1)")
+        missing = "frames" if arch.family == "encdec" else "embeds" if arch.embed_inputs else None
+        if missing:
+            raise ValueError(f"{arch.name}: its batches need {missing!r}, which the trainer's "
+                             "SyntheticLM data does not give (the reference's trainer fails "
+                             f"with KeyError: {missing!r} at its first step)")
         if tcfg.class_sharded:
             raise ValueError("class_sharded=True: the class-sharded mixed step is not "
                              "ported (ROADMAP Queue 1)")

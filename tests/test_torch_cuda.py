@@ -602,3 +602,124 @@ def test_one_training_step_runs_every_gemm_on_the_kernel(cuda, tmp_path):
     assert G.LAUNCHES["gemm_cuda"] == n + 7 * cfg.n_layers + 2 * n
     assert G.LAUNCHES["gemm_cuda_lean"] == 0 and FA.LAUNCHES["flash_attention_cuda"] == 0
     assert math.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+def _train_state(cfg, device):
+    """Random fp32 masters from seed 0 (drawn on the CPU) and a batch."""
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw as O
+
+    params = Z.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
+    params = O.tree_map(lambda p: p.to(device).requires_grad_(True), params)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(cfg.vocab, seed=0).batch(0, 4, 64).items()}
+    return params, batch
+
+
+@pytest.mark.cuda
+def test_moe_training_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The reduced qwen2-moe's loss, aux loss and every gradient leaf on the
+    card (``gemm_cuda``, the experts' ``bmm`` on cuBLAS) against the CPU
+    (the plain versions) from the same masters and batch, under the CPU's
+    routing forced on the card (a last-bit difference may flip a top-k
+    choice): loss within 2e-3, aux within 1e-4 relative, each leaf within
+    0.03 relative L2, as the CPU tests hold the port to the reference.
+    Without remat, so ``route`` runs once a layer in order on both sides.
+    Then one AdamW step each: ``grad_norm`` within 3%."""
+
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
+    from repro_torch.optim import adamw as O
+
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    real_route, ids, calls = M.route, [], []
+
+    def capture(p, x, mcfg):
+        out = real_route(p, x, mcfg)
+        ids.append(out[1])
+        return out
+
+    def forced(p, x, mcfg):
+        _, _, probs = real_route(p, x, mcfg)
+        idx = ids[len(calls) % len(ids)].to(x.device)
+        calls.append(1)
+        gate_w = probs.gather(-1, idx)
+        return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), idx, probs
+
+    loss_fn = Z.make_loss_fn(cfg, remat=False)
+    res = {}
+    for device, route in (("cpu", capture), ("cuda", forced)):
+        monkeypatch.setattr(M, "route", route)
+        params, batch = _train_state(cfg, device)
+        with X.default_context():
+            loss, metrics, grads = O.value_and_grad(loss_fn, params, batch)
+            _, _, om = O.adamw_update(params, grads, O.init_opt_state(params), O.AdamWConfig())
+        res[device] = (float(loss), float(metrics["aux"]), O.tree_map(lambda g: g.cpu(), grads),
+                       float(om["grad_norm"]))
+    assert len(calls) == cfg.n_layers
+    (loss, aux, grads, gn), (closs, caux, cgrads, cgn) = res["cuda"], res["cpu"]
+    assert abs(loss - closs) <= 2e-3 and aux == pytest.approx(caux, rel=1e-4) and aux > 0
+    for g, cg in zip(O.tree_leaves(grads), O.tree_leaves(cgrads)):
+        assert float((g - cg).norm() / cg.norm().clamp_min(1e-12)) <= 0.03
+    assert gn == pytest.approx(cgn, rel=3e-2)
+
+
+@pytest.mark.cuda
+def test_mamba2_block_backward_on_the_card_matches_the_cpu(cuda):
+    """A reduced Mamba2 block's output, input gradient and parameter
+    gradients on the card against the CPU, in L2 relative to each row's
+    norm within ``GEMM_ROW_TOL`` x 2 (both bf16; cuBLAS and the CPU sum the
+    projections in other orders)."""
+
+    from repro_torch.models import ssm as S
+
+    cfg = get_config("mamba2-1.3b").reduced().ssm
+    gen = torch.Generator().manual_seed(3)
+    masters = {k: v[0] for k, v in S.init_mamba2(gen, cfg, 1, device="cpu", dtype=torch.float32).items()}
+    x = torch.randn((2, 64, cfg.d_model), generator=gen).bfloat16()
+    ct = torch.randn((2, 64, cfg.d_model), generator=gen).bfloat16()
+    res = {}
+    for device in ("cpu", "cuda"):
+        p = {k: v.to(device).bfloat16().requires_grad_(True) for k, v in masters.items()}
+        xx = x.to(device).detach().requires_grad_(True)
+        y, state = S.apply_mamba2(p, xx, cfg)
+        y.backward(ct.to(device))
+        res[device] = [y.detach(), state, xx.grad] + [p[k].grad for k in sorted(p)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        got, want = got.cpu(), want
+        assert bool(torch.isfinite(got.float()).all())
+        assert row_rel_err(got if got.ndim > 1 else got[None], want if want.ndim > 1 else want[None]) \
+            <= 2 * GEMM_ROW_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_step", [
+    ("qwen2-moe-a2.7b", 115),  # 4 x (q, k, v, o, the shared GLU's 3) + the head = 29
+    ("mamba2-1.3b", 3),        # the head
+    ("zamba2-2.7b", 59),       # 2 groups' shared block (7) + the head = 15
+    ("whisper-small", 211),    # 2 encoder layers x 6 + 4 decoder layers x 10 + the head = 53
+])
+def test_training_step_launch_formula(cuda, arch, per_step):
+    """A training step at reduced depth launches 4n - 1 ``gemm_cuda`` (n
+    the forward's GEMMs: the forward, its recompute less the head, two
+    backward products each; the enc-dec's encoder is always recomputed,
+    its decoder under remat) and no flash attention, the formulas
+    ``chip_smoke.py`` phases 17-19 hold at full width."""
+
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw as O
+
+    cfg = get_config(arch).reduced()
+    params, batch = _train_state(cfg, "cuda")
+    if cfg.family == "encdec":
+        gen = torch.Generator().manual_seed(1)
+        batch["frames"] = torch.randn((4, cfg.enc_frames, cfg.d_model), generator=gen).bfloat16().cuda()
+    G.reset_launches()
+    FA.reset_launches()
+    with X.default_context():
+        loss, _, grads = O.value_and_grad(Z.make_loss_fn(cfg), params, batch)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gemm_cuda"] == per_step and G.LAUNCHES["gemm_cuda_lean"] == 0
+    assert FA.LAUNCHES["flash_attention_cuda"] == 0
+    assert math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in O.tree_leaves(grads))

@@ -235,3 +235,60 @@ def test_checkpoints_cross_between_packages(tmp_path):
     for key in ("j", "p"):
         names = sorted(p.name for p in (tmp_path / key / f"step_0000000{5 if key == 'j' else 6}").iterdir())
         assert names == ["COMMITTED", "manifest.json", "shard_p0000.npz"]
+
+
+# ---------------------------------------------------------------------------
+# Train states of every family
+# ---------------------------------------------------------------------------
+
+
+def _reference_train_state(arch):
+    """The reference's reduced fp32 params and an AdamW state one update in
+    (``m`` and ``v`` non-zero), as numpy trees."""
+
+    from repro.configs import get_config as jax_config
+    from repro.models import model_zoo as JZ
+
+    jcfg = jax_config(arch).reduced()
+    params = JZ.init_params(jax.random.PRNGKey(0), jcfg)
+    grads = jax.tree.map(lambda p: jnp.full_like(p, 0.25), params)
+    params, opt, _ = JO.adamw_update(params, grads, JO.init_opt_state(params), JO.AdamWConfig())
+    return jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, opt)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b", "zamba2-2.7b", "whisper-small"])
+def test_train_state_from_jax_carries_every_family(arch):
+    """The MoE stacks, the Mamba2 leaves, the hybrid's unstacked shared
+    block and the enc-dec's two stacks become fp32 masters that require
+    grad, bitwise equal, with ``m``, ``v`` and ``step``."""
+
+    from repro_torch.convert import train_state_from_jax
+
+    params, opt = _reference_train_state(arch)
+    got, got_opt = train_state_from_jax(params, opt, device="cpu")
+    _assert_close(_np_tree(got), params, rtol=0, atol=0)
+    _assert_close(_np_tree(got_opt), opt, rtol=0, atol=0)
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in O.tree_leaves(got))
+    assert not any(t.requires_grad for t in O.tree_leaves({"m": got_opt["m"], "v": got_opt["v"]}))
+    assert got_opt["step"].dtype == torch.int32 and int(got_opt["step"]) == 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-1.3b"])
+def test_family_train_states_cross_between_packages(arch, tmp_path):
+    """A reduced train state saved by either package's checkpointer, in the
+    trainers' ``{"params", "opt"}`` layout, restores in the other bitwise."""
+
+    from repro_torch.convert import train_state_from_jax
+
+    params, opt = _reference_train_state(arch)
+    tree = {"params": params, "opt": opt}
+    port = dict(zip(("params", "opt"), train_state_from_jax(params, opt, device="cpu")))
+    JCheckpointer(str(tmp_path / "j"), async_save=False).save(3, jax.tree.map(jnp.asarray, tree))
+    got, manifest = Checkpointer(str(tmp_path / "j")).restore(port, device="cpu")
+    assert manifest["step"] == 3
+    _assert_close(_np_tree(got), tree, rtol=0, atol=0)
+
+    Checkpointer(str(tmp_path / "p"), async_save=False).save(4, port)
+    jgot, jmanifest = JCheckpointer(str(tmp_path / "p")).restore(jax.tree.map(jnp.asarray, tree))
+    assert jmanifest["step"] == 4
+    _assert_close(jax.tree.map(np.asarray, jgot), tree, rtol=0, atol=0)
