@@ -168,15 +168,44 @@ Phases (any failed check exits non-zero and prints no result line):
      attention; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
      loss, which runs ``flash_attention_cuda``; one traced step against
      its bounds.
- Each of phases 17-19 ends with the GEMM autograd Function's check of
- phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
+ 20. mixed serving (the class-sharded step) of the full-width internlm2-1.8b,
+     phase 2's weights and requests, through ``launch/serve.py
+     --class-sharded on``: the big pod's rows on ``gemm_cuda``, the little
+     pod's on ``gemm_cuda_lean``, each pod on its own CUDA stream.  The
+     dense engine, the paged engine and the one-shot path: 169
+     ``gemm_cuda`` and 169 ``gemm_cuda_lean`` a recurrence step (paged:
+     also 24 ``paged_attention_cuda`` a pod), a planted fault (the same
+     step with both pods under the big tree) failing that count; the
+     engine's tokens equal the one-shot path's; the paged engine's
+     first-step logits within ``LOGIT_TOL`` of the dense engine's; a
+     teacher-forced replay of the tokens, each pod's rows within
+     ``LOGIT_TOL`` of its class's single-program path; the summary's
+     ``shard_classes``; one traced mixed step whose GEMMs run on two
+     distinct streams (held), their overlap and the step's wall time
+     beside the single-program step's and the mixed step's on one stream
+     (printed);
+ 21. mixed training of the full-width internlm2-1.8b through
+     ``launch/train.py``'s trainer (``--heterogeneous --class-sharded
+     on``): 8 x 512 tokens split over the pods by the chunk table; step 0's
+     loss within ``TRAIN_EVAL_LOSS_TOL``, global gradient norm within
+     ``MIXED_GRAD_NORM_RTOL`` and every gradient slice (a leaf, or one
+     layer of the layer stack's) within ``MIXED_GRAD_SLICE_RTOL`` relative
+     L2 of the single-class step on the same params and batch (the little
+     pod's weight zeroed in the epilogue must fail the norm and the
+     slices, its gradients of one layer zeroed the slices); 3 steps of 675
+     ``gemm_cuda`` and 675 ``gemm_cuda_lean`` each; step ms, tokens/s and
+     peak memory beside phase 16's; then ``gemm_backward_check`` at a
+     pod's shapes (M = 6 x 512).
+ Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
+ of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
 Each of phases 2-4, the forward of phase 7, the steps of phase 8, the
 engines and the kernel step of phases 11 and 12, the paths of phases
 13-15, the training runs and little-tree steps of phases 16-17, the
-training runs of phase 18 and the steps of phase 19 resets the kernels'
-launch counters just before it and reads them just after; the launches of phases 1, 5, 6, 10 and the comparisons of
-phases 7, 8, 11, 12 and 13-15 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
+training runs of phase 18, the steps of phase 19 and the paths and steps
+of phases 20-21 resets the kernels' launch counters just before it and
+reads them just after; the launches of phases 1, 5, 6, 10 and the
+comparisons of phases 7, 8, 11, 12, 13-15 and 20 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -3243,6 +3272,456 @@ def phase19(torch, counts, reset) -> dict:
     return out
 
 
+# The class-sharded mixed step (phases 20, 21): the big pod's rows on
+# gemm_cuda, the little pod's on gemm_cuda_lean, each pod on its own CUDA
+# stream.  Every recurrence step of a mixed decode launches a full decode
+# step's GEMMs on each pod; the paged one also 24 paged_attention_cuda on
+# each pod's page partition.
+MIXED = ["--class-sharded", "on"]
+MIXED_SHARDS = [(0, "big", "cuda"), (1, "little", "cuda_lean")]
+# Timed decode steps of each variant of phase 20 (in turns).
+MIXED_TIMED_STEPS = 5
+# Phase 21: the global gradient norm of the mixed step's step 0 against
+# the single-class step's, same params and batch.  Each pod's dB = Aᵀ·dC
+# comes back rounded to bf16 (an operand's dtype) before the epilogue sums
+# the pods in fp32, where the single-class step rounds one sum: two
+# roundings of 2^-9 each bound an element's relative difference by 2^-8
+# (0.4%), and the little pod's other block shapes move the fp32 sums by
+# far less; a norm, a root of a sum over 1.9 B squares, moves less than
+# its worst element.  So 2% holds the sound step with a factor of five to
+# spare, while a pod's weight dropped from the epilogue removes a quarter
+# of the tokens (the little pod's 2 rows of 8) and moves the norm by tens
+# of percent.
+MIXED_GRAD_NORM_RTOL = 0.02
+# Phase 21 also holds the gradients slice by slice: every leaf, the layer
+# stack's split into its 24 layers, by the relative L2 of (mixed -
+# single-class), the worst slice against MIXED_GRAD_SLICE_RTOL.  A norm
+# misses errors that keep the total (rows of the wrong pod, a leaf
+# swapped, part of one pod lost); a slice cannot hide them.  The sound
+# step differs by the roundings above, compounded through the little
+# pod's other blocks over 24 layers; the worst slice is one summed over
+# every token and rounded once a pod (a norm weight, the embedding),
+# where the two pods' terms partly cancel and a rounding of 2^-9 grows
+# against their sum to a percent or two.  The planted fault zeroes the
+# little pod's gradients of one layer in the epilogue, which moves the
+# global norm by a few tenths of a percent at most but takes the little
+# pod's share, at least the 14.4% its whole weight moved the norm by
+# (AS), out of that layer's slices.
+# 5% sits between the two with a factor of two or more on each side.
+MIXED_GRAD_SLICE_RTOL = 0.05
+MIXED_FAULT_LAYER = 12
+
+
+def mixed_launches(c: dict, steps: int, paged: bool, gemms: int) -> str | None:
+    """Why ``c`` (a run's launches) is not ``steps`` mixed recurrence steps
+    (``gemms`` ``gemm_cuda`` and ``gemm_cuda_lean`` each a step, and 2 x 24
+    ``paged_attention_cuda`` when ``paged``), or None when it is."""
+
+    want = {"gemm_cuda": gemms * steps, "gemm_cuda_lean": gemms * steps,
+            "paged_attention_cuda": 2 * 24 * steps if paged else 0, "flash_attention_cuda": 0}
+    bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
+    return f"launches (got, want) {bad}" if bad else None
+
+
+def stream_overlap(torch, prof) -> dict:
+    """The kernels of a traced run by CUDA stream (``device_resource_id``):
+    each stream's busy ms (the union of its kernels' intervals), the GEMMs
+    on it, and how long the two busiest streams ran kernels at once."""
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.launch.profile_decode import _union_us
+
+    dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    check(bool(dev), "the profiler saw no device activity in the mixed step")
+    by_stream: dict = {}
+    for e in dev:
+        by_stream.setdefault(e.device_resource_id, []).append(e)
+
+    def merged(events):
+        out = []
+        for s, t in sorted((e.time_range.start, e.time_range.end) for e in events):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], t)
+            else:
+                out.append([s, t])
+        return out
+
+    rows = {sid: {"busy_ms": _union_us((e.time_range.start, e.time_range.end) for e in evs) / 1e3,
+                  "kernels": len(evs), "gemms": sum("gemm_kernel<" in e.name.lower() for e in evs)}
+            for sid, evs in by_stream.items()}
+    pods = sorted((sid for sid in rows if rows[sid]["gemms"]), key=lambda s: -rows[s]["gemms"])[:2]
+    both = 0.0
+    if len(pods) == 2:
+        a, b = merged(by_stream[pods[0]]), merged(by_stream[pods[1]])
+        i = j = 0
+        while i < len(a) and j < len(b):
+            both += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+            if a[i][1] < b[j][1]:
+                i += 1
+            else:
+                j += 1
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    shorter = min((rows[s]["busy_ms"] for s in pods), default=0.0)
+    return {"streams": {str(k): v for k, v in rows.items()}, "gemm_streams": [str(s) for s in pods],
+            "busy_ms": busy, "overlap_ms": both / 1e3,
+            "overlap_share_of_shorter_pod": both / 1e3 / shorter if shorter else 0.0}
+
+
+def phase20(torch, counts, reset, s2: dict) -> dict:
+    """Mixed serving of the full-width internlm2-1.8b (phase 2's weights and
+    requests) through ``launch/serve.py --class-sharded on``: the dense
+    engine, the paged engine and the one-shot path, their launch counts, a
+    planted fault (both pods under the big tree), engine == one-shot,
+    paged vs dense logits, a teacher-forced replay of each pod's rows
+    against its class's single-program path, the provenance, one traced
+    mixed step (the pods' kernels on two streams, their overlap) and its
+    wall time beside the single-program step's and the mixed step's on one
+    stream."""
+
+    import contextlib
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import execution as X
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.distributed.sharding import pod_decode_specs
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as Z
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    gemms = 7 * cfg.n_layers + 1
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    base = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--gen-len", str(GEN_LEN), "--seed", "0"] + MIXED
+    runs = {}
+    for label, extra in (("dense", []), ("paged", ["--paged", "on", "--page-size", str(PAGE_SIZE)]),
+                         ("one_shot", ["--one-shot"])):
+        reset()
+        s, tok, eng, wall = run_serve(base + extra, params=params)
+        c = counts()
+        steps = PROMPT_LEN * eng.stats.admission_rounds + eng._step_calls if eng else PROMPT_LEN + GEN_LEN
+        why = mixed_launches(c, steps, label == "paged", gemms)
+        shards = [(p, cls, be) for p, cls, _, be in s["shard_classes"]]
+        print(f"phase 20: mixed {label}: {s['device_class']} ({s['exec_backend']}) shards "
+              f"{s['shard_classes']}; smoke reading {s['tokens_per_s']} tokens/s, wall {wall:.2f} s; "
+              f"recurrence steps {steps}; launches {c}", flush=True)
+        check(why is None, f"phase 20 mixed {label}: {why}")
+        check(s["class_sharded"] is True and s["device_class"] == "mixed", f"phase 20 {label}: {s}")
+        check(shards == MIXED_SHARDS, f"phase 20 {label} shard classes {s['shard_classes']}")
+        check(tok.shape == (BATCH, PROMPT_LEN + GEN_LEN), f"phase 20 {label} tokens {tok.shape}")
+        runs[label] = {"summary": s, "tokens": tok, "engine": eng, "wall_s": wall, "launches": c,
+                       "steps": steps}
+    dense, paged = runs["dense"]["engine"], runs["paged"]["engine"]
+    check(np.array_equal(runs["dense"]["tokens"], runs["one_shot"]["tokens"]),
+          "phase 20: the mixed engine's tokens differ from the mixed one-shot path's")
+    busy = torch.as_tensor([c.slot for c in dense.completions], device="cuda")
+    dlog = float((paged.prefill_logits[busy].float() - dense.prefill_logits[busy].float()).abs().max())
+    print(f"  engine == one-shot: True; paged vs dense first-step max |logit diff| {dlog:.4f} "
+          f"(tol {LOGIT_TOL})", flush=True)
+    check(dlog <= LOGIT_TOL, f"phase 20: paged vs dense logits differ by {dlog}")
+
+    # The planted fault: the same step with both pods under the big tree.
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    big = asym.execution_context("big")
+    rows = dense.n_slots
+    state = Z.init_decode_state(cfg, rows, PROMPT_LEN + GEN_LEN, device="cuda")
+    in_specs, out_specs = pod_decode_specs(state, batch_keys=("tokens", "live"))
+    faulty = X.class_sharded(Z.make_decode_fn(cfg), mesh=make_host_mesh(pod=2), contexts=[big, big],
+                             pod_class=[0, 1], in_specs=in_specs, out_specs=out_specs)
+    batch = {"tokens": torch.zeros((rows, 1), dtype=torch.int32, device="cuda"),
+             "live": torch.ones(rows, dtype=torch.bool, device="cuda")}
+    pos = torch.zeros(rows, dtype=torch.int32, device="cuda")
+    reset()
+    with torch.no_grad():
+        faulty(params, batch, state, pos)
+    torch.cuda.synchronize()
+    caught = mixed_launches(counts(), 1, False, gemms)
+    print(f"  planted fault (both pods under the big tree): {caught}", flush=True)
+    check(caught is not None, "phase 20: the launch check passed a step with both pods under big")
+
+    # Teacher-forced replay of the dense engine's tokens over the padded
+    # batch: the mixed step's big rows against the big path's, its little
+    # rows against the little path's.
+    layout = asym.batch_layout(BATCH)
+    padded, _ = SV.pad_requests(runs["dense"]["tokens"], layout)
+    c_max, total = layout.c_max, PROMPT_LEN + GEN_LEN
+    toks = torch.as_tensor(padded, device="cuda")
+    step = SV.mixed_decode_step(cfg, asym, make_host_mesh(pod=2), len(padded), total)
+    decode = Z.make_decode_fn(cfg)
+
+    def replay(fn, ctx):
+        st, out = Z.init_decode_state(cfg, len(padded), total, device="cuda"), []
+        with torch.no_grad(), ctx:
+            for t in range(total - 1):
+                lg, st = fn(params, {"tokens": toks[:, t:t + 1]}, st, t)
+                if t >= PROMPT_LEN - 1:
+                    out.append(lg[:, 0].float())
+        return out
+
+    mixed = replay(step, contextlib.nullcontext())
+    diffs = {}
+    for pod, cls in enumerate(("big", "little")):
+        ref = replay(decode, asym.execution_context(cls))
+        sl = slice(pod * c_max, (pod + 1) * c_max)
+        diffs[cls] = [float((m[sl] - r[sl]).abs().max()) for m, r in zip(mixed, ref)]
+        print(f"  replay, the {cls} pod's rows against the {cls} class's single-program path: max "
+              f"|logit diff| per step {[round(x, 4) for x in diffs[cls]]} (tol {LOGIT_TOL})", flush=True)
+        check(all(math.isfinite(x) and x <= LOGIT_TOL for x in diffs[cls]),
+              f"phase 20 replay: the {cls} pod differs by {max(diffs[cls])}")
+
+    # One traced mixed step, and the step's wall time: single program,
+    # mixed (a stream a pod), mixed on one stream, in turns.
+    batch = {"tokens": dense.tokens, "live": torch.ones(rows, dtype=torch.bool, device="cuda")}
+    pos = torch.full((rows,), total - 2, dtype=torch.int32, device="cuda")
+    mesh = dense.mesh
+
+    def single():
+        with big:
+            return decode(params, batch, dense.state, pos)
+
+    def one_stream():
+        mesh.pod_streams = lambda: [None] * mesh.n_pods
+        try:
+            return dense._decode(params, batch, dense.state, pos)
+        finally:
+            del mesh.pod_streams
+
+    variants = {"single": single, "mixed": lambda: dense._decode(params, batch, dense.state, pos),
+                "mixed_one_stream": one_stream}
+    walls = {k: [] for k in variants}
+    with torch.no_grad():
+        for fn in variants.values():
+            fn()  # warm
+        for _ in range(MIXED_TIMED_STEPS):
+            for k, fn in variants.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[k].append((time.perf_counter() - t0) * 1e3)
+        traced = {}
+        for k in ("single", "mixed"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                variants[k]()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            traced[k] = {"wall_ms": wall_ms, **stream_overlap(torch, prof)}
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    tm = traced["mixed"]
+    phase2_ms = s2["engine"]["decode_s"] / max(s2["engine"]["decode_steps"], 1) * 1e3
+    print(f"  decode step wall ms (median of {MIXED_TIMED_STEPS}, in turns): single program "
+          f"{med['single']:.2f}, mixed {med['mixed']:.2f}, mixed on one stream "
+          f"{med['mixed_one_stream']:.2f}; phase 2's engine step {phase2_ms:.2f}", flush=True)
+    print(f"  traced: single program wall {traced['single']['wall_ms']:.2f} ms, busy "
+          f"{traced['single']['busy_ms']:.2f}; mixed wall {tm['wall_ms']:.2f}, busy {tm['busy_ms']:.2f}, "
+          f"GEMM streams {tm['gemm_streams']} of {tm['streams']}, the pods' kernels overlap "
+          f"{tm['overlap_ms']:.3f} ms ({tm['overlap_share_of_shorter_pod']:.3f} of the shorter pod's busy)",
+          flush=True)
+    check(len(tm["gemm_streams"]) == 2 and all(tm["streams"][s]["gemms"] for s in tm["gemm_streams"]),
+          f"phase 20: the traced mixed step's GEMMs ran on streams {tm['streams']}, want two")
+    out = {"runs": {k: {kk: v for kk, v in r.items() if kk not in ("engine", "tokens")}
+                    for k, r in runs.items()},
+           "paged_vs_dense_logit_diff": dlog, "planted_fault": caught, "replay_logit_diff": diffs,
+           "step_wall_ms": walls, "step_wall_ms_median": med, "phase2_engine_step_ms": phase2_ms,
+           "traced": traced}
+    del runs, dense, paged, params
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 20 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def grad_slices(tree, prefix: str = "") -> list:
+    """``(name, tensor)`` of every leaf of a gradient tree in key order,
+    the layer stack's leaves (under ``blocks``) one slice a layer."""
+
+    out = []
+    for key in sorted(tree):
+        leaf, name = tree[key], prefix + key
+        if isinstance(leaf, dict):
+            out += grad_slices(leaf, name + "/")
+        elif name.startswith("blocks/"):
+            out += [(f"{name}[{i}]", leaf[i]) for i in range(leaf.shape[0])]
+        else:
+            out.append((name, leaf))
+    return out
+
+
+def worst_slice(torch, got, ref) -> tuple:
+    """``(rel, name)``: the largest relative L2 of ``got - ref`` over the
+    slices of ``grad_slices``, and that slice's name."""
+
+    worst = (0.0, "")
+    for (name, g), (want, r) in zip(grad_slices(got), grad_slices(ref), strict=True):
+        check(name == want, f"gradient trees differ: {name} vs {want}")
+        r = r.float()
+        ref_n = float(torch.linalg.vector_norm(r))
+        diff = float(torch.linalg.vector_norm(g.float() - r))
+        worst = max(worst, (diff / ref_n if ref_n else 0.0 if diff == 0 else math.inf, name))
+    return worst
+
+
+def phase21(torch, counts, reset, train16: dict) -> dict:
+    """Mixed training of the full-width internlm2-1.8b through
+    ``launch/train.py``'s trainer with ``--heterogeneous --class-sharded
+    on``: 8 x 512 tokens a step split over the pods by the chunk table;
+    step 0's gradients against the single-class step on the same params and
+    batch (the loss, the global norm, the worst slice; planted faults in
+    the epilogue: the little pod's weight zeroed, its gradients of layer
+    ``MIXED_FAULT_LAYER`` zeroed), then 3 steps of 675 ``gemm_cuda`` and
+    675 ``gemm_cuda_lean`` each, then the GEMM Function's backward check
+    at a pod's shapes."""
+
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.launch import train as TL
+    from repro_torch.optim import adamw as O
+    from repro_torch.runtime import trainer as TR
+
+    t_phase = time.perf_counter()
+    ckdir = tempfile.mkdtemp(prefix="repro_torch_mixed_")
+    try:
+        args = TL.build_parser().parse_args([
+            "--arch", ARCH, "--steps", "3", "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--heterogeneous", "--ckpt-dir", ckdir, "--seed", "0"] + MIXED)
+        trainer = TL.make_trainer(args)
+        cfg, step_fn = trainer.arch, trainer.class_sharded_step
+        per_step = 4 * forward_gemm_calls(cfg) - 1
+        shards = [(p.pod, p.device_class, p.backend) for p in step_fn.provenance]
+        check(trainer.class_sharded_enabled() and shards == MIXED_SHARDS, f"phase 21 shards {shards}")
+        batch0, layout = trainer.next_batch(0)
+
+        def grads_of(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, g = fn()
+            norm = float(O.global_norm(g))
+            return float(loss), norm, (time.perf_counter() - t0) * 1e3, g
+
+        with trainer.exec_ctx:
+            l_one, n_one, ms_one, g_one = grads_of(lambda: O.accumulate_gradients(
+                trainer.loss_fn, trainer.params, batch0, 1))
+        reset()
+        l_mix, n_mix, ms_mix, g = grads_of(lambda: step_fn(trainer.params, batch0))
+        c_mix = counts()
+        worst = worst_slice(torch, g, g_one)
+        del g
+        real = TR.weighted_mean_epilogue
+
+        def faulty(epilogue):
+            """The mixed step with ``epilogue`` in the real one's place."""
+
+            TR.weighted_mean_epilogue = epilogue
+            try:
+                return TR.build_class_sharded_grad_step(trainer.loss_fn, trainer.asym, trainer.mesh)
+            finally:
+                TR.weighted_mean_epilogue = real
+
+        def drop_little(outs, shard_args, axis):  # the little pod's weight w_1 zeroed
+            args = list(shard_args)
+            p, b = args[1]
+            args[1] = (p, dict(b, mask=torch.zeros_like(b["mask"])))
+            return real(outs, args, axis)
+
+        def drop_layer(outs, shard_args, axis):  # the little pod's gradients of one layer zeroed
+            loss, metrics, g = outs[1]
+            cut = torch.tensor([MIXED_FAULT_LAYER], device=loss.device)
+            g = dict(g, blocks=O.tree_map(lambda x: x.index_fill(0, cut, 0), g["blocks"]))
+            return real([outs[0], (loss, metrics, g)], shard_args, axis)
+
+        faults = {}
+        for name, epilogue in (("little pod's weight zeroed", drop_little),
+                               (f"little pod's layer {MIXED_FAULT_LAYER} zeroed", drop_layer)):
+            l_f, n_f, _, g = grads_of(lambda: faulty(epilogue)(trainer.params, batch0))
+            faults[name] = {"loss": l_f, "grad_norm_rel": abs(n_f / n_one - 1),
+                            "worst_slice": worst_slice(torch, g, g_one)}
+            del g
+        del g_one
+        rel = abs(n_mix / n_one - 1)
+        f_pod = faults["little pod's weight zeroed"]
+        # Both gradients again, in turns after the first (allocator-warming) call.
+        ms_mix = min(ms_mix, grads_of(lambda: step_fn(trainer.params, batch0))[2])
+        with trainer.exec_ctx:
+            ms_one = grads_of(lambda: O.accumulate_gradients(trainer.loss_fn, trainer.params, batch0, 1))[2]
+        # The mixed gradient traced once: the pods' kernels by stream (printed).
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(trainer.params, batch0)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        traced = {"wall_ms": traced_ms, **stream_overlap(torch, prof)}
+        del prof
+        print(f"phase 21: {cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens split {layout.sizes} over pods of "
+              f"{layout.c_max} rows; step 0: loss mixed {l_mix:.5f} vs single-class {l_one:.5f}; grad norm "
+              f"{n_mix:.5f} vs {n_one:.5f} (rel {rel:.2e}, tol {MIXED_GRAD_NORM_RTOL}); worst slice rel L2 "
+              f"{worst[0]:.2e} at {worst[1]} (tol {MIXED_GRAD_SLICE_RTOL}); gradient wall ms mixed "
+              f"{ms_mix:.1f} vs single-class {ms_one:.1f} (12 padded rows, each timed after a first call); "
+              f"launches {c_mix}", flush=True)
+        for name, f in faults.items():
+            print(f"  planted fault, the {name}: loss {f['loss']:.5f}, norm rel {f['grad_norm_rel']:.2e}, "
+                  f"worst slice rel L2 {f['worst_slice'][0]:.3f} at {f['worst_slice'][1]}", flush=True)
+        print(f"  traced mixed gradient: wall {traced['wall_ms']:.1f} ms, busy {traced['busy_ms']:.1f}, "
+              f"GEMMs by stream { {k: v['gemms'] for k, v in traced['streams'].items()} }, the pods' "
+              f"kernels overlap {traced['overlap_ms']:.2f} ms ({traced['overlap_share_of_shorter_pod']:.3f} "
+              f"of the shorter pod's busy)", flush=True)
+        check(abs(l_mix - l_one) <= TRAIN_EVAL_LOSS_TOL, f"phase 21 step-0 loss {l_mix} vs {l_one}")
+        check(rel <= MIXED_GRAD_NORM_RTOL, f"phase 21 step-0 grad norm {n_mix} vs {n_one}")
+        check(worst[0] <= MIXED_GRAD_SLICE_RTOL, f"phase 21 step-0 gradient slice {worst}")
+        check(f_pod["grad_norm_rel"] > MIXED_GRAD_NORM_RTOL, f"phase 21: the zeroed pod's norm passed {f_pod}")
+        for name, f in faults.items():
+            check(f["worst_slice"][0] > MIXED_GRAD_SLICE_RTOL, f"phase 21: the fault ({name}) passed {f}")
+        check(mixed_launches(c_mix, 1, False, per_step) is None, f"phase 21 step-0 launches {c_mix}")
+
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(3):
+            batch, _ = trainer.next_batch(i)
+            metrics, rec = timed_step(torch, counts, lambda: trainer.train_step(batch))
+            steps.append({**rec, **{k: float(v) for k, v in metrics.items()}})
+            why = mixed_launches(rec["launches"], 1, False, per_step)
+            check(why is None, f"phase 21 step {i}: {why}")
+            check(math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"]),
+                  f"phase 21 step {i}: {steps[-1]}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_s = statistics.median(s["wall_s"] for s in steps[1:])
+        print(f"  3 mixed steps: losses {[round(s['loss'], 5) for s in steps]}, grad_norm "
+              f"{[round(s['grad_norm'], 4) for s in steps]}, wall {[round(s['wall_s'], 4) for s in steps]} s "
+              f"(median of steps 1-2 {step_s * 1e3:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s), "
+              f"peak {peak_gb:.2f} GB; phase 16's single-class step {train16['step_ms']:.1f} ms, "
+              f"{train16['tokens_per_s']:.0f} tokens/s, peak {train16['peak_gb']:.2f} GB", flush=True)
+        out = {"sizes": layout.sizes, "c_max": layout.c_max, "loss_mixed": l_mix, "loss_single": l_one,
+               "grad_norm_mixed": n_mix, "grad_norm_single": n_one, "grad_norm_rel": rel,
+               "worst_slice_rel": worst, "faults": faults, "grad_ms_mixed": ms_mix,
+               "grad_ms_single": ms_one, "traced_grad": traced, "step0_launches": c_mix, "steps": steps, "step_ms": step_s * 1e3,
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "peak_gb": peak_gb,
+               "launches": {k: sum(s["launches"][k] for s in steps) for k in steps[0]["launches"]},
+               "phase16": {k: train16[k] for k in ("step_ms", "tokens_per_s", "peak_gb")}}
+        del trainer, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Each pod's GEMMs ran at its own rows (M = c_max x seq): the
+        # Function's check of phase 1 at those shapes, both classes.
+        out["backward_products"] = gemm_backward_check(
+            torch, f"{cfg.name} mixed pod", step_gemm_shapes(cfg, layout.c_max, TRAIN_SEQ), seed=5)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 21 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3424,7 +3903,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_encdec = phase19(torch, counts, reset)
     detail["train_encdec"] = train_encdec
-    for run in (train_moe, *train_ssm.values(), train_encdec):
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20: mixed serving, {ARCH} at full width through launch/serve.py --class-sharded on: "
+          f"the big pod on gemm_cuda, the little pod on gemm_cuda_lean, a CUDA stream each", flush=True)
+    mixed_serve = phase20(torch, counts, reset, s2)
+    detail["mixed_serve"] = mixed_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 21: mixed training, {ARCH} at full width through launch/train.py's trainer with "
+          f"--class-sharded on, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step", flush=True)
+    mixed_train = phase21(torch, counts, reset, train)
+    detail["mixed_train"] = mixed_train
+    for run in (train_moe, *train_ssm.values(), train_encdec, mixed_train):
         for name, err in run["backward_products"]["max_abs_err"].items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
 
@@ -3492,6 +3983,13 @@ def main() -> None:
     for arch, rec in train_ssm.items():
         moe_launches["gemm_cuda"][f"{arch.split('-')[0]}_train"] = rec["launches"]["gemm_cuda"]
     moe_launches["gemm_cuda"]["whisper_train"] = train_encdec["launches"]["gemm_cuda"]
+    # Phases 20-21, the mixed step: each path's launches read from its own run.
+    for label, run in mixed_serve["runs"].items():
+        for name in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda"):
+            if run["launches"][name]:
+                moe_launches[name][f"internlm2_mixed_{label}"] = run["launches"][name]
+    for name in ("gemm_cuda", "gemm_cuda_lean"):
+        moe_launches[name]["internlm2_mixed_train"] = mixed_train["launches"][name]
     for row in kernels:
         row["launches_later_paths"] = moe_launches[row["name"]]
         for key, val in records[row["name"]].items():

@@ -3,8 +3,9 @@
 The paper's big.LITTLE clusters become *device classes*: groups of pods
 with unequal sustained throughput.  On one H100 the little class is a
 modeled spec on the same card (half the shared memory, half the peak and
-bandwidth — ``blocking.H100_LITTLE``), so every class is served by one
-program; the class-sharded mixed step arrives with a later slice.
+bandwidth — ``blocking.H100_LITTLE``).  :meth:`AsymmetricMesh.class_sharded`
+runs each pod's shard of a step under its own class's control tree, the
+pods as CUDA streams on the one card (``core.execution.class_sharded``).
 :meth:`AsymmetricMesh.from_calibration` replaces the typed ratios with
 calibrated ones (the cost model, or the step-time probe's measurements).
 
@@ -277,6 +278,71 @@ class AsymmetricMesh:
                 f"unknown device class {class_name!r}; have {sorted(trees)}"
             )
         return ExecutionContext(device_class=class_name, tree=trees[class_name])
+
+    def class_contexts(self, *, shape: Optional[tuple[int, int, int]] = None):
+        """One :class:`ExecutionContext` per class, in ``classes`` order
+        (the order ``pod_class_indices`` indexes into)."""
+
+        from repro_torch.core.execution import ExecutionContext
+
+        trees = self.control_trees(shape)
+        return [
+            ExecutionContext(device_class=c.name, tree=trees[c.name])
+            for c in self.classes
+        ]
+
+    def class_sharded(
+        self,
+        fn,
+        *,
+        mesh,
+        in_specs,
+        out_specs,
+        axis: str = "pod",
+        shape: Optional[tuple[int, int, int]] = None,
+        epilogue=None,
+    ):
+        """Wrap ``fn`` so each pod shard runs under its own class's tree.
+
+        The one-card realization of the paper's CA-SAS (§5.3): one step in
+        which every pod executes under *its* class's execution context —
+        big pods under big's control tree, LITTLE pods under little's,
+        each on its own CUDA stream — instead of the whole step running
+        under a single primary-class context.
+
+        ``mesh`` is the :class:`~repro_torch.launch.mesh.PodMesh` whose
+        ``axis`` indexes the pods (``mesh.shape[axis]`` must equal
+        ``n_pods``).  Falls back to the single-context wrapper (bitwise
+        ``execution_context()`` activation, no pods) when the mesh has one
+        class, when the mesh lacks the pod axis, or when the axis size is
+        1.  See :func:`repro_torch.core.execution.class_sharded`.
+        """
+
+        from repro_torch.core import execution as X
+        from repro_torch.distributed.sharding import pod_class_indices
+
+        contexts = self.class_contexts(shape=shape)
+        single = (
+            len(contexts) == 1
+            or axis not in getattr(mesh, "axis_names", ())
+            or mesh.shape[axis] == 1
+        )
+        if single:
+            primary = self._primary_class().name
+            ctx = next(c for c in contexts if c.device_class == primary)
+            contexts, pod_class = [ctx], [0] * self.n_pods
+        else:
+            pod_class = pod_class_indices(self)
+        return X.class_sharded(
+            fn,
+            mesh=mesh,
+            contexts=contexts,
+            pod_class=pod_class,
+            in_specs=in_specs,
+            out_specs=out_specs,
+            axis=axis,
+            epilogue=epilogue,
+        )
 
     # -- power ------------------------------------------------------------
 

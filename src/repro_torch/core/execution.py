@@ -1,6 +1,6 @@
 """Class-routed execution contexts: one ambient control tree per device class.
 
-The port's counterpart of ``repro.core.execution`` (its dispatch half):
+The port's counterpart of ``repro.core.execution``:
 
   * :class:`ExecutionContext` — a context manager binding one device
     class's :class:`~repro_torch.core.control_tree.ControlTree` as the
@@ -12,6 +12,8 @@ The port's counterpart of ``repro.core.execution`` (its dispatch half):
   * :func:`resolve_block_config` — the ``$REPRO_TORCH_TUNING_CACHE`` entry
     for the class's Hopper spec when its kernel can hold it, else the
     analytical derivation under that spec.
+  * :func:`class_sharded` — per-class programs in one step: each pod's
+    shard runs under its own class's context, on its own CUDA stream.
 
 Names against the reference's vocabulary:
 
@@ -38,9 +40,10 @@ which ``"auto"`` picks for them.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
-from typing import TYPE_CHECKING, Callable, Literal, Optional
+from typing import TYPE_CHECKING, Callable, Literal, Optional, Sequence
 
 import torch
 
@@ -594,6 +597,203 @@ def current_context() -> Optional[ExecutionContext]:
     return _ACTIVE.get()
 
 
+# ---------------------------------------------------------------------------
+# Per-class programs within one step (one stream per pod on the card)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardProvenance:
+    """Which class's control tree governs one pod shard (paper §5.3)."""
+
+    pod: int
+    device_class: str
+    spec: str
+    backend: str
+    block_source: str  # "tuned" | "analytical" — the tree's provenance
+    block: BlockConfig
+
+
+@dataclasses.dataclass(eq=False)
+class ClassShardedFn:
+    """A callable wrapping ``fn`` so each pod shard runs its own class's
+    program, plus the per-shard provenance (for assertions / telemetry).
+
+    ``trace_log`` records which contexts ran a branch: one entry per
+    class and input signature (the tensors' shapes and dtypes), the first
+    time that branch runs it — where the reference's ``jit`` traces once
+    per signature and appends on each retrace.
+    """
+
+    fn: Callable
+    provenance: tuple[ShardProvenance, ...]
+    trace_log: list
+    mixed: bool  # False on the single-class fallback (one context, no pods)
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def _signature(tree) -> tuple:
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_signature(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    return ()
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tensor_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def class_sharded(
+    fn: Callable,
+    *,
+    mesh,
+    contexts: Sequence[ExecutionContext],
+    pod_class: Sequence[int],
+    in_specs,
+    out_specs,
+    axis: str = "pod",
+    epilogue: Optional[Callable] = None,
+) -> ClassShardedFn:
+    """CA-SAS within one step: per-class programs, one per pod shard.
+
+    The paper's §5.3/§5.4 schemes run *different* control trees on the big
+    and LITTLE clusters simultaneously inside one GEMM.  The reference
+    does it with a ``shard_map`` over the mesh's pod axis and a
+    ``lax.switch`` on each shard's class index.  On one card a pod is a
+    CUDA stream (``launch.mesh.PodMesh.pod_streams``): the wrapper splits
+    every argument by ``in_specs`` into per-pod views
+    (``distributed.sharding.split_pods``: no copies, so the params and the
+    paged arena are shared, not duplicated), then issues each pod's shard
+    in turn, under its own class's :class:`ExecutionContext` — every
+    ``ops.gemm`` in pod *i* resolves class(*i*)'s blocks and kernel at the
+    shard's own shape — on that pod's stream.  Each pod's stream first
+    waits on the caller's stream (the inputs were written there), and the
+    caller's stream waits on every pod's before anything is read or
+    reduced; the inputs stay alive until that join, and every output
+    tensor is marked as used on the caller's stream (``record_stream``),
+    so the allocator reuses no pod's block under pending work.  On the CPU
+    the pods have no streams and run in turn.  One process, one address
+    space: pods as processes over gloo would each need their own copy of
+    the weights (3.6 GB at internlm2-1.8b's width) and a host-side
+    reduction.
+
+    ``contexts`` is ordered by class index; ``pod_class[i]`` is the class
+    index of pod ``i`` (``distributed.sharding.pod_class_specs``).
+
+    ``epilogue(outs, shard_args, axis)`` runs after the join, on the
+    caller's stream, over the per-pod outputs and arguments — the one
+    place a cross-pod reduction happens (the reference's ``psum``s inside
+    its ``shard_map`` body).  Without one the outputs are joined by
+    ``out_specs`` (``distributed.sharding.stitch_pods``).  With a single
+    class the fallback activates the one context around ``fn`` — no pods,
+    bitwise the single-context path — and calls ``epilogue(out, args,
+    None)``.
+
+    ``fn`` must itself do no cross-pod work.  The reference's
+    ``compat_shard_map`` (a shim over a ``jax`` keyword renamed between
+    versions) and its partial-``auto`` axes (GSPMD inside a manual
+    ``shard_map``) have no counterpart here.
+    """
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.observability import trace as obs
+
+    contexts = list(contexts)
+    if not contexts:
+        raise ValueError("need at least one execution context")
+    pod_class = tuple(int(c) for c in pod_class)
+    if any(c < 0 or c >= len(contexts) for c in pod_class):
+        raise ValueError(
+            f"pod_class {pod_class} out of range for {len(contexts)} classes"
+        )
+    provenance = tuple(
+        ShardProvenance(
+            pod=i,
+            device_class=contexts[c].device_class,
+            spec=contexts[c].spec.name,
+            backend=contexts[c].backend(),
+            block_source=contexts[c].tree.block_source,
+            block=contexts[c].tree.block,
+        )
+        for i, c in enumerate(pod_class)
+    )
+    trace_log: list = []
+    seen: set = set()
+
+    def note(ctx: ExecutionContext, args, mixed: bool):
+        key = (ctx.device_class, _signature(args))
+        if key in seen:
+            return
+        seen.add(key)
+        trace_log.append((ctx.device_class, ctx.tree.block_source))
+        obs.instant(
+            "execution.trace", cat="execution", mixed=mixed,
+            device_class=ctx.device_class, backend=ctx.backend(),
+            block_source=ctx.tree.block_source,
+        )
+
+    if len(contexts) == 1:
+        # Single-class fallback: the one context governs the whole program.
+        ctx = contexts[0]
+
+        def single(*args):
+            with ctx:
+                note(ctx, args, mixed=False)
+                out = fn(*args)
+            if epilogue is not None:
+                out = epilogue(out, args, None)
+            return out
+
+        return ClassShardedFn(
+            fn=single, provenance=provenance, trace_log=trace_log, mixed=False
+        )
+
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no {axis!r} axis; axes={mesh.axis_names}")
+    if mesh.shape[axis] != len(pod_class):
+        raise ValueError(
+            f"pod_class covers {len(pod_class)} pods but mesh axis "
+            f"{axis!r} has size {mesh.shape[axis]}"
+        )
+    n_pods = len(pod_class)
+
+    def wrapped(*args):
+        views: dict = {}
+        shards = SH.split_pods(args, in_specs, n_pods, views)
+        streams = mesh.pod_streams()
+        caller = torch.cuda.current_stream(mesh.device) if streams[0] is not None else None
+        for s in streams:
+            if s is not None:
+                s.wait_stream(caller)
+        outs = []
+        for stream, c, shard_args in zip(streams, pod_class, shards):
+            ctx = contexts[c]
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext(), ctx:
+                note(ctx, shard_args, mixed=True)
+                outs.append(fn(*shard_args))
+        if caller is not None:
+            for s in streams:
+                caller.wait_stream(s)
+            for t in _tensor_leaves(outs):
+                t.record_stream(caller)
+        if epilogue is not None:
+            return epilogue(outs, shards, axis)
+        return SH.stitch_pods(outs, out_specs, views)
+
+    return ClassShardedFn(
+        fn=wrapped, provenance=provenance, trace_log=trace_log, mixed=True
+    )
+
+
 def context_for_tree(tree: "ControlTree") -> ExecutionContext:
     """Wrap an existing control tree (e.g. one of ``build_control_trees``)."""
 
@@ -623,10 +823,13 @@ __all__ = [
     "BACKEND_OPS",
     "PLAIN_TWIN",
     "LEAN_VARIANTS",
+    "ClassShardedFn",
     "ExecutionContext",
+    "ShardProvenance",
     "align_backend_family",
     "backend_op",
     "backend_stages",
+    "class_sharded",
     "context_for_tree",
     "current_context",
     "default_context",

@@ -14,8 +14,12 @@ at low load; its joules are modeled from the class specs' power models,
 not read from the card.  The Mamba2 families (mamba2-1.3b, zamba2-2.7b)
 serve on dense lanes: ``--paged auto`` keeps them dense and ``--paged on``
 is refused, as in the reference; the encoder-decoder and embedding-input
-archs are refused.  The fleet and class-sharded branches of the
-reference's CLI arrive with later slices.
+archs are refused.  ``--class-sharded on`` runs the mixed step: each pod
+decodes its request shard under its own class's control tree, the pods
+as CUDA streams on the one card (``gemm_cuda`` for the big pod,
+``gemm_cuda_lean`` for the little one); ``auto`` never takes it, since
+the port never puts pods on separate cards (``launch.mesh.resolve_pods``).
+The fleet branch of the reference's CLI arrives with a later slice.
 
 Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
 
@@ -27,6 +31,8 @@ Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
         --device-class little
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --batch 3 --slots-per-pod 4 --objective energy
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --class-sharded on [--paged on | --one-shot]
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.mesh import resolve_pods
 from repro_torch.models import model_zoo as Z
 from repro_torch.runtime.serving import resolve_device
 
@@ -49,9 +57,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda"):
+def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda", decode=None,
+             prefill=None):
     """Greedy decode: bulk prefill through the decode recurrence, then
-    token by token, updating one cache in place.
+    token by token, updating one cache in place.  ``decode`` / ``prefill``
+    replace the model's (the mixed path passes its class-sharded step and
+    the bulk prefill through it).
 
     Returns ``(tokens, timings)``; ``timings`` splits warm-up (the prefill
     and the first decode call) from steady-state decode.
@@ -60,8 +71,8 @@ def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda")
     device = resolve_device(device)
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(device)
     b, plen = prompts.shape
-    decode = Z.make_decode_fn(cfg)
-    prefill = Z.make_prefill_fn(cfg, with_cache=True)
+    decode = decode or Z.make_decode_fn(cfg)
+    prefill = prefill or Z.make_prefill_fn(cfg, with_cache=True)
     state = Z.init_decode_state(cfg, b, seq_cap, device=device)
 
     with torch.no_grad():
@@ -85,15 +96,53 @@ def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda")
     return np.concatenate(out, axis=1), timings
 
 
-def _one_shot(cfg, params, asym, prompts, args, seq_cap, device):
-    """The legacy path under one class's control tree."""
+def mixed_decode_step(cfg, asym, mesh, batch_padded: int, seq_cap: int):
+    """The decode fn wrapped so each pod decodes its request shard under
+    its own class's control tree (true CA-SAS serving: one step, two
+    per-class programs).  Decode is pure data parallelism over requests —
+    no cross-pod work, so no epilogue."""
 
+    state_spec = Z.init_decode_state(cfg, batch_padded, seq_cap, device="meta")
+    sspecs = SH.pod_state_specs(state_spec)
+    bspecs = SH.pod_batch_specs({"tokens": 0})  # the decode batch tree
+    return asym.class_sharded(
+        Z.make_decode_fn(cfg),
+        mesh=mesh,
+        in_specs=(None, bspecs, sspecs, None),
+        out_specs=(SH.PodSplit(0), sspecs),
+    )
+
+
+def _shard_summary(provenance):
+    """``(shard_classes, device_class, exec_backend)`` of a mixed run: every
+    pod's (pod, class, block source, backend), and every kernel variant."""
+
+    return ([(p.pod, p.device_class, p.block_source, p.backend) for p in provenance], "mixed",
+            "+".join(sorted({p.backend for p in provenance})))
+
+
+def _one_shot(cfg, params, asym, prompts, args, seq_cap, device):
+    """The legacy path: under one class's control tree, or the mixed step
+    over the requests laid out pod-major by the chunk table."""
+
+    try:  # an explicit class wins; a CLI error exits, as the reference's
+        mesh = None if args.device_class is not None else resolve_pods(args.class_sharded, asym, device)
+    except ValueError as err:
+        raise SystemExit(str(err)) from err
     layout = asym.batch_layout(args.batch)
     print("request split across classes:", layout.sizes)
+    if mesh is not None:
+        # One step, one program per class: pod i's shard runs under
+        # class(i)'s control tree (paper §5.3, serving side).
+        padded, order = pad_requests(prompts, layout)
+        step = mixed_decode_step(cfg, asym, mesh, padded.shape[0], seq_cap)
+        out_padded, timings = generate(cfg, params, padded, args.gen_len, seq_cap, device=device,
+                                       decode=step, prefill=Z.bulk_prefill_from_decode(step))
+        return (out_padded[order], timings, *_shard_summary(step.provenance), None)
     exec_ctx = asym.execution_context(args.device_class)
     with exec_ctx:
         out, timings = generate(cfg, params, prompts, args.gen_len, seq_cap, device=device)
-    return out, timings, exec_ctx.device_class, exec_ctx.backend(), None
+    return out, timings, None, exec_ctx.device_class, exec_ctx.backend(), None
 
 
 def pad_requests(prompts: np.ndarray, layout):
@@ -142,6 +191,7 @@ def _engine(cfg, params, asym, prompts, args, seq_cap, device):
         cfg, params, asym,
         seq_cap=seq_cap,
         slots_per_pod=args.slots_per_pod or layout.c_max,
+        class_sharded=args.class_sharded,
         paged=args.paged,
         page_size=args.page_size,
         pool_pages=args.pool_pages,
@@ -152,8 +202,10 @@ def _engine(cfg, params, asym, prompts, args, seq_cap, device):
     st = eng.stats
     timings = {"compile_s": st.compile_s, "decode_s": st.decode_s,
                "decode_steps": st.decode_steps, "tokens": st.tokens}
+    if eng.mixed:
+        return (out, timings, *_shard_summary(eng.provenance), eng)
     ctx = asym.execution_context()
-    return out, timings, ctx.device_class, ctx.backend(), eng
+    return out, timings, None, ctx.device_class, ctx.backend(), eng
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -176,6 +228,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device-class", default=None,
                     help="one-shot: serve under this class's control tree "
                          "(default: fastest)")
+    ap.add_argument("--class-sharded", default="auto", choices=["auto", "on", "off"],
+                    help="decode each pod's request shard under its own class's tree in "
+                         "one step, the pods as CUDA streams on one card; auto = off "
+                         "(pods never get cards of their own)")
     ap.add_argument("--one-shot", action="store_true",
                     help="legacy path: per-call batch + token-by-token decode")
     ap.add_argument("--slots-per-pod", type=int, default=None,
@@ -209,6 +265,11 @@ def serve(args, *, params=None):
         cfg = cfg.reduced()
     if cfg.embed_inputs or cfg.family == "encdec":
         raise SystemExit(f"{cfg.name}: serving demo targets token-in archs")
+    if args.class_sharded == "on" and args.device_class is not None:
+        raise SystemExit(
+            "--class-sharded on serves every class simultaneously; "
+            "it cannot be combined with --device-class"
+        )
     if not args.one_shot and args.device_class is not None:
         raise SystemExit("--device-class applies to the --one-shot path only")
     if args.one_shot and args.paged != "off":
@@ -233,7 +294,7 @@ def serve(args, *, params=None):
 
     t0 = time.time()
     run = _one_shot if args.one_shot else _engine
-    out, timings, device_class, exec_backend, engine = run(
+    out, timings, shard_classes, device_class, exec_backend, engine = run(
         cfg, params, asym, prompts, args, seq_cap, device
     )
     dt = time.time() - t0
@@ -253,8 +314,8 @@ def serve(args, *, params=None):
         "objective": args.objective,
         "device_class": device_class,
         "exec_backend": exec_backend,
-        "class_sharded": False,  # one program: the class-sharded step is not ported yet
-        "shard_classes": None,
+        "class_sharded": shard_classes is not None,
+        "shard_classes": shard_classes,
         "batch": args.batch,
         "generated": out.shape[1] - args.prompt_len,
         "wall_s": round(dt, 2),

@@ -2,7 +2,8 @@
 
 Every projection and the LM head run through ``ops.gemm`` in both
 directions, on the kernel of the primary class's control tree
-(``gemm_cuda`` on the card); attention through ``chunked_attention``.
+(``gemm_cuda`` on the card), or, class-sharded, each pod's rows on its own
+class's; attention through ``chunked_attention``.
 Weights are random fp32 masters from ``--seed``; data is ``SyntheticLM``.
 ``--arch`` takes every token-in family (dense, MoE, Mamba2, hybrid); the
 enc-dec and embedding-input configs need batch keys ``SyntheticLM`` does
@@ -15,11 +16,18 @@ Examples::
     # the CPU, reduced config, the kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --reduced \\
         --device cpu --steps 3 --seq 64
+    # the class-sharded step: the big pod's rows on gemm_cuda, the little pod's on
+    # gemm_cuda_lean, each pod on its own CUDA stream
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --steps 3 \\
+        --seq 512 --heterogeneous --class-sharded on
 
-Flags are the reference's, less ``--mesh`` and ``--class-sharded`` (one
-card; the class-sharded step is not ported, so ``class_sharded`` is
-always false and ``shard_classes`` null), plus ``--device`` and
-``--seed``; ``--seq`` defaults to 512.
+Flags are the reference's (with its defaults), plus ``--device`` and
+``--seed``.  ``--class-sharded auto`` never takes the mixed step, since
+the port never puts pods on separate cards (``launch.mesh.resolve_pods``);
+``on`` runs the pods as streams on one card (the summary's ``shard_classes`` lists each pod's class,
+block source and kernel).  ``--mesh 16x16`` / ``2x16x16`` (the
+reference's FSDP meshes over 256 / 512 TPU chips) raise: one card has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import time
 from repro_torch.configs import get_config
 from repro_torch.core import execution
 from repro_torch.core.asymmetric import AsymmetricMesh, DeviceClass, biglittle_classes
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, resolve_pods
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.serving import resolve_device
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -46,13 +55,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--strategy", default="ca-das",
                     choices=["sss", "sas", "ca-sas", "das", "ca-das", "none"])
     ap.add_argument("--heterogeneous", action="store_true",
                     help="simulate a big+little two-pod fleet for the scheduler")
+    ap.add_argument("--mesh", default="host", choices=["host", "16x16", "2x16x16"])
+    ap.add_argument("--class-sharded", default="auto", choices=["auto", "on", "off"],
+                    help="per-class programs in one step, the pods as CUDA streams on "
+                         "one card; auto = off (pods never get cards of their own)")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -77,8 +90,16 @@ def make_trainer(args, cfg=None, **hooks) -> Trainer:
             else [DeviceClass("pod0", chips_per_pod=1), DeviceClass("pod1", chips_per_pod=1)]
         )
         asym = AsymmetricMesh(classes, strategy=args.strategy, batch_tile=2)
-    # The asymmetric mesh's primary control tree governs every GEMM of the
-    # step; homogeneous runs get the default single-class context.
+    if args.mesh == "host":
+        # The class-sharded step needs a pod axis: give the mesh one when
+        # the run wants the mixed step.
+        mesh = (resolve_pods(args.class_sharded, asym, device) if asym is not None else None) \
+            or make_host_mesh(device=device)
+    else:
+        mesh = make_production_mesh(multi_pod=args.mesh == "2x16x16")
+    # The asymmetric mesh's primary control tree governs every GEMM of a
+    # single-context step; homogeneous runs get the default single-class
+    # context.
     exec_ctx = asym.execution_context() if asym is not None else execution.default_context()
     tcfg = TrainerConfig(
         steps=args.steps,
@@ -87,9 +108,11 @@ def make_trainer(args, cfg=None, **hooks) -> Trainer:
         ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every,
         n_micro=args.n_micro,
+        class_sharded={"auto": None, "on": True, "off": False}[args.class_sharded],
     )
     return Trainer(cfg, tcfg=tcfg, opt_cfg=AdamWConfig(lr=args.lr, total_steps=args.steps),
-                   asym=asym, exec_ctx=exec_ctx, seed=args.seed, device=device, **hooks)
+                   asym=asym, exec_ctx=exec_ctx, seed=args.seed, device=device, mesh=mesh,
+                   **hooks)
 
 
 def main(argv=None) -> dict:
@@ -99,13 +122,14 @@ def main(argv=None) -> dict:
     trainer = make_trainer(args)
     t0 = time.time()
     history = trainer.run()
-    ctx, asym = trainer.exec_ctx, trainer.asym
+    ctx, asym, step = trainer.exec_ctx, trainer.asym, trainer.class_sharded_step
     out = {
         "arch": trainer.arch.name,
         "device_class": ctx.device_class,
         "exec_backend": ctx.backend(),
-        "class_sharded": False,
-        "shard_classes": None,
+        "class_sharded": trainer.class_sharded_enabled(),
+        "shard_classes": None if step is None else [
+            (p.pod, p.device_class, p.block_source, p.backend) for p in step.provenance],
         "steps": len(history),
         "first_loss": history[0]["loss"],
         "last_loss": history[-1]["loss"],

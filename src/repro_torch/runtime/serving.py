@@ -1,12 +1,19 @@
 """Persistent asymmetric serving runtime: slot table + per-class queues.
 
-The port's counterpart of ``repro.runtime.serving.ServingEngine`` on its
-single-program path (one card: the whole slot table decodes under the
-fastest class's control tree, as the reference does whenever it has
-fewer devices than pods).  What carries over:
+The port's counterpart of ``repro.runtime.serving.ServingEngine``.  What
+carries over:
 
   * **Fixed pod-major slot table** — ``n_pods × c_max`` decode slots; pod
     *i* owns ``[i·c_max, (i+1)·c_max)``.
+  * **Class-sharded mixed step** (``class_sharded="on"``) — each pod
+    decodes its slot region under its
+    own class's control tree, on its own CUDA stream
+    (``AsymmetricMesh.class_sharded``): the step, the bulk prefill and
+    the merge run per pod on its rows, and the paged arena splits into
+    the pods' page partitions, each pod's table holding pod-local page
+    ids (``PagePool.localize``).  Otherwise (``"auto"`` or ``"off"``;
+    see ``launch.mesh.resolve_pods``) the whole slot table decodes under
+    the fastest class's tree.
   * **Paged KV pool** (``paged="auto"|"on"``) — a fixed arena of pages and
     a page-index list per slot (:mod:`repro_torch.runtime.paging`); pages
     are reserved all-or-nothing at admission and freed at retirement.
@@ -45,8 +52,7 @@ private lane per slot for MoE (capacity routing couples the rows of a
 group, so pad lanes must own their content as dense lanes do).  Retired
 lanes are marked dead via ``live`` in both engines.
 
-Waiting for later slices: the class-sharded mixed step (never taken on
-one card) and the fleet surface.
+Waiting for a later slice: the fleet surface.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core.asymmetric import AsymmetricMesh
 from repro_torch.core.schedule import deficit_route
+from repro_torch.launch.mesh import resolve_pods
 from repro_torch.models import model_zoo as Z
 from repro_torch.models import transformer as TX
 from repro_torch.observability import metrics as MET
@@ -154,6 +161,18 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _merge_lanes(old: dict, new: dict, take_new: torch.Tensor) -> None:
+    """Copy the lanes in ``take_new`` of ``new`` into ``old``, in place.
+    The slot dim of every leaf of the state tree (KV lanes, the Mamba2
+    state, the hybrid's shared-block cache) is 1."""
+
+    for name, leaf in old.items():
+        if isinstance(leaf, dict):
+            _merge_lanes(leaf, new[name], take_new)
+        else:
+            leaf[:, take_new] = new[name][:, take_new]
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on; ``cuda`` without a card raises."""
 
@@ -239,6 +258,10 @@ class ServingEngine:
     asym : the asymmetric mesh (scheduling state; per-class control trees).
     seq_cap : per-slot cache length (prompt + generation must fit).
     slots_per_pod : ``c_max`` — each pod's fixed slot-region size.
+    class_sharded : "auto" (default) | "on" | "off", resolved by
+        :func:`~repro_torch.launch.mesh.resolve_pods`: "on" runs the
+        mixed step, ``asym.n_pods`` pods sharing ``device`` as streams
+        (more than one class); "auto" and "off" never take it.
     paged : "off" (default) | "auto" | "on" — the paged KV pool.  "auto"
         pages every pure KV-cache family and stays dense where paging is
         unsupported (Mamba2 / hybrid state); "on" raises there.
@@ -266,6 +289,7 @@ class ServingEngine:
         *,
         seq_cap: int,
         slots_per_pod: int = 4,
+        class_sharded: str = "auto",
         paged: Union[str, bool] = "off",
         page_size: Optional[int] = None,
         pool_pages: Optional[int] = None,
@@ -299,6 +323,9 @@ class ServingEngine:
             _hook_takes_units(pod_time_hook) if pod_time_hook is not None else False
         )
         self._tps_ema: Optional[float] = None
+
+        self.mesh = resolve_pods(class_sharded, asym, self.device)
+        self.mixed = self.mesh is not None
 
         # -- per-class request queues fed by the admission router ----------
         self.queues: list[collections.deque] = [collections.deque() for _ in asym.classes]
@@ -372,8 +399,29 @@ class ServingEngine:
         self._prefill_compiled: set[int] = set()
         self._ctx = asym.execution_context()
         self.prefill_logits: Optional[torch.Tensor] = None
-        self._decode = Z.make_decode_fn(cfg)
-        self._bulk = Z.bulk_prefill_from_decode(self._decode)
+        self._build()
+
+    def _build(self):
+        """The decode step, class-sharded over the pods' slot regions when
+        mixed, and the bulk prefill through it."""
+
+        decode, merge = Z.make_decode_fn(self.cfg), _merge_lanes
+        if self.mixed:
+            from repro_torch.distributed.sharding import PodSplit, pod_decode_specs
+
+            keys = ("tokens", "page_table", "live") if self.paged else ("tokens", "live")
+            in_specs, out_specs = pod_decode_specs(self.state, batch_keys=keys)
+            decode = self.asym.class_sharded(decode, mesh=self.mesh, in_specs=in_specs,
+                                             out_specs=out_specs)
+            sspecs = in_specs[2]
+            merge = self.asym.class_sharded(merge, mesh=self.mesh, out_specs=None,
+                                            in_specs=(sspecs, sspecs, PodSplit(0)))
+            self.provenance = decode.provenance
+        else:
+            self.provenance = None
+        self._decode = decode
+        self._bulk = Z.bulk_prefill_from_decode(decode)
+        self._merge_state = merge
 
     # -- device programs ----------------------------------------------------
 
@@ -400,21 +448,22 @@ class ServingEngine:
     def _merge(self, fresh, new_tokens, take_new: torch.Tensor):
         """Lanes in ``take_new`` — the admitted slots plus every free
         (phantom) lane — take their freshly prefilled lane wholesale; busy
-        slots keep theirs bit for bit.  The slot dim of every leaf of the
-        state tree (KV lanes, the Mamba2 state, the hybrid's shared-block
-        cache) is 1."""
+        slots keep theirs bit for bit (per pod on its slot region under
+        the mixed step)."""
 
-        def merge(old, new):
-            for name, leaf in old.items():
-                if isinstance(leaf, dict):
-                    merge(leaf, new[name])
-                else:
-                    leaf[:, take_new] = new[name][:, take_new]
-
-        merge(self.state, fresh)
+        with torch.no_grad():
+            self._merge_state(self.state, fresh, take_new)
         self.tokens = torch.where(take_new[:, None], new_tokens, self.tokens)
 
     # -- page-table assembly (paged mode only; host-side, O(B·W)) -----------
+
+    def _localize(self, table: np.ndarray) -> np.ndarray:
+        """Pod-local page ids under the mixed step: each pod's shard of the
+        arena is its page partition."""
+
+        if not self.mixed:
+            return table
+        return self.pool.localize(table, self._pod_of_row)
 
     def _step_table(self) -> np.ndarray:
         """The decode step's (B, W) page table: busy slots read their own
@@ -424,7 +473,7 @@ class ServingEngine:
         table = self.phantom[self._phantom_rows_idx].copy()
         table[busy] = self.pool.table[busy]
         table[~busy & ~self._live] = SENTINEL
-        return table
+        return self._localize(table)
 
     # -- admission router ----------------------------------------------------
 
@@ -635,7 +684,7 @@ class ServingEngine:
                 table[slot] = self.pool.table[slot]
             pbatch = {
                 "tokens": self._t(prompts, torch.int32),
-                "page_table": self._t(table, torch.int32),
+                "page_table": self._t(self._localize(table), torch.int32),
                 "live": live_all,
             }
             # In place through the page tables: busy slots' rows point at
@@ -847,21 +896,35 @@ class ServingEngine:
 
     # -- telemetry (every method below only runs while tracing is enabled) ----
 
-    def _shard_tags(self) -> dict:
-        """Provenance tags of the decode-shard span: the one program runs
-        under the fastest class's tree on every pod."""
+    def _shard_tags(self) -> list[dict]:
+        """Per-class provenance tags for decode-shard spans: device class,
+        backend variant, block_source, and the pods running it (every pod
+        under the fastest class's tree off the mixed step)."""
 
-        ctx = self._ctx
-        return {"device_class": ctx.device_class, "backend": ctx.backend(),
-                "block_source": ctx.tree.block_source}
+        by_class: dict[str, dict] = {}
+        if self.mixed:
+            for p in self.provenance:
+                t = by_class.setdefault(p.device_class, {
+                    "device_class": p.device_class, "backend": p.backend,
+                    "block_source": p.block_source, "pods": []})
+                t["pods"].append(p.pod)
+        else:
+            ctx = self._ctx
+            by_class[ctx.device_class] = {
+                "device_class": ctx.device_class, "backend": ctx.backend(),
+                "block_source": ctx.tree.block_source, "pods": list(range(self.n_pods))}
+        return list(by_class.values())
 
     def _record_step_telemetry(self, t0, dt, n_active, active_mask, step_idx):
         m = _metrics()
         T.complete("engine.decode_step", t0, dt, cat="engine",
                    step=step_idx, active=n_active)
         per_pod = self._pod_active_before(active_mask)
-        T.complete("engine.decode_shard", t0, dt, cat="engine",
-                   **self._shard_tags(), slots=int(sum(per_pod)))
+        for tags in self._shard_tags():
+            T.complete("engine.decode_shard", t0, dt, cat="engine",
+                       device_class=tags["device_class"], backend=tags["backend"],
+                       block_source=tags["block_source"],
+                       slots=int(sum(per_pod[p] for p in tags["pods"])))
         for ci, c in enumerate(self.asym.classes):
             m["queue_depth"].labels(device_class=c.name).set(len(self.queues[ci]))
         for pod, occ in enumerate(per_pod):

@@ -1,5 +1,5 @@
 """Fault-tolerant asymmetric training loop on one card (the port's
-``repro.runtime.trainer``, its single-class path).
+``repro.runtime.trainer``).
 
 Composes:
 
@@ -9,21 +9,25 @@ Composes:
     ``ops.gemm`` in both directions (``kernels/ops.GemmFn``); the MoE
     experts and the Mamba2 projections are plain products, as in the
     reference,
-  * class-routed execution: the whole step runs under one
+  * class-routed execution: on a multi-class mesh with a pod axis the
+    step runs *class-sharded* — every pod's rows of the batch run under
+    its own class's control tree, on its own CUDA stream, and a
+    mask-weighted sum of the pods' gradients keeps the update the global
+    masked mean (true CA-SAS, :func:`build_class_sharded_grad_step`);
+    otherwise the whole step runs under one
     :class:`~repro_torch.core.execution.ExecutionContext`, the asymmetric
-    mesh's primary class by default, so its control tree picks each
-    GEMM's kernel and blocks, forward, recompute and backward,
+    mesh's primary class by default.  Either way each class's tree picks
+    its GEMMs' kernel and blocks, forward, recompute and backward,
   * gradient accumulation and AdamW on fp32 masters (``optim/adamw.py``),
   * checkpoint/restart: a step-0 baseline and a save every ``ckpt_every``
     steps; a :class:`SimulatedFailure` restores the newest committed step
     and the loop replays from there (the data is seeded by step),
   * straggler feedback: per-pod step times feed the CA-DAS scheduler,
-    which re-derives the next step's batch shares.
+    which re-derives the next step's batch shares,
+  * elastic re-placement: :meth:`Trainer.reshard` rebuilds the step for
+    another pod mesh, the state left in place.
 
-Left out on one card: the class-sharded step (per-class programs in one
-step, ROADMAP Queue 1's class-sharded mixed step: ``class_sharded=True``
-raises) and
-``reshard``; ``fsdp`` is accepted and has no effect (nothing is sharded).
+``fsdp`` is accepted and has no effect (nothing is sharded on one card).
 It trains the families whose batches ``SyntheticLM`` gives (tokens and
 labels): dense, MoE (the router's auxiliary loss in the gradient), Mamba2
 and hybrid.  The enc-dec family (``frames``) and embedding inputs
@@ -45,8 +49,10 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ArchConfig
 from repro_torch.core.asymmetric import AsymmetricMesh
-from repro_torch.core.execution import ExecutionContext
+from repro_torch.core.execution import ClassShardedFn, ExecutionContext
 from repro_torch.data.pipeline import AsymmetricBatcher, SyntheticLM
+from repro_torch.distributed.sharding import PodSplit
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model_zoo as Z
 from repro_torch.observability import metrics as MET
 from repro_torch.observability import trace as T
@@ -81,9 +87,122 @@ class TrainerConfig:
     # The reference's parameter-sharding switch, kept so its configs carry
     # over; nothing is sharded on one card, so it has no effect here.
     fsdp: bool = True
-    # The class-sharded step is not ported: None and False run the single
-    # primary-class step, True raises.
+    # True CA-SAS: per-class programs within one step (a stream per pod).
+    # None = auto (on when the asym mesh has more than one class and the
+    # mesh a matching pod axis); False = always the single primary-class
+    # context; True = required (raises if the mesh cannot support it).
     class_sharded: Optional[bool] = None
+
+
+def _shard_weight(batch) -> torch.Tensor:
+    """Valid-token weight of a batch (or micro-batch): the mask's sum, or
+    the row count when the batch carries no mask (every row valid)."""
+
+    if "mask" in batch:
+        return batch["mask"].sum().to(torch.float32)
+    first = next(iter(batch.values()))
+    return torch.tensor(float(first.shape[0]), dtype=torch.float32, device=first.device)
+
+
+def _masked_micro_grads(loss_fn, params, batch, n_micro: int):
+    """Micro-batch accumulation weighted by per-micro valid tokens.
+
+    Returns the shard's *exact* masked mean ``(loss, metrics, grads)`` —
+    ``Σ_j w_j·x_j / Σ_j w_j`` over micro-batches — so a fully-padded
+    micro-batch contributes nothing and the cross-pod ``w_i/W`` scaling
+    composes to the global masked mean.  (``accumulate_gradients`` takes
+    the unweighted micro mean, exact only when every micro-batch has the
+    same valid count.)
+    """
+
+    b = next(iter(batch.values())).shape[0]
+    if b % n_micro:
+        raise ValueError(f"n_micro={n_micro} does not divide the shard's {b} rows")
+    size = b // n_micro
+    acc_g = acc_l = acc_w = None
+    ms, ws = [], []
+    for j in range(n_micro):
+        mb = {k: v[j * size:(j + 1) * size] for k, v in batch.items()}
+        loss, metrics, grads = O.value_and_grad(loss_fn, params, mb)
+        w = _shard_weight(mb)
+        if acc_g is None:
+            acc_g = O.tree_map(lambda g: w * g.float(), grads)
+            acc_l, acc_w = w * loss, w
+        else:
+            O.tree_map(lambda a, g: a.add_(w * g.float()), acc_g, grads)
+            acc_l, acc_w = acc_l + w * loss, acc_w + w
+        ms.append(metrics)
+        ws.append(w)
+        del grads
+    denom = torch.clamp(acc_w, min=1.0)
+    grads = O.tree_map(lambda g: g / denom, acc_g)
+    metrics = {k: sum(m[k] * w for m, w in zip(ms, ws)) / denom for k in ms[0]}
+    return acc_l / denom, metrics, grads
+
+
+def weighted_mean_epilogue(outs, shard_args, axis):
+    """The class-sharded step's cross-pod reduction, after the pods join.
+
+    With ``w_i`` pod *i*'s valid tokens and ``W = Σ w_i``: ``loss = Σ
+    (w_i/W)·loss_i``, and likewise the metrics and the gradients (each
+    pod's term cast back to its dtype, as the reference's ``psum`` of
+    ``g·scale`` does), so the result is the global masked mean; a pod with
+    no valid rows contributes zero.  ``axis=None`` is the single-class
+    fallback, whose ``outs`` is already the global mean.
+    """
+
+    if axis is None:
+        return outs
+    ws = [_shard_weight(batch) for _, batch in shard_args]
+    total = sum(ws)
+    scales = [torch.where(total > 0, w / torch.clamp(total, min=1.0), torch.zeros_like(w))
+              for w in ws]
+    loss = sum(out[0] * s for out, s in zip(outs, scales))
+    metrics = {k: sum(out[1][k] * s for out, s in zip(outs, scales)) for k in outs[0][1]}
+    grads = O.tree_map(lambda *gs: sum((g * s).to(g.dtype) for g, s in zip(gs, scales)),
+                       *[out[2] for out in outs])
+    return loss, metrics, grads
+
+
+def build_class_sharded_grad_step(
+    loss_fn,
+    asym: AsymmetricMesh,
+    mesh,
+    *,
+    n_micro: int = 1,
+    axis: str = "pod",
+) -> ClassShardedFn:
+    """``(params, batch) -> (loss, metrics, grads)`` with per-class programs.
+
+    Each pod's rows of the batch (pod-major, ``c_max`` rows a pod, as
+    ``AsymmetricBatcher`` lays them out) take their *local* loss and
+    gradients under the pod's own class's control tree, on the pod's own
+    stream: ``torch.autograd.grad`` returns each pod's own gradient tree
+    (nothing accumulates into a shared ``.grad``), and ``ops.GemmFn`` runs
+    each pod's backward on the kernel of its forward's context.  After the
+    pods join, :func:`weighted_mean_epilogue` reduces them to the global
+    masked mean on the caller's stream.
+
+    With ``n_micro > 1`` the local accumulation weights each micro-batch
+    by *its* valid tokens (:func:`_masked_micro_grads`): a shard's padding
+    sits in its tail micro-batches, and the unweighted micro mean would
+    deflate that shard's loss and gradients before the ``w_i/W`` scaling.
+    ``n_micro`` must divide the per-shard (not global) row count.
+    """
+
+    def local_grads(params, batch):
+        if n_micro <= 1:
+            return O.accumulate_gradients(loss_fn, params, batch, 1)
+        return _masked_micro_grads(loss_fn, params, batch, n_micro)
+
+    return asym.class_sharded(
+        local_grads,
+        mesh=mesh,
+        in_specs=(None, PodSplit(0, axis)),   # params whole, batch rows per pod
+        out_specs=(None, None, None),         # reduced by the epilogue
+        axis=axis,
+        epilogue=weighted_mean_epilogue,
+    )
 
 
 class Trainer:
@@ -99,6 +218,7 @@ class Trainer:
         pod_time_hook: Optional[Callable[[int], list]] = None,
         seed: int = 0,
         device="cuda",
+        mesh=None,
         params: Optional[dict] = None,
         opt_state: Optional[dict] = None,
     ):
@@ -107,16 +227,19 @@ class Trainer:
             raise ValueError(f"{arch.name}: its batches need {missing!r}, which the trainer's "
                              "SyntheticLM data does not give (the reference's trainer fails "
                              f"with KeyError: {missing!r} at its first step)")
-        if tcfg.class_sharded:
-            raise ValueError("class_sharded=True: the class-sharded mixed step is not "
-                             "ported (ROADMAP Queue 1)")
         self.arch = arch
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or O.AdamWConfig(total_steps=tcfg.steps)
         self.asym = asym
-        # The ambient context of the whole step: the asymmetric mesh's
-        # primary (fastest) class; with no asym mesh the pre-context
-        # defaults apply.
+        self.device = torch.device(device)
+        # The pod mesh (``launch.mesh``); the default has no pod axis, so
+        # the step runs under one context unless a caller gives pods.
+        self.mesh = mesh if mesh is not None else make_host_mesh(device=self.device)
+        # Ambient context for the non-class-sharded paths (the whole step
+        # when the mixed path is off): the asymmetric mesh's primary
+        # (fastest) class; with no asym mesh the pre-context defaults
+        # apply.  Under the class-sharded step each pod enters its own
+        # class's context on top of this one (innermost wins).
         self.exec_ctx = exec_ctx if exec_ctx is not None else (
             asym.execution_context() if asym is not None else None
         )
@@ -124,37 +247,86 @@ class Trainer:
         self.pod_time_hook = pod_time_hook
         self.ckpt = Checkpointer(tcfg.ckpt_dir)
         self.restarts = 0
-        self.device = torch.device(device)
 
         self.data = SyntheticLM(vocab=arch.vocab, seed=seed)
         self.batcher = AsymmetricBatcher(self.data, asym) if asym else None
 
+        self.loss_fn = Z.make_loss_fn(arch)
+        self._build_step()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = O.tree_map(lambda p: p.requires_grad_(True),
                                 Z.init_params(arch, gen, self.device, dtype=torch.float32))
         self.params = params
         self.opt_state = opt_state if opt_state is not None else O.init_opt_state(params)
-        self.loss_fn = Z.make_loss_fn(arch)
         self.step = 0
 
     def _execution(self):
         return self.exec_ctx if self.exec_ctx is not None else contextlib.nullcontext()
 
+    def class_sharded_enabled(self) -> bool:
+        """Is the per-class-programs step active?
+
+        Auto mode requires a multi-class asym mesh *and* a mesh whose
+        ``pod`` axis matches the pod count (and no other axis above 1);
+        ``class_sharded=True`` makes a mismatch an error instead of a
+        silent fallback.
+        """
+
+        flag = self.tcfg.class_sharded
+        if flag is False or self.asym is None:
+            return False
+        shape = dict(self.mesh.shape)
+        ok = len(self.asym.classes) > 1 and shape.get("pod") == self.asym.n_pods
+        if flag is True and not ok:
+            raise ValueError(
+                "class_sharded=True requires a multi-class AsymmetricMesh "
+                f"and a mesh pod axis of size {self.asym.n_pods}; mesh axes={shape}"
+            )
+        if flag is None:
+            intra = 1
+            for a, n in shape.items():
+                if a != "pod":
+                    intra *= n
+            ok = ok and intra == 1
+        return ok
+
+    def _build_step(self):
+        """The class-sharded gradient step when the mesh allows it, else
+        ``None`` (the single-context step)."""
+
+        self.class_sharded_step = (
+            build_class_sharded_grad_step(self.loss_fn, self.asym, self.mesh,
+                                          n_micro=self.tcfg.n_micro)
+            if self.class_sharded_enabled() else None
+        )
+
     def train_step(self, batch) -> dict:
-        """One step under the ambient context: the gradients (accumulated
-        over ``n_micro`` micro-batches), then AdamW in place; returns the
+        """One step under the ambient context: the gradients (per pod
+        under its class's tree when class-sharded, else accumulated over
+        ``n_micro`` micro-batches), then AdamW in place; returns the
         metrics as tensors."""
 
         with self._execution():
-            loss, metrics, grads = O.accumulate_gradients(
-                self.loss_fn, self.params, batch, self.tcfg.n_micro)
+            if self.class_sharded_step is not None:
+                loss, metrics, grads = self.class_sharded_step(self.params, batch)
+            else:
+                loss, metrics, grads = O.accumulate_gradients(
+                    self.loss_fn, self.params, batch, self.tcfg.n_micro)
             self.params, self.opt_state, om = O.adamw_update(
                 self.params, grads, self.opt_state, self.opt_cfg)
         metrics = dict(metrics)
         metrics.update(om)
         metrics["loss"] = loss
         return metrics
+
+    def reshard(self, new_mesh):
+        """Elastic re-placement: the step rebuilt for ``new_mesh`` (pods
+        joining or leaving between steps).  On one card the params and
+        optimizer state stay where they are: nothing is sharded."""
+
+        self.mesh = new_mesh
+        self._build_step()
 
     # -- data ---------------------------------------------------------------
 
@@ -228,4 +400,10 @@ class Trainer:
         return history
 
 
-__all__ = ["SimulatedFailure", "Trainer", "TrainerConfig"]
+__all__ = [
+    "SimulatedFailure",
+    "Trainer",
+    "TrainerConfig",
+    "build_class_sharded_grad_step",
+    "weighted_mean_epilogue",
+]

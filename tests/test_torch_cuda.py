@@ -723,3 +723,55 @@ def test_training_step_launch_formula(cuda, arch, per_step):
     assert G.LAUNCHES["gemm_cuda"] == per_step and G.LAUNCHES["gemm_cuda_lean"] == 0
     assert FA.LAUNCHES["flash_attention_cuda"] == 0
     assert math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in O.tree_leaves(grads))
+
+
+# ---------------------------------------------------------------------------
+# The class-sharded step: pods as streams on the one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_mixed_gemm_step_on_two_streams_equals_each_pod_alone(cuda):
+    """The big pod's rows on ``gemm_cuda`` and the little pod's on
+    ``gemm_cuda_lean``, each on its own stream: bitwise each pod's rows
+    run alone on the default stream under its own class."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.distributed.sharding import PodSplit
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    am = AsymmetricMesh(biglittle_classes(chips_per_pod=1), tree_shape=(1024, 1024, 1024))
+    assert am.class_backends() == {"big": "cuda", "little": "cuda_lean"}
+    mesh = make_host_mesh(pod=2, device=cuda)
+    step = am.class_sharded(lambda x, w: ops.gemm(x, w), mesh=mesh,
+                            in_specs=(PodSplit(0), None), out_specs=PodSplit(0))
+    streams = mesh.pod_streams()
+    assert len({s.stream_id for s in streams} | {torch.cuda.current_stream().stream_id}) == 3
+    a, b = _operands(cuda, 2 * 384, 2048, 2048, seed=3)
+    G.reset_launches()
+    out = step(a, b)
+    assert G.LAUNCHES == {"gemm_cuda": 1, "gemm_cuda_lean": 1}
+    for pod, cls in enumerate(("big", "little")):
+        with am.execution_context(cls):
+            alone = ops.gemm(a[pod * 384:(pod + 1) * 384], b)
+        torch.cuda.synchronize()
+        assert torch.equal(out[pod * 384:(pod + 1) * 384], alone), cls
+
+
+@pytest.mark.cuda
+def test_paged_attention_on_a_side_stream_equals_the_default_stream(cuda):
+    """The paged kernel (and its split workspace) on a non-default stream:
+    bitwise its output on the default stream."""
+
+    case = (12, 16, 8, 128, 64, 64, "full")
+    q, pk, pv, table, pos = _paged_operands(cuda, case)
+    want = PA.paged_attention_cuda(q, pk, pv, table, pos)
+    assert PA.split_plan(12, 8, 64, 64, PA.sm_count(cuda)).n_split > 1  # the workspace is used
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = PA.paged_attention_cuda(q, pk, pv, table, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -83,7 +83,8 @@ def test_port_covers_the_slice_modules():
         "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.data",
         "repro_torch.data.pipeline", "repro_torch.checkpoint",
         "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.trainer",
-        "repro_torch.launch.train",
+        "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.distributed",
+        "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):
