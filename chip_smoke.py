@@ -196,14 +196,34 @@ Phases (any failed check exits non-zero and prints no result line):
      ``gemm_cuda`` and 675 ``gemm_cuda_lean`` each; step ms, tokens/s and
      peak memory beside phase 16's; then ``gemm_backward_check`` at a
      pod's shapes (M = 6 x 512).
+ 22. the fault-tolerant fleet serving the full-width internlm2-1.8b (phase
+     2's weights, shared by the engines of a lane, each engine built as
+     ``launch/serve._fleet`` builds it, paged, 4 slots) on bench_fleet's
+     bursty trace (3 bursts of 8 requests 4 ticks apart, prompts of 16, 32
+     and 48 tokens, 16 new tokens each): the single engine (the yardstick),
+     a fleet of 2 with no fault (one tick traced: wall and device busy ms),
+     engine 0 killed at tick 6 (queue migrated, in-flight retried; driven
+     through ``run_async`` with every request streamed, the chunks joined
+     to its tokens; the survivor's post-kill rate beside the single
+     engine's, on the modeled clock), ``engine_stall``, ``admission_fail``
+     and ``latency_spike`` on engine 0 at tick 2 for 3 ticks (the first
+     burst), a big-only engine (``gemm_cuda``) beside a little-only one
+     (``gemm_cuda_lean``), and ``launch/serve.py --fleet 2`` against phase
+     2's tokens.  Every lane: each request completes exactly once, its
+     tokens and the logits behind each of them (read around each engine's
+     decode and prefill) bitwise equal to a single engine's of its class;
+     169 GEMMs and 24 ``paged_attention_cuda`` a recurrence step an engine;
+     no tensor of the path off the card.  A planted fault (engine 1 with
+     the middle layer's ``wo`` scaled by 1.01) must differ in the logits
+     of every request it served.
  Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
  of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
 Each of phases 2-4, the forward of phase 7, the steps of phase 8, the
 engines and the kernel step of phases 11 and 12, the paths of phases
 13-15, the training runs and little-tree steps of phases 16-17, the
-training runs of phase 18, the steps of phase 19 and the paths and steps
-of phases 20-21 resets the kernels' launch counters just before it and
+training runs of phase 18, the steps of phase 19, the paths and steps
+of phases 20-21 and the lanes of phase 22 resets the kernels' launch counters just before it and
 reads them just after; the launches of phases 1, 5, 6, 10 and the
 comparisons of phases 7, 8, 11, 12, 13-15 and 20 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
@@ -3722,6 +3742,459 @@ def phase21(torch, counts, reset, train16: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the fault-tolerant fleet
+# ---------------------------------------------------------------------------
+
+# bench_fleet's lanes at full width, on its bursty trace: FLEET_BURSTS bursts
+# of FLEET_BURST requests FLEET_GAP ticks apart, prompt lengths cycling over
+# FLEET_PLENS, FLEET_GEN new tokens each, on engines of FLEET_SLOTS slots
+# (bench_fleet's 2 pods x 2), paged in pages of PAGE_SIZE; a row's cache (64
+# tokens) stays under paged attention's MIN_SPLIT, so each call runs one split.
+# A recurrence step (a prefill position or a decode step) costs the host about
+# 60 ms, so the fault-matrix lanes and the planted fault serve the first burst
+# only.
+FLEET_BURSTS, FLEET_BURST, FLEET_GAP = 3, 8, 4
+FLEET_PLENS, FLEET_GEN, FLEET_SLOTS = (16, 32, 48), 16, 4
+FLEET_KILL_TICK, FLEET_TRACE_TICK = 6, 2
+FLEET_FAULTS = ("engine_stall", "admission_fail", "latency_spike")
+# The planted fault: engine 1 of a 2-engine fleet runs with the middle
+# layer's attention output projection scaled by this factor.
+FLEET_FAULT_SCALE = 1.01
+
+
+def fleet_trace(cfg) -> list:
+    """``[(arrival tick, prompt), ...]``, the same for every lane."""
+
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    trace = []
+    for b in range(FLEET_BURSTS):
+        for i in range(FLEET_BURST):
+            plen = FLEET_PLENS[(b * FLEET_BURST + i) % len(FLEET_PLENS)]
+            trace.append((b * FLEET_GAP, rng.integers(0, cfg.vocab, (plen,), dtype=np.int32)))
+    return trace
+
+
+def fleet_engine(cfg, params, device, classes=None, backend="auto"):
+    """One engine as ``launch/serve._fleet`` builds it (its own mesh, the
+    shared ``params``), paged, with FLEET_SLOTS slots over its pods."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.runtime.serving import ServingEngine
+
+    classes = classes or biglittle_classes(chips_per_pod=1)
+    asym = AsymmetricMesh(classes, strategy="ca-das", batch_tile=1, backend=backend)
+    return ServingEngine(cfg, params, asym, seq_cap=max(FLEET_PLENS) + FLEET_GEN,
+                         slots_per_pod=FLEET_SLOTS // len(classes), paged="on", page_size=PAGE_SIZE,
+                         device=device)
+
+
+class FleetLog:
+    """Counts each engine's recurrence steps (prefill positions and decode
+    steps) and keeps the logits behind every generated token, read around
+    the engine's decode and bulk prefill, by ``(engine, engine rid)``."""
+
+    def __init__(self, engines):
+        self.steps = [0] * len(engines)
+        self.rows: dict = {}
+        for e, eng in enumerate(engines):
+            self._wrap(e, eng)
+
+    def _keep(self, e, eng, logits, admitted_only: bool):
+        import numpy as np
+
+        for slot in np.nonzero(eng.slot_rid >= 0)[0]:
+            if admitted_only and int(slot) in eng._slot_req:
+                continue  # a busy row: the round's prefill logits are not its
+            self.rows.setdefault((e, int(eng.slot_rid[slot])), []).append(logits[slot, -1])
+
+    def _wrap(self, e, eng):
+        decode, prefill = eng._decode, eng._prefill_program
+
+        def counted_decode(params, batch, state, pos):
+            logits, state = decode(params, batch, state, pos)
+            self.steps[e] += 1
+            self._keep(e, eng, logits, admitted_only=False)
+            return logits, state
+
+        def counted_prefill(batch, state, plens):
+            out = prefill(batch, state, plens)
+            self.steps[e] += batch["tokens"].shape[1]
+            self._keep(e, eng, eng.prefill_logits, admitted_only=True)
+            return out
+
+        eng._decode, eng._prefill_program = counted_decode, counted_prefill
+
+    def by_rid(self, torch, fleet) -> dict:
+        """``{fleet rid: (tokens, (FLEET_GEN, V) logits, engine)}`` of the
+        completed requests (an engine completion is matched to the fleet's
+        by its token array, which the fleet hands on as is)."""
+
+        import numpy as np
+
+        done = {id(c.tokens): c for c in fleet.completions}
+        out = {}
+        for e, eng in enumerate(fleet.engines):
+            for ec in eng.completions:
+                fc = done[id(ec.tokens)]
+                rows = self.rows[(e, ec.rid)]
+                check(len(rows) == len(fc.tokens) - fc.prompt_len,
+                      f"phase 22: request {fc.rid} kept {len(rows)} logits rows")
+                out[fc.rid] = (np.asarray(fc.tokens), torch.stack(rows), e)
+        return out
+
+
+def fleet_differ(torch, got: dict, want: dict, rids=None) -> tuple[list, list]:
+    """The rids whose tokens, and those whose logits, differ bitwise."""
+
+    import numpy as np
+
+    rids = sorted(want) if rids is None else rids
+    toks = [r for r in rids if not np.array_equal(got[r][0], want[r][0])]
+    logits = [r for r in rids if not torch.equal(got[r][1], want[r][1])]
+    return toks, logits
+
+
+def fleet_drive(torch, fleet, trace, log, *, plan=None, snap_engine=None, trace_tick=None):
+    """bench_fleet's ``drive``: submit by the arrival trace, tick to the
+    end.  Returns ``(wall_s, postkill, traced)``: the survivor's (tokens,
+    modeled s) from the kill tick on, and the traced tick's reading (the
+    profiler's own set-up and tear-down are left out of ``wall_s``)."""
+
+    import contextlib
+
+    from repro_torch.runtime import faults
+
+    snap = traced = None
+    overhead = 0.0
+    sync(torch, fleet.engines[0].device)
+    t0 = time.perf_counter()
+    with faults.injected(plan) if plan is not None else contextlib.nullcontext():
+        i = tick = 0
+        while True:
+            while i < len(trace) and trace[i][0] <= tick:
+                fleet.submit(trace[i][1], FLEET_GEN)
+                i += 1
+            if i >= len(trace) and len(fleet.completions) == len(trace):
+                break
+            if snap_engine is not None and tick == FLEET_KILL_TICK - 1:
+                e = fleet.engines[snap_engine]
+                snap = (e.stats.tokens, e.stats.modeled_decode_s)
+            if tick + 1 == trace_tick:
+                t1 = time.perf_counter()
+                traced = fleet_traced_tick(torch, fleet, log)
+                overhead = time.perf_counter() - t1 - traced["wall_ms"] / 1e3
+            else:
+                fleet.tick()
+            tick += 1
+            check(tick <= 10_000, "phase 22: the fleet failed to converge")
+    sync(torch, fleet.engines[0].device)
+    wall = time.perf_counter() - t0 - overhead
+    postkill = None
+    if snap is not None:
+        e = fleet.engines[snap_engine]
+        postkill = (e.stats.tokens - snap[0], e.stats.modeled_decode_s - snap[1])
+    return wall, postkill, traced
+
+
+def fleet_drive_streamed(torch, fleet, trace, plan, survivor: int):
+    """The kill lane through the async surface: ``submit_async`` by the
+    arrival trace, ``run_async`` between arrivals, and a ``stream(rid)``
+    consumer on every request.  Returns ``(wall_s, postkill, chunks)``."""
+
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.runtime import faults
+
+    chunks: dict = {}
+    snap = []
+    stops = sorted({t for t, _ in trace if t > 0} | {FLEET_KILL_TICK - 1})
+
+    async def consume(rid):
+        async for ch in fleet.stream(rid):
+            chunks[rid].append(np.asarray(ch))
+
+    async def main():
+        tasks, i = [], 0
+        with faults.injected(plan):
+            for stop in stops + [None]:
+                while i < len(trace) and trace[i][0] <= fleet.stats.ticks:
+                    rid = await fleet.submit_async(trace[i][1], FLEET_GEN)
+                    chunks[rid] = []
+                    tasks.append(asyncio.ensure_future(consume(rid)))
+                    i += 1
+                if fleet.stats.ticks == FLEET_KILL_TICK - 1:
+                    e = fleet.engines[survivor]
+                    snap.append((e.stats.tokens, e.stats.modeled_decode_s))
+                await fleet.run_async(max_ticks=stop)
+            check(i == len(trace), f"phase 22: {len(trace) - i} arrivals never submitted")
+        await asyncio.gather(*tasks)
+
+    sync(torch, fleet.engines[0].device)
+    t0 = time.perf_counter()
+    asyncio.run(main())
+    sync(torch, fleet.engines[0].device)
+    wall = time.perf_counter() - t0
+    check(len(snap) == 1, "phase 22: no snapshot before the kill tick")
+    e = fleet.engines[survivor]
+    return wall, (e.stats.tokens - snap[0][0], e.stats.modeled_decode_s - snap[0][1]), chunks
+
+
+def sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fleet_traced_tick(torch, fleet, log) -> dict:
+    """One fleet tick under ``torch.profiler``: its wall and device busy ms
+    and the recurrence steps the engines ran in it."""
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_decode import _union_us
+
+    steps0 = list(log.steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fleet.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type != DeviceType.CPU]
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    return {"tick": fleet.stats.ticks, "wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms if wall_ms else None, "kernels": len(dev),
+            "steps": [b - a for a, b in zip(steps0, log.steps)]}
+
+
+def fleet_modeled_tps(fleet) -> float:
+    """bench_fleet's ``_fleet_tps``: tokens over the slowest engine's
+    modeled seconds (engines given a device each would run side by side)."""
+
+    tokens = sum(e.stats.tokens for e in fleet.engines)
+    span = max(e.stats.modeled_decode_s for e in fleet.engines)
+    return tokens / span if span > 0 else 0.0
+
+
+def on_device(torch, tree, device) -> bool:
+    if isinstance(tree, dict):
+        return all(on_device(torch, v, device) for v in tree.values())
+    return not isinstance(tree, torch.Tensor) or tree.device.type == device.type
+
+
+def fleet_lanes(torch, cfg, params, device, counts, reset, tok2, serve_argv: list) -> dict:
+    """The lanes of phase 22 (see ``phase22``).  ``tok2`` are the tokens of
+    ``serve_argv`` through one engine.  On the CPU (a debugging run at the
+    reduced size) launches are not held: the wrappers run their plain
+    versions there, and no tick is traced."""
+
+    import numpy as np
+
+    from repro_torch import observability as OBS
+    from repro_torch.core.asymmetric import biglittle_classes
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.fleet import Fleet
+
+    cuda = device.type == "cuda"
+    check(not OBS.enabled(), "phase 22 needs observability off (the step-time probe would launch GEMMs)")
+    trace = fleet_trace(cfg)
+    n_req, gemms, layers = len(trace), 7 * cfg.n_layers + 1, cfg.n_layers
+    big_cls, little_cls = biglittle_classes(chips_per_pod=1)
+    lanes: dict = {}
+    held: dict = {}
+
+    def hold_launches(label, c, kinds, steps):
+        want = {"gemm_cuda": 0, "gemm_cuda_lean": 0, "paged_attention_cuda": 0, "flash_attention_cuda": 0}
+        for kind, (n, paged) in zip(kinds, steps):
+            want[f"gemm_{kind}"] += gemms * n
+            want["paged_attention_cuda"] += layers * n if paged else 0
+        bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
+        check(not bad, f"phase 22 {label}: launches (got, want) {bad}")
+
+    def lane(label, fleet, log, wall, n, **extra):
+        c = counts()
+        st = fleet.stats
+        check(st.submitted == st.completed == n, f"phase 22 {label}: {st.completed} of {st.submitted}")
+        check(st.duplicate_completions == 0, f"phase 22 {label}: duplicate completions")
+        check(sorted(x.rid for x in fleet.completions) == list(range(n)), f"phase 22 {label}: rids")
+        kinds = [e.asym.execution_context().backend() for e in fleet.engines]
+        if cuda:
+            hold_launches(label, c, kinds, [(n, True) for n in log.steps])
+        if cuda:
+            check(on_device(torch, params, device) and all(
+                on_device(torch, e.state, device) and e.tokens.device.type == "cuda"
+                for e in fleet.engines), f"phase 22 {label}: a tensor of the path is off the card")
+        gen = sum(len(x.tokens) - x.prompt_len for x in fleet.completions)
+        rec = {"wall_s": wall, "wall_tokens_per_s": gen / wall,
+               "modeled_tokens_per_s": fleet_modeled_tps(fleet), "fleet": st.snapshot(),
+               "steps": list(log.steps), "launches": c, "backends": kinds,
+               "engine_tokens": [e.stats.tokens for e in fleet.engines],
+               "calibrated_tps": [e.calibrated_tps() for e in fleet.engines], **extra}
+        counters = {k: v for k, v in st.snapshot().items() if v}
+        print(f"  {label}: wall {wall:.2f} s, {rec['wall_tokens_per_s']:.1f} tokens/s on the card, "
+              f"modeled {rec['modeled_tokens_per_s']:.1f} tokens/s; counters {counters}; recurrence "
+              f"steps {log.steps}; launches {c}", flush=True)
+        lanes[label] = rec
+        return rec
+
+    def run(label, engines, reqs=trace, **kw):
+        fleet, log = Fleet(engines), FleetLog(engines)
+        reset()
+        wall, _, traced = fleet_drive(torch, fleet, reqs, log, **kw)
+        rec = lane(label, fleet, log, wall, len(reqs), traced_tick=traced)
+        return fleet, log.by_rid(torch, fleet), rec
+
+    # 1. The single engine: the yardstick.
+    _, want, r1 = run("single", [fleet_engine(cfg, params, device)])
+
+    # 2. No fault, two engines; one tick traced.
+    _, got, r2 = run("nofault", [fleet_engine(cfg, params, device) for _ in range(2)],
+                     trace_tick=FLEET_TRACE_TICK if cuda else None)
+    check(all(t > 0 for t in r2["engine_tokens"]), f"phase 22 nofault: an engine idled {r2['engine_tokens']}")
+    held["nofault"] = fleet_differ(torch, got, want)
+    if r2["traced_tick"]:
+        t = r2["traced_tick"]
+        print(f"  nofault, tick {t['tick']} traced: wall {t['wall_ms']:.2f} ms, device busy "
+              f"{t['busy_ms']:.2f} ms ({t['idle_share']:.3f} idle), {t['kernels']} kernels, "
+              f"recurrence steps {t['steps']}", flush=True)
+
+    # 3 and 6. The kill, through the async surface with every request streamed.
+    plan = faults.FaultPlan([faults.FaultEvent(point="pod_death", engine=0, tick=FLEET_KILL_TICK)])
+    engines = [fleet_engine(cfg, params, device) for _ in range(2)]
+    f3, log3 = Fleet(engines), FleetLog(engines)
+    reset()
+    wall3, (pk_tok, pk_s), chunks = fleet_drive_streamed(torch, f3, trace, plan, survivor=1)
+    postkill = pk_tok / pk_s if pk_s > 0 else 0.0
+    r3 = lane("kill", f3, log3, wall3, n_req, postkill_tokens_per_s=postkill,
+              standalone_tokens_per_s=r1["modeled_tokens_per_s"],
+              recovered=postkill >= 0.8 * r1["modeled_tokens_per_s"])
+    st3 = f3.stats
+    check(st3.engine_kills == 1 and st3.migrated > 0 and st3.retries > 0,
+          f"phase 22 kill: kills {st3.engine_kills}, migrated {st3.migrated}, retries {st3.retries}")
+    retried = sorted(c.rid for c in f3.completions if c.attempts > 1)
+    for c in f3.completions:
+        got = np.concatenate(chunks[c.rid]) if chunks[c.rid] else np.zeros(0, np.int32)
+        check(np.array_equal(got, c.tokens[c.prompt_len:]),
+              f"phase 22 stream: request {c.rid}'s chunks do not join to its tokens")
+    check(bool(retried), "phase 22 stream: no streamed request was retried across the kill")
+    r3["retried_rids"] = retried
+    held["kill"] = fleet_differ(torch, log3.by_rid(torch, f3), want)
+    print(f"  kill: the survivor's post-kill rate {postkill:.1f} modeled tokens/s against the single "
+          f"engine's {r1['modeled_tokens_per_s']:.1f} (recovered: {r3['recovered']}); the streams of "
+          f"{len(chunks)} requests joined to their tokens, {len(retried)} of them retried {retried}",
+          flush=True)
+    del f3, log3, engines, chunks
+
+    # 4. The other fault points, as in test_fault_matrix_bit_identical, on
+    # the first burst.
+    burst = trace[:FLEET_BURST]
+    counter = {"engine_stall": "stalled_ticks", "admission_fail": "admission_faults",
+               "latency_spike": "latency_spikes"}
+    for point in FLEET_FAULTS:
+        plan = faults.FaultPlan([faults.FaultEvent(point=point, engine=0, tick=2, duration=3)])
+        _, got, r4 = run(point, [fleet_engine(cfg, params, device) for _ in range(2)], burst, plan=plan)
+        check(r4["fleet"][counter[point]] == 3, f"phase 22 {point}: {counter[point]} {r4['fleet']}")
+        held[point] = fleet_differ(torch, got, want, sorted(got))
+
+    # 5. Heterogeneous: a big-only engine on gemm_cuda and a little-only one
+    # on gemm_cuda_lean; each request held to a single engine of its class
+    # (the little engine's requests served again by one little engine).
+    _, got, r5 = run("hetero", [fleet_engine(cfg, params, device, [big_cls]),
+                                fleet_engine(cfg, params, device, [little_cls], "cuda_lean")])
+    served = [sorted(r for r, v in got.items() if v[2] == e) for e in range(2)]
+    _, alone, _ = run("single_little", [fleet_engine(cfg, params, device, [little_cls], "cuda_lean")],
+                      [(0, trace[r][1]) for r in served[1]])
+    want_little = {r: alone[i] for i, r in enumerate(served[1])}
+    tps = r5["calibrated_tps"]
+    r5.update(served=served, share=[len(s) / n_req for s in served],
+              predicted_share=[t / sum(tps) for t in tps])
+    print(f"  hetero: backends {r5['backends']}, calibrated tps {tps}; share of the requests served "
+          f"{[round(s, 3) for s in r5['share']]}, predicted by rate "
+          f"{[round(p, 3) for p in r5['predicted_share']]}", flush=True)
+    check(all(served), f"phase 22 hetero: an engine served nothing {served}")
+    check(r5["backends"][1] == "cuda_lean" and r5["backends"][0] == ("cuda" if cuda else "matmul"),
+          f"phase 22 hetero: {r5['backends']}")
+    held["hetero_big"] = fleet_differ(torch, got, want, served[0])
+    held["hetero_little"] = fleet_differ(torch, got, want_little, served[1])
+
+    # The planted fault: engine 1 serves with one layer's wo scaled (the
+    # first burst).
+    blocks = params["blocks"]
+    wo = blocks["attn"]["wo"].clone()
+    mid = cfg.n_layers // 2
+    wo[mid] = (wo[mid].float() * FLEET_FAULT_SCALE).to(wo.dtype)
+    faulty = {**params, "blocks": {**blocks, "attn": {**blocks["attn"], "wo": wo}}}
+    _, got, rp = run("planted", [fleet_engine(cfg, params, device), fleet_engine(cfg, faulty, device)],
+                     burst)
+    on = [sorted(r for r, v in got.items() if v[2] == e) for e in range(2)]
+    d0, d1 = fleet_differ(torch, got, want, on[0]), fleet_differ(torch, got, want, on[1])
+    rp.update(served=on, engine0_differ=d0, engine1_differ=d1)
+    print(f"  planted fault (engine 1, layer {mid}'s wo x {FLEET_FAULT_SCALE}): of engine 1's "
+          f"{len(on[1])} requests {len(d1[1])} differ in logits, {len(d1[0])} in tokens; of engine 0's "
+          f"{len(on[0])}, {len(d0[1])} and {len(d0[0])}", flush=True)
+    check(bool(on[1]) and len(d1[1]) == len(on[1]), "phase 22: the comparison missed the planted fault")
+    check(not d0[0] and not d0[1], "phase 22: engine 0 differs beside the planted fault")
+    del faulty, wo
+
+    # 7. --fleet 2 through launch/serve.py, against one engine on its requests.
+    reset()
+    s7, tok7, f7, wall7 = run_serve(serve_argv + ["--fleet", "2"], params=params)
+    c7 = counts()
+    plen = int(serve_argv[serve_argv.index("--prompt-len") + 1])
+    steps7 = [plen * e.stats.admission_rounds + e._step_calls for e in f7.engines]
+    if cuda:
+        hold_launches("serve", c7, [e.asym.execution_context().backend() for e in f7.engines],
+                      [(n, False) for n in steps7])
+    fs = s7["engine"]["fleet"]
+    print(f"  serve --fleet 2: path {s7['path']}, {fs['completed']} of {fs['submitted']} completed, "
+          f"wall {wall7:.2f} s, recurrence steps {steps7}, launches {c7}; tokens equal one engine's: "
+          f"{bool(np.array_equal(tok7, tok2))}", flush=True)
+    check(s7["path"] == "fleet:2", f"phase 22 serve: path {s7['path']}")
+    check(fs["completed"] == fs["submitted"] == len(tok2) and fs["duplicate_completions"] == 0,
+          f"phase 22 serve: {fs}")
+    check(np.array_equal(tok7, tok2), "phase 22 serve: --fleet 2's tokens differ from one engine's")
+    lanes["serve"] = {"wall_s": wall7, "fleet": fs, "steps": steps7, "launches": c7,
+                      "tokens_per_s": s7["tokens_per_s"]}
+
+    print(f"  held against the single engine (rids differing in tokens, in logits): {held}", flush=True)
+    for label, (toks, logits) in held.items():
+        check(not toks and not logits, f"phase 22 {label}: requests {toks} / {logits} differ from "
+              f"the single engine's tokens / logits")
+    return {"lanes": lanes, "held": held}
+
+
+def phase22(torch, counts, reset, tok2) -> dict:
+    """The fault-tolerant fleet serving the full-width internlm2-1.8b (phase
+    2's weights, shared by every engine of a lane; engines built as
+    ``launch/serve._fleet`` builds them, paged) on bench_fleet's bursty
+    trace: the single engine (the yardstick), a fleet of 2 with no fault,
+    engine 0 killed (queue migrated, in-flight retried; driven through
+    ``run_async`` with every request streamed), each other fault point, a
+    big-only engine beside a little-only one, a planted fault, and
+    ``launch/serve.py --fleet 2``.  Each lane: every request exactly once,
+    tokens and per-step logits bitwise equal to a single engine's, launches
+    169 GEMMs and 24 paged attentions a recurrence step an engine."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as Z
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    base = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--gen-len", str(GEN_LEN), "--seed", "0"]
+    out = fleet_lanes(torch, cfg, params, torch.device("cuda"), counts, reset, tok2, base)
+    del params
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 22 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3915,6 +4388,12 @@ def main() -> None:
           f"--class-sharded on, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step", flush=True)
     mixed_train = phase21(torch, counts, reset, train)
     detail["mixed_train"] = mixed_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 22: the fault-tolerant fleet, {ARCH} at full width: N paged engines behind one "
+          f"front on bench_fleet's bursty trace, under every fault point", flush=True)
+    fleet = phase22(torch, counts, reset, tok2)
+    detail["fleet"] = fleet
     for run in (train_moe, *train_ssm.values(), train_encdec, mixed_train):
         for name, err in run["backward_products"]["max_abs_err"].items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -3990,6 +4469,11 @@ def main() -> None:
                 moe_launches[name][f"internlm2_mixed_{label}"] = run["launches"][name]
     for name in ("gemm_cuda", "gemm_cuda_lean"):
         moe_launches[name]["internlm2_mixed_train"] = mixed_train["launches"][name]
+    # Phase 22, the fleet: each lane's launches read from its own run.
+    for label, run in fleet["lanes"].items():
+        for name in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda"):
+            if run["launches"][name]:
+                moe_launches[name][f"internlm2_fleet_{label}"] = run["launches"][name]
     for row in kernels:
         row["launches_later_paths"] = moe_launches[row["name"]]
         for key, val in records[row["name"]].items():

@@ -19,7 +19,10 @@ decodes its request shard under its own class's control tree, the pods
 as CUDA streams on the one card (``gemm_cuda`` for the big pod,
 ``gemm_cuda_lean`` for the little one); ``auto`` never takes it, since
 the port never puts pods on separate cards (``launch.mesh.resolve_pods``).
-The fleet branch of the reference's CLI arrives with a later slice.
+``--fleet N`` serves through a fault-tolerant fleet of N engines
+(:class:`repro_torch.runtime.fleet.Fleet`) behind one submit front; the
+engines share the one device and one copy of the weights, and the fleet
+steps them one after another each tick.
 
 Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
 
@@ -33,6 +36,8 @@ Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
         --batch 3 --slots-per-pod 4 --objective energy
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --class-sharded on [--paged on | --one-shot]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --fleet 2 [--objective energy]
 """
 
 from __future__ import annotations
@@ -208,6 +213,47 @@ def _engine(cfg, params, asym, prompts, args, seq_cap, device):
     return out, timings, None, ctx.device_class, ctx.backend(), eng
 
 
+def _fleet(cfg, params, asym, prompts, args, seq_cap, device):
+    """The multi-engine fleet path (``--fleet N``): N engines, each on its
+    own mesh, sharing ``params`` on ``device``, behind one submit front
+    with DAS request scheduling over calibrated per-engine throughput."""
+
+    from repro_torch.runtime.fleet import Fleet
+    from repro_torch.runtime.serving import ServingEngine
+
+    engines = []
+    for _ in range(args.fleet):
+        a = AsymmetricMesh(biglittle_classes(chips_per_pod=1), strategy=args.strategy,
+                           batch_tile=1, objective=args.objective)
+        layout = a.batch_layout(max(1, args.batch // args.fleet))
+        engines.append(ServingEngine(
+            cfg, params, a,
+            seq_cap=seq_cap,
+            slots_per_pod=args.slots_per_pod or layout.c_max,
+            class_sharded=args.class_sharded,
+            paged=args.paged,
+            page_size=args.page_size,
+            pool_pages=args.pool_pages,
+            eos_id=args.eos_id,
+            device=device,
+        ))
+    fleet = Fleet(engines, objective=args.objective)
+    print("fleet rel_throughput:", [round(r, 3) for r in fleet.rel_throughput])
+    out = fleet.generate(prompts, args.gen_len)
+    # The fleet's span is the slowest engine's (engines would run side by
+    # side given a device each), and each engine warms up once.
+    timings = {
+        "compile_s": max(e.stats.compile_s for e in engines),
+        "decode_s": max(e.stats.decode_s for e in engines),
+        "decode_steps": max(e.stats.decode_steps for e in engines),
+        "tokens": sum(e.stats.tokens for e in engines),
+    }
+    if engines[0].mixed:
+        return (out, timings, None, *_shard_summary(engines[0].provenance)[1:], fleet)
+    ctx = engines[0].asym.execution_context()
+    return out, timings, None, ctx.device_class, ctx.backend(), fleet
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -234,6 +280,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(pods never get cards of their own)")
     ap.add_argument("--one-shot", action="store_true",
                     help="legacy path: per-call batch + token-by-token decode")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve through a fault-tolerant fleet of N engines behind one "
+                         "scheduler, sharing the device and the weights (0 = single engine)")
     ap.add_argument("--slots-per-pod", type=int, default=None,
                     help="engine slot-region size (default: the layout's c_max)")
     ap.add_argument("--paged", default="off", choices=["auto", "on", "off"],
@@ -254,7 +303,8 @@ def serve(args, *, params=None):
 
     Returns ``(summary, tokens, engine)``: the JSON summary, the ``(batch,
     prompt + generated)`` tokens, and the
-    :class:`~repro_torch.runtime.serving.ServingEngine` that served
+    :class:`~repro_torch.runtime.serving.ServingEngine` that served, the
+    :class:`~repro_torch.runtime.fleet.Fleet` under ``--fleet N``
     (``None`` on the one-shot path).  ``params`` defaults to the random weights of
     ``--seed``.
     """
@@ -276,6 +326,11 @@ def serve(args, *, params=None):
         raise SystemExit("--paged applies to the engine path only")
     if args.one_shot and args.objective != "perf":
         raise SystemExit("--objective applies to the engine path only")
+    if args.fleet and args.one_shot:
+        raise SystemExit("--fleet fronts engine instances; it cannot be "
+                         "combined with --one-shot")
+    if args.fleet < 0:
+        raise SystemExit(f"--fleet must be >= 0, got {args.fleet}")
 
     if args.trace or args.metrics:
         from repro_torch import observability as OBS
@@ -293,16 +348,17 @@ def serve(args, *, params=None):
     seq_cap = args.prompt_len + args.gen_len
 
     t0 = time.time()
-    run = _one_shot if args.one_shot else _engine
+    run = _one_shot if args.one_shot else (_fleet if args.fleet else _engine)
     out, timings, shard_classes, device_class, exec_backend, engine = run(
         cfg, params, asym, prompts, args, seq_cap, device
     )
     dt = time.time() - t0
+    engines = engine.engines if args.fleet else [engine]
     stop_counts = None
     if args.eos_id is not None:
         if engine is not None:
-            stop_counts = {"eos": engine.stats.completed_eos,
-                           "budget": engine.stats.completed_budget}
+            stop_counts = {"eos": sum(e.stats.completed_eos for e in engines),
+                           "budget": sum(e.stats.completed_budget for e in engines)}
         else:
             out, n_eos, n_budget = truncate_at_eos(out, args.prompt_len, args.eos_id)
             stop_counts = {"eos": n_eos, "budget": n_budget}
@@ -310,7 +366,8 @@ def serve(args, *, params=None):
     steady = tokens / timings["decode_s"] if timings["decode_s"] > 0 else 0.0
     summary = {
         "arch": cfg.name,
-        "path": "one-shot" if args.one_shot else "engine",
+        "path": ("one-shot" if args.one_shot
+                 else f"fleet:{args.fleet}" if args.fleet else "engine"),
         "objective": args.objective,
         "device_class": device_class,
         "exec_backend": exec_backend,
@@ -326,7 +383,16 @@ def serve(args, *, params=None):
     }
     if stop_counts is not None:
         summary["stop_counts"] = stop_counts
-    if engine is not None:
+    if args.fleet:
+        # energy_j / tokens_per_j are modeled joules (PowerModel), not the card's.
+        summary["engine"] = {
+            "fleet": engine.stats.snapshot(),
+            "health": engine.health(),
+            "engines": [e.stats.snapshot() for e in engines],
+            "completed_eos": sum(e.stats.completed_eos for e in engines),
+            "completed_budget": sum(e.stats.completed_budget for e in engines),
+        }
+    elif engine is not None:
         # energy_j / tokens_per_j are modeled joules (PowerModel), not the card's.
         summary["engine"] = {"slots": [engine.n_pods, engine.c_max],
                              **engine.stats.snapshot(), "parked_pods": engine.parked_pods,

@@ -1,1 +1,2 @@
-"""Serving runtime: the paged KV pool and the slot-table engine."""
+"""Serving runtime: the paged KV pool, the slot-table engine, and the
+fault-tolerant fleet of engines with its fault injection."""

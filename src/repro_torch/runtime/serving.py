@@ -52,7 +52,10 @@ private lane per slot for MoE (capacity routing couples the rows of a
 group, so pad lanes must own their content as dense lanes do).  Retired
 lanes are marked dead via ``live`` in both engines.
 
-Waiting for a later slice: the fleet surface.
+The fleet surface (:meth:`ServingEngine.withdraw`, ``export_queued``,
+``partial_tokens``, ``calibrated_tps``, ``health``) is what
+:class:`repro_torch.runtime.fleet.Fleet` drives: queued requests leave
+with the router's counts rolled back, admitted ones run to completion.
 """
 
 from __future__ import annotations
@@ -504,6 +507,61 @@ class ServingEngine:
         )
         self._routed[route_class] += 1
         return rid
+
+    # -- fleet surface: drain/export, health, calibration --------------------
+
+    def withdraw(self, rid: int) -> Optional[Request]:
+        """Remove one *queued* (not yet admitted) request; returns it, or
+        ``None`` if ``rid`` is not queued.  The router's cumulative count
+        is rolled back, so future routing reflects only the kept work."""
+
+        for ci, q in enumerate(self.queues):
+            for i, req in enumerate(q):
+                if req.rid == rid:
+                    del q[i]
+                    self._routed[ci] -= 1
+                    return req
+        return None
+
+    def export_queued(self) -> list[Request]:
+        """Drain every class queue in submission (rid) order, rolling the
+        router's counts back as :meth:`withdraw` does (the fleet's
+        migration path off a saturated, parked or dead engine)."""
+
+        out: list[Request] = []
+        for ci, q in enumerate(self.queues):
+            while q:
+                out.append(q.popleft())
+                self._routed[ci] -= 1
+        out.sort(key=lambda r: r.rid)
+        return out
+
+    def partial_tokens(self, rid: int) -> Optional[np.ndarray]:
+        """Tokens generated so far for an in-flight request (else ``None``)."""
+
+        for slot, req in self._slot_req.items():
+            if req.rid == rid:
+                return np.asarray(self._slot_toks[slot], np.int32)
+        return None
+
+    def calibrated_tps(self) -> float:
+        """Aggregate calibrated throughput (the sum of the per-pod EMA
+        rates): the engine's ``rel_throughput`` in a fleet."""
+
+        return float(np.sum(self.asym.scheduler.rates))
+
+    def health(self) -> dict:
+        """The engine health surface a fleet front polls each tick."""
+
+        return {
+            "queued": sum(len(q) for q in self.queues),
+            "active": int((self.slot_rid >= 0).sum()),
+            "slots": self.n_slots,
+            "parked_pods": sorted(self._parked),
+            "calibrated_tps": self.calibrated_tps(),
+            "completed": self.stats.completed,
+            "admission_deferrals": self.stats.admission_deferrals,
+        }
 
     # -- slot-region budgets (resize between steps only) ---------------------
 

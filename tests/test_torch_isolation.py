@@ -4,13 +4,15 @@ Every module under ``src/repro_torch/``, the root ``chip_smoke.py`` and
 the card-only ``tests/test_torch_cuda.py`` are scanned (AST) for imports
 of ``jax``/``jaxlib`` or the JAX package ``repro``; then a fresh
 interpreter imports every port module and checks that neither ended up in
-``sys.modules``.  No tolerances: these are
-structural checks.
+``sys.modules``.  The framework-neutral modules the port carries over as
+copies are held to the reference's text, their import lines renamed to the
+port's package.  No tolerances: these are structural checks.
 """
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -85,10 +87,25 @@ def test_port_covers_the_slice_modules():
         "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.trainer",
         "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.distributed",
         "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
+        "repro_torch.runtime.faults", "repro_torch.runtime.fleet",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):
         assert (PORT / "csrc" / src).is_file(), src
+
+
+# Copies of the reference's framework-neutral modules: the same text, the
+# import lines of the reference's package renamed to the port's.
+COPIES = ("runtime/faults.py", "runtime/fleet.py", "runtime/paging.py", "util/atomic.py",
+          "observability/metrics.py", "observability/trace.py", "observability/report.py",
+          "core/schedule.py", "core/simulator.py")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_matches_reference(rel):
+    ref = (ROOT / "src" / "repro" / rel).read_text()
+    want = re.sub(r"^(\s*)(from|import) repro([ .])", r"\1\2 repro_torch\3", ref, flags=re.M)
+    assert (PORT / rel).read_text() == want, f"{rel} drifted from src/repro/{rel}"
 
 
 def test_importing_every_port_module_loads_no_jax():
