@@ -216,6 +216,23 @@ Phases (any failed check exits non-zero and prints no result line):
      no tensor of the path off the card.  A planted fault (engine 1 with
      the middle layer's ``wo`` scaled by 1.01) must differ in the logits
      of every request it served.
+ 23. the static verifier and the dry-run held against the card's own
+     counters.  (a) ``python -m repro_torch.analysis`` over the port's
+     files with the contract checks on (its class specs read the card's
+     shared memory) and over phase 9's tuning cache: clean.  (b) Every
+     block of the control trees ``analysis.configcheck.shipped_trees``
+     builds for the kernel backend (three shapes, both classes, both
+     coarse loops) launches on the kernel its tree names and matches its
+     plain version; a block the contract rejects for shared memory (128 x
+     256 x 256 in a two-stage ring) is refused by the wrapper with a
+     ``ValueError`` and never launched.  (c) ``launch/dryrun.py`` on the
+     meta device at the shapes of phases 8, 7 and 16 (no step run again):
+     its GEMM funnel's calls and 2·M·N·K equal the card's launch counters
+     of those phases (169, 225 and 675 a step), minitron's operations
+     bound is PERF.md's 35.7 ms within ``FWD_BOUND_RTOL``, each cell's
+     roofline bound lies below the card's measured time of that step, and
+     the training cell's bytes lie within ``DRYRUN_MEM_RTOL`` of phase
+     16's peak.
  Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
  of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
@@ -884,6 +901,7 @@ def phase7(torch, counts, reset) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.kernels import gemm as G
     from repro_torch.models import model_zoo as Z
 
     cfg = get_config(FWD_ARCH)
@@ -910,6 +928,8 @@ def phase7(torch, counts, reset) -> dict:
             torch.cuda.synchronize()
             if i:
                 walls.append(time.perf_counter() - t0)
+        prefill_launches = counts()["gemm_cuda"]
+        prefill_flops = G.LAUNCH_FLOPS["gemm_cuda"]
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -967,6 +987,7 @@ def phase7(torch, counts, reset) -> dict:
     return {"arch": cfg.name, "batch": FWD_BATCH, "seq": FWD_SEQ, "walls_s": walls,
             "wall_s": wall, "tokens_per_s": FWD_BATCH * FWD_SEQ / wall, "loss": float(loss),
             "ce": float(metrics["ce"]), "loss_s": loss_s, "launches_5_forwards": launches,
+            "gemm_launches_4_prefills": prefill_launches, "gemm_flops_4_prefills": prefill_flops,
             "launches_per_forward": per_fwd, "peak_gb": peak_gb, "init_s": init_s,
             "chunked_forward_s": chunked_s, "flash_vs_chunked_max": dmax,
             "flash_vs_chunked_mean": dmean, "flash_vs_chunked_argmax_equal": argmax_eq,
@@ -1020,6 +1041,7 @@ def phase8(torch, counts, reset) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import execution as X
     from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.kernels import gemm as G
     from repro_torch.models import model_zoo as Z
 
     t_phase = time.perf_counter()
@@ -1055,6 +1077,7 @@ def phase8(torch, counts, reset) -> dict:
         step()  # warm-up
         logits, walls = timed(LONG_STEPS)
         launches = counts()
+        gemm_flops = G.LAUNCH_FLOPS["gemm_cuda"]
         trace = profile_run(torch, step, big)
         # The same step with its attention through the gather route.
         with mock.patch.dict(X.BACKENDS, {"paged_attn_cuda": X.BACKENDS["paged_attn_torch"]}):
@@ -1080,6 +1103,7 @@ def phase8(torch, counts, reset) -> dict:
     check(diff <= LOGIT_TOL, f"long-cache step: kernel vs gather route logits differ by {diff}")
     return {"arch": cfg.name, "phase_s": phase_s, "rows": LONG_ROWS, "cache": LONG_CACHE, "page_size": LONG_PS,
             "walls_s": walls, "wall_s": wall, "tokens_per_s": LONG_ROWS / wall,
+            "steps_counted": 1 + LONG_STEPS, "gemm_cuda_flops": gemm_flops,
             "gather_walls_s": ref_walls, "gather_wall_s": ref_wall, "launches": launches,
             "traced_step": trace, "paged_device_share": paged_ms / trace["busy_ms"],
             "logit_diff_vs_gather": diff}
@@ -1842,10 +1866,10 @@ def phase12(torch, counts, reset) -> dict:
         with RouteLog(shared=rd):
             ls = decode(params, {"tokens": toks, "page_table": table}, paged_shared, pos)[0]
     slot = RING_POS % win
-    moved = (dense["k"] != before["k"]).any(dim=(3, 4))  # (layers, rows, slots)
+    moved = (dense["k"] != before["k"]).any(dim=(3, 4))  # (layers, rows, slots)  # repro_torch: noqa=RPR001 -- reads the ring state after the steps on purpose: did each row's write land
     landed = bool(moved[:, :, slot].all()) and int(moved.sum()) == nl * rows
     page = table[:, slot // ps].long()
-    same_l0 = torch.equal(paged["pages_k"][0, page, slot % ps], dense["k"][0, :, slot])
+    same_l0 = torch.equal(paged["pages_k"][0, page, slot % ps], dense["k"][0, :, slot])  # repro_torch: noqa=RPR001 -- reads the paged arena after the step on purpose: the write against the dense one
     share, mask, own = comparable(rd.calls, rp.calls, 1, M._capacity(rows, cfg.moe), cfg.moe.n_experts)
     d = (lp.float() - ld.float()).abs().amax(dim=-1)[:, 0].cpu().numpy()
     cmp_rows = mask[0, 0]
@@ -2157,7 +2181,7 @@ def recurrent_phase(torch, counts, reset, arch: str) -> dict:
     with torch.no_grad(), big:
         _, step_walls = timed_forward(torch, step)
         trace = profile_run(torch, step, big)
-    state_b = tree_bytes(state)
+    state_b = tree_bytes(state)  # repro_torch: noqa=RPR001 -- the size of the state the prefill filled, read after it on purpose
     shared_b = tree_bytes(params["shared"]) if every else 0
     weights_b = tree_bytes(params) - tree_bytes(params.get("embed", {})) + b * cfg.d_model * 2
     step_bytes = weights_b + (cfg.n_layers // every - 1) * shared_b if every else weights_b
@@ -2788,6 +2812,7 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
     import statistics
     import tempfile
 
+    from repro_torch.kernels import gemm as G
     from repro_torch.launch import train as TL
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim import adamw as O
@@ -2865,6 +2890,7 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
         history = trainer.run()
         run_s = time.perf_counter() - t0
         launches = counts()
+        gemm_flops = G.LAUNCH_FLOPS["gemm_cuda"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         step_dir = os.path.join(ckdir, "step_00000000")
         ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
@@ -2911,6 +2937,7 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
             "restarts": trainer.restarts, "step_walls_s": walls, "step_ms": step_s * 1e3,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s, "run_s": run_s, "init_s": init_s,
             "peak_gb": peak_gb, "ckpt_bytes": ckpt_bytes, "ckpt_io": io, "launches": launches,
+            "steps_run": n_steps, "gemm_cuda_flops": gemm_flops,
             "launches_per_step": per_step, "transpose_ms_phase1": transpose_ms,
             "little_step": little_tree_step(torch, trainer, batch, counts, per_step),
             **traced_bounds(torch, trainer, batch, counts, cfg, TRAIN_BATCH, TRAIN_SEQ, n_params, step_s,
@@ -4195,6 +4222,167 @@ def phase22(torch, counts, reset, tok2) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the static verifier and the dry-run against the card's counters
+# ---------------------------------------------------------------------------
+
+# The block the contract rejects for shared memory: a two-stage ring of 128
+# x 256 x 256 needs 393,248 B, a block may claim 232,448 B on an H100.
+REJECTED_BLOCK = (128, 256, 256)
+# minitron-4b's forward over 2 x 2048: the GEMMs' operations bound of
+# PERF.md §6 row 1, 35.7 ms at 989 TFLOP/s; the dry-run's funnel FLOPs must
+# give it within FWD_BOUND_RTOL (the table rounds it to a tenth of a ms).
+FWD_OPS_BOUND_MS = 35.7
+FWD_BOUND_RTOL = 0.01
+# The training cell's bytes (the arguments and the most bytes the step's
+# own tensors held at once, counted on the meta device at their exact
+# sizes) against phase 16's torch.cuda.max_memory_allocated: the caching
+# allocator rounds every block up (to 512 B, a large one to 2 MiB), and
+# phase 16's peak spans six steps, the checkpoint's save and its restore,
+# where the dry-run counts one step.  15%.
+DRYRUN_MEM_RTOL = 0.15
+
+
+def phase23(torch, fwd: dict, long_step: dict, train: dict) -> dict:
+    """(a) the port's analyzer over its files and phase 9's tuning cache;
+    (b) the shipped trees' blocks on the kernel and a rejected block
+    refused; (c) the dry-run at the shapes of phases 8, 7 and 16 against
+    the launch counters, times and peak memory those phases measured."""
+
+    from repro_torch.analysis import cli as AC
+    from repro_torch.analysis import configcheck as CC
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core.blocking import BlockConfig
+    from repro_torch.kernels import gemm as G
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    from repro_torch.tuning.candidates import SPECS
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # (a) The analyzer, contract checks on, its specs the card's own.
+    optin = int(torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
+    check(SPECS["h100"].smem_bytes == optin and SPECS["h100-little"].smem_bytes == optin // 2,
+          f"class specs' shared memory {SPECS['h100'].smem_bytes} / "
+          f"{SPECS['h100-little'].smem_bytes}, the card's {optin}")
+    cache = os.path.join(OUT_DIR, "tuning_cache.json")
+    check(os.path.exists(cache), f"phase 9's tuning cache {cache} is missing")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", *AC.default_paths("."), cache],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=300,
+    )
+    out["analyzer"] = {"rc": res.returncode, "s": time.perf_counter() - t0,
+                       "stderr": res.stderr.strip()[-300:], "card_smem_optin": optin}
+    print(f"phase 23: python -m repro_torch.analysis over {len(AC.default_paths(ROOT))} paths and "
+          f"phase 9's cache: rc {res.returncode} ({res.stderr.strip()[-80:]}) in "
+          f"{out['analyzer']['s']:.1f} s; class specs at the card's {optin} B", flush=True)
+    check(res.returncode == 0, f"the port's analyzer found: {res.stdout.strip()[-2000:]}")
+
+    # (b) Every block the shipped trees name, on its kernel, against its
+    # plain version; then a block the contract rejects, refused unlaunched.
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    counter = {"cuda": "gemm_cuda", "cuda_lean": "gemm_cuda_lean"}
+    plain = {"cuda": G.gemm_plain, "cuda_lean": G.gemm_lean_plain}
+    blocks, max_err = [], 0.0
+    for (m, k, n), _, loop, trees in CC.shipped_trees(backends=("cuda",)):
+        a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        b = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+        for name, tree in trees.items():
+            blk = tree.block
+            check(not CC.block_problems(blk, tree.spec, CC.consumer_stages(tree.backend), (m, k, n)),
+                  f"shipped tree {name} {m}x{k}x{n} {loop}: the contract rejects {blk}")
+            before = dict(G.LAUNCHES)
+            got = G.GEMM_KERNELS[tree.backend](a, b, blk)
+            ref = plain[tree.backend](a, b, blk)
+            torch.cuda.synchronize()
+            ok, err = within(torch, got, ref, BF16_TOL)
+            launched = {c: G.LAUNCHES[c] - before[c] for c in before}
+            check(launched == {c: int(c == counter[tree.backend]) for c in before},
+                  f"{name} {m}x{k}x{n} {loop}: launches {launched}")
+            check(ok, f"{name} {m}x{k}x{n} {loop} {blk} on {tree.backend}: max err {err}")
+            max_err = max(max_err, err)
+            blocks.append({"shape": [m, k, n], "loop": loop, "class": name, "kernel": tree.backend,
+                           "block": [blk.bm, blk.bk, blk.bn], "max_abs_err": err})
+    rej = BlockConfig(*REJECTED_BLOCK)
+    problems = CC.block_problems(rej, SPECS["h100"], CC.consumer_stages("cuda"), (1024, 1024, 1024))
+    check(any("393248 B" in p for p in problems), f"the contract does not reject {rej}: {problems}")
+    a = torch.randn((1024, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    refused = []
+    before = dict(G.LAUNCHES)
+    for label, call in (("_launch, 2 stages", lambda: G._launch(a, a, rej, torch.bfloat16, 2, "gemm_cuda")),
+                        ("gemm_cuda", lambda: G.gemm_cuda(a, a, rej))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(f"{label}: {e}")
+        else:
+            fail(f"{label} launched the rejected block {rej}")
+    torch.cuda.synchronize()
+    check(G.LAUNCHES == before, f"the rejected block launched: {G.LAUNCHES} vs {before}")
+    out["shipped_blocks"] = blocks
+    out["rejected"] = {"block": list(REJECTED_BLOCK), "contract": problems, "refused": refused}
+    print(f"  {len(blocks)} shipped-tree blocks on their kernels (max err {max_err:.3g}, tol {BF16_TOL}): "
+          f"{sorted({tuple(x['block']) + (x['kernel'],) for x in blocks})}; {rej} refused: "
+          f"{[r.split(':')[0] for r in refused]}", flush=True)
+
+    # (c) The dry-run at the shapes phases 8, 7 and 16 ran, against what the
+    # card counted and measured there (no step runs again).
+    cells = {
+        "decode": (ARCH, ShapeSpec("phase8", LONG_CACHE, LONG_ROWS, "decode"),
+                   long_step["launches"]["gemm_cuda"], long_step["gemm_cuda_flops"],
+                   long_step["steps_counted"], long_step["wall_s"]),
+        "forward": (FWD_ARCH, ShapeSpec("phase7", FWD_SEQ, FWD_BATCH, "prefill"),
+                    fwd["gemm_launches_4_prefills"], fwd["gemm_flops_4_prefills"], 4, fwd["wall_s"]),
+        "train": (ARCH, ShapeSpec("phase16", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                  train["launches"]["gemm_cuda"], train["gemm_cuda_flops"], train["steps_run"],
+                  train["step_ms"] / 1e3),
+    }
+    out["cells"] = {}
+    for label, (arch, shape, card_calls, card_flops, steps, measured_s) in cells.items():
+        rec = D.run_cell(arch, shape, write=False)
+        check(rec.get("ok"), f"dry-run {label}: {rec.get('error')}")
+        cost = rec["hlo_cost"]
+        t = R.terms(cost)
+        bound_s = max(t["compute_s"], t["memory_flash_s"], t["collective_s"])
+        row = {"arch": arch, "batch": shape.global_batch, "seq": shape.seq_len,
+               "gemm_calls": cost["gemm_calls"], "card_calls_per_step": card_calls / steps,
+               "gemm_flops": cost["gemm_flops"], "card_flops_per_step": card_flops / steps,
+               "flops": cost["flops"], "bytes": cost["bytes"],
+               "attn_score_bytes": cost["attn_score_bytes"], **t, "bound_s": bound_s,
+               "measured_s": measured_s, "memory": rec["memory"], "fits": rec["fits"],
+               "lower_s": rec["lower_s"], "exec_backend": rec["exec_backend"]}
+        out["cells"][label] = row
+        print(f"  dry-run {label} ({arch}, {shape.global_batch} x {shape.seq_len}): funnel "
+              f"{cost['gemm_calls']} calls, {cost['gemm_flops']:.6g} FLOP; card {card_calls} over "
+              f"{steps} steps, {card_flops:.6g}; compute {t['compute_s'] * 1e3:.3f} ms, memory "
+              f"{t['memory_s'] * 1e3:.3f} (flash {t['memory_flash_s'] * 1e3:.3f}); bound "
+              f"{bound_s * 1e3:.3f} ms against the card's {measured_s * 1e3:.2f} ms; total "
+              f"{rec['memory']['total_bytes'] / 1e9:.3f} GB; ran in {rec['lower_s']} s", flush=True)
+        check(card_calls == cost["gemm_calls"] * steps,
+              f"{label}: funnel {cost['gemm_calls']} calls, the card {card_calls} over {steps} steps")
+        check(card_flops == int(cost["gemm_flops"]) * steps,
+              f"{label}: funnel {cost['gemm_flops']} FLOP, the card {card_flops} over {steps} steps")
+        check(bound_s < measured_s,
+              f"{label}: roofline bound {bound_s * 1e3:.3f} ms not below the card's {measured_s * 1e3:.3f} ms")
+    fwd_ms = out["cells"]["forward"]["gemm_flops"] / R.PEAK_FLOPS * 1e3
+    check(abs(fwd_ms - FWD_OPS_BOUND_MS) <= FWD_BOUND_RTOL * FWD_OPS_BOUND_MS,
+          f"minitron's operations bound {fwd_ms:.3f} ms, PERF.md's {FWD_OPS_BOUND_MS}")
+    total = out["cells"]["train"]["memory"]["total_bytes"]
+    peak = train["peak_gb"] * 1e9
+    print(f"  minitron's operations bound {fwd_ms:.3f} ms (PERF.md {FWD_OPS_BOUND_MS}, tol "
+          f"{FWD_BOUND_RTOL:.0%}); training cell {total / 1e9:.3f} GB against phase 16's peak "
+          f"{peak / 1e9:.3f} GB ({total / peak - 1:+.1%}, tol {DRYRUN_MEM_RTOL:.0%})", flush=True)
+    check(abs(total - peak) <= DRYRUN_MEM_RTOL * peak,
+          f"training cell {total / 1e9:.3f} GB vs phase 16's peak {peak / 1e9:.3f} GB")
+    out.update(fwd_ops_bound_ms=fwd_ms, train_total_vs_peak=total / peak - 1,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"  phase 23 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4394,6 +4582,11 @@ def main() -> None:
           f"front on bench_fleet's bursty trace, under every fault point", flush=True)
     fleet = phase22(torch, counts, reset, tok2)
     detail["fleet"] = fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 23: the static verifier and the dry-run against the card's own counters",
+          flush=True)
+    detail["verifier_dryrun"] = phase23(torch, fwd, detail["long_cache_step"], train)
     for run in (train_moe, *train_ssm.values(), train_encdec, mixed_train):
         for name, err in run["backward_products"]["max_abs_err"].items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)

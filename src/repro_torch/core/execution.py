@@ -231,6 +231,15 @@ def align_backend_family(variant: str, requested: str) -> str:
             if BACKEND_OPS[name] == "gemm" and name != twin}.get(variant, variant)
 
 
+def backend_vocabulary() -> frozenset[str]:
+    """Every backend token the port accepts anywhere: the dispatch-table
+    names plus the ``"auto"`` request.  The static analyzer's drift check
+    (``repro_torch.analysis``, RPR005) is keyed off this, so its
+    vocabulary can never diverge from the live registry."""
+
+    return frozenset(BACKENDS) | {"auto"}
+
+
 def validate_registry() -> list[str]:
     """Statically verify the dispatch tables' closure invariants.
 
@@ -829,6 +838,7 @@ __all__ = [
     "align_backend_family",
     "backend_op",
     "backend_stages",
+    "backend_vocabulary",
     "class_sharded",
     "context_for_tree",
     "current_context",

@@ -26,6 +26,30 @@ import torch
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
 
 
+# Callables ``(kind, nbytes)`` told of every collective the port runs (the
+# dry-run's counter, ``launch.op_analysis.count_ops``); empty otherwise.
+COLLECTIVE_OBSERVERS: list = []
+
+
+def note_collective(kind: str, tensors) -> None:
+    """Report one collective: ``kind`` (the reference's op name, e.g.
+    ``"all-reduce"``) and the tensors one pod sends, the operand bytes the
+    reference's HLO counts per device."""
+
+    if not COLLECTIVE_OBSERVERS:
+        return
+    def flat(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in flat(v)]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in flat(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    nbytes = sum(t.numel() * t.element_size() for t in flat(tensors))
+    for observe in COLLECTIVE_OBSERVERS:
+        observe(kind, nbytes)
+
+
 def quantize_int8(x: torch.Tensor):
     """Symmetric per-tensor int8 quantization -> ``(q, scale)``."""
 
@@ -50,6 +74,7 @@ def _crosspod_mean_one(gs: Sequence[torch.Tensor], errs: Sequence[torch.Tensor])
         new_errs.append(gf - dequantize_int8(q, scale))
         qs.append(q)
         scales.append(scale)
+    note_collective("all-gather", [qs[0], scales[0]])  # the reference's int8 all_gather
     mean = torch.tensordot(torch.stack(scales), torch.stack(qs).float(), dims=([0], [0]))
     return (mean / len(gs)).to(gs[0].dtype), new_errs
 
@@ -90,6 +115,8 @@ def init_error_feedback(params):
 
 
 __all__ = [
+    "COLLECTIVE_OBSERVERS",
+    "note_collective",
     "quantize_int8",
     "dequantize_int8",
     "compressed_crosspod_mean",

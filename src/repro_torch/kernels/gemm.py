@@ -26,7 +26,8 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (:func:`gemm_plain` / :func:`gemm_lean_plain`) for CPU
 tensors; there is no fallback from one to the other.  The plain versions
 copy the kernels' K-slice order with fp32 accumulation.  ``LAUNCHES``
-counts kernel launches per wrapper (plain runs are not counted).
+counts kernel launches per wrapper (plain runs are not counted), and
+``LAUNCH_FLOPS`` their 2·M·N·K.
 """
 
 from __future__ import annotations
@@ -54,11 +55,16 @@ from repro_torch.core.blocking import (
 ALIGN = H100.align
 
 LAUNCHES: dict[str, int] = {"gemm_cuda": 0, "gemm_cuda_lean": 0}
+# Σ 2·M·N·K of the launches ``LAUNCHES`` counts, per wrapper (the problem's
+# own M, N, K, not the padded grid's): what the dry-run's GEMM funnel is
+# held to on the card.
+LAUNCH_FLOPS: dict[str, int] = {"gemm_cuda": 0, "gemm_cuda_lean": 0}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        LAUNCH_FLOPS[name] = 0
 
 
 def resolve_block_config(m: int, k: int, n: int, dtype: torch.dtype, *,
@@ -234,6 +240,7 @@ def _launch(a, b, cfg: BlockConfig, out_dtype, stages: int, counter: str) -> tor
         )
     build.check(status, f"{counter} {m}x{k}x{n} {cfg}")
     LAUNCHES[counter] += 1
+    LAUNCH_FLOPS[counter] += 2 * m * k * n
     return c
 
 
@@ -278,6 +285,7 @@ __all__ = [
     "GEMM_KERNELS",
     "compiled_tile",
     "LAUNCHES",
+    "LAUNCH_FLOPS",
     "gemm_cuda",
     "gemm_cuda_lean",
     "gemm_lean_plain",

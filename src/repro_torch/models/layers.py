@@ -241,7 +241,20 @@ def _finish(p, o, live, x, cfg: AttnConfig):
     return ops.linear(o, _w(p["wo"]))
 
 
-def decode_attention(p, x, cfg: AttnConfig, cache_k, cache_v, pos, *, live=None):
+def dense_write_plan(pos, b: int, s_cache: int, cfg: AttnConfig, device) -> tuple:
+    """``(rows, slot, ok)``: where each row's new K/V land in a dense cache
+    of ``s_cache`` slots, without a host sync.  A row whose linear position
+    is past the cache is not ``ok`` and targets its last slot, where it
+    writes that slot's own value back: rows are distinct, so no two writes
+    meet.  One plan serves every layer of a step."""
+
+    pos = _per_row(pos, b, device)
+    slot = _slot(pos, s_cache, cfg)
+    ok = (slot < s_cache)[:, None, None]
+    return torch.arange(b, device=device), torch.clamp(slot, max=s_cache - 1), ok
+
+
+def decode_attention(p, x, cfg: AttnConfig, cache_k, cache_v, pos, *, live=None, plan=None):
     """Single-token decode against a linear or ring KV cache, written in place.
 
     x: (B, 1, D); cache_k/v: (B, S_cache, Hkv, Dh); pos: the new token's
@@ -251,7 +264,8 @@ def decode_attention(p, x, cfg: AttnConfig, cache_k, cache_v, pos, *, live=None)
     slot is visible once ``pos >= S_cache``.  In a linear cache a row whose
     position is past the cache writes nothing (the reference's
     ``mode="drop"``).  ``live`` (``(B,)`` bool) zeroes the attention output
-    of dead rows.
+    of dead rows.  ``plan`` is the step's :func:`dense_write_plan` (made
+    here when not given); the write takes no host sync.
     """
 
     b = x.shape[0]
@@ -259,21 +273,42 @@ def decode_attention(p, x, cfg: AttnConfig, cache_k, cache_v, pos, *, live=None)
     pos = _per_row(pos, b, x.device)
     q, k, v = _qkv(p, x, cfg, pos[:, None])
 
-    rows = torch.arange(b, device=x.device)
-    slot = _slot(pos, s_cache, cfg)
-    ok = slot < s_cache
-    if not bool(ok.all()):
-        rows, slot, k, v = rows[ok], slot[ok], k[ok], v[ok]
-    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    rows, slot, ok = plan if plan is not None else dense_write_plan(pos, b, s_cache, cfg, x.device)
+    cache_k[rows, slot] = torch.where(ok, k[:, 0].to(cache_k.dtype), cache_k[rows, slot])
+    cache_v[rows, slot] = torch.where(ok, v[:, 0].to(cache_v.dtype), cache_v[rows, slot])
 
     o = grouped_attention(q[:, 0], cache_k, cache_v, valid_mask(pos, s_cache))
     return _finish(p, o, live, x, cfg), (cache_k, cache_v)
 
 
+def paged_write_plan(page_table, pos, page_size: int, n_pages: int, cfg: AttnConfig) -> tuple:
+    """``(page, off, src, any_ok)``: where each row's new K/V land in a
+    paged arena, without a host sync, leaving it bitwise what dropping the
+    rejected rows (an unallocated page, a linear position past the cache)
+    would leave.  A rejected row cannot write at a clamped slot: that slot
+    may be another row's live one, and of two writes to one slot either may
+    land.  So it repeats the first accepted row's write (``src``: the row
+    whose value each row writes), the same value at the same slot; with no
+    accepted row (``any_ok`` false) every row writes page 0, offset 0 its
+    own value back.  One plan serves every layer of a step."""
+
+    b, w = page_table.shape
+    s_cache = w * page_size
+    pos = _per_row(pos, b, page_table.device)
+    rows = torch.arange(b, device=page_table.device)
+    slot = _slot(pos, s_cache, cfg)
+    page = page_table[rows, torch.clamp(slot // page_size, 0, w - 1)].long()
+    ok = (slot < s_cache) & (page >= 0) & (page < n_pages)
+    any_ok = ok.any()
+    src = torch.where(ok, rows, torch.argmax(ok.to(torch.uint8)))  # argmax: the first accepted
+    zero = torch.zeros((), dtype=page.dtype, device=page.device)
+    return (torch.where(any_ok, page[src], zero), torch.where(any_ok, (slot % page_size)[src], zero),
+            src, any_ok)
+
+
 def decode_attention_paged(
     p, x, cfg: AttnConfig, pages_k, pages_v, page_table, pos, *,
-    live=None, backend: str = "auto",
+    live=None, backend: str = "auto", plan=None,
 ):
     """Single-token decode against a paged KV arena (one layer's).
 
@@ -281,8 +316,9 @@ def decode_attention_paged(
     ``W · page_size == S_cache``; pos: (B,) int32.  The new K/V lands at
     logical slot ``pos % S_cache`` (ring) or ``pos`` (linear) inside the
     row's page for it, in place; rows whose table entry is unallocated
-    (SENTINEL) or whose linear position is past the cache write nothing.
-    The read side routes through ``execution.dispatch_paged_attention``,
+    (SENTINEL) or whose linear position is past the cache write nothing
+    (``plan``: the step's :func:`paged_write_plan`, made here when not
+    given; the write takes no host sync).  The read side routes through ``execution.dispatch_paged_attention``,
     whose visible prefix ``k < min(pos + 1, S_cache)`` covers the whole
     ring once it has wrapped.
     """
@@ -290,22 +326,14 @@ def decode_attention_paged(
     from repro_torch.core.execution import dispatch_paged_attention
 
     b = x.shape[0]
-    n_pages, page_size = pages_k.shape[0], pages_k.shape[1]
-    w = page_table.shape[1]
-    s_cache = w * page_size
     pos = _per_row(pos, b, x.device)
     q, k, v = _qkv(p, x, cfg, pos[:, None])
 
-    rows = torch.arange(b, device=x.device)
-    slot = _slot(pos, s_cache, cfg)
-    col = torch.clamp(slot // page_size, 0, w - 1)
-    page = page_table[rows, col].long()
-    ok = (slot < s_cache) & (page >= 0) & (page < n_pages)
-    off = slot % page_size
-    if not bool(ok.all()):
-        page, off, k, v = page[ok], off[ok], k[ok], v[ok]
-    pages_k[page, off] = k[:, 0].to(pages_k.dtype)
-    pages_v[page, off] = v[:, 0].to(pages_v.dtype)
+    if plan is None:
+        plan = paged_write_plan(page_table, pos, pages_k.shape[1], pages_k.shape[0], cfg)
+    page, off, src, any_ok = plan
+    pages_k[page, off] = torch.where(any_ok, k[src, 0].to(pages_k.dtype), pages_k[0, 0])
+    pages_v[page, off] = torch.where(any_ok, v[src, 0].to(pages_v.dtype), pages_v[0, 0])
 
     o = dispatch_paged_attention(q[:, 0], pages_k, pages_v, page_table, pos, backend=backend)
     return _finish(p, o, live, x, cfg), (pages_k, pages_v)
@@ -406,6 +434,8 @@ __all__ = [
     "cross_attention",
     "decode_attention",
     "decode_attention_paged",
+    "dense_write_plan",
+    "paged_write_plan",
     "dense_init",
     "embed_init",
     "encode_cross_kv",

@@ -13,6 +13,8 @@ families (token or embedding inputs) run through
   * ``make_decode_fn(cfg)``      -> (params, batch, state, pos) -> (logits, state)
   * ``bulk_prefill_from_decode(decode_fn)`` -> the prompt-consuming prefill
   * ``init_decode_state(cfg, batch, seq_len, device=...)`` and its paged twin
+  * ``batch_spec(cfg, shape)`` / ``decode_state_spec(cfg, batch, seq_len)``:
+    a cell's inputs on the ``meta`` device (the dry-run's)
 
 ``make_prefill_fn``'s ``attn_backend`` names the forward's attention route
 (``"auto"``: the CUDA kernel for tensors on a card, ``chunked_attention``
@@ -149,8 +151,43 @@ def init_decode_state_paged(cfg: ArchConfig, n_pages: int, page_size: int, *, de
     return T.init_decode_state_paged(cfg, n_pages, page_size, device=device)
 
 
+def batch_spec(cfg: ArchConfig, shape, *, device="meta") -> dict:
+    """Inputs for one (arch x shape) cell, as the reference's ``batch_spec``
+    gives them: tokens (int32), embeddings (the compute dtype), labels for
+    a train cell, one position for a decode cell.  On the ``meta`` device
+    (the default) they hold shapes and dtypes only, as the reference's
+    ``ShapeDtypeStruct`` s do; elsewhere they are zeros."""
+
+    from repro_torch.models.layers import COMPUTE_DTYPE
+
+    b, s = shape.global_batch, shape.seq_len
+    tok = lambda ss: torch.zeros((b, ss), dtype=torch.int32, device=device)  # noqa: E731
+    emb = lambda ss: torch.zeros((b, ss, cfg.d_model), dtype=COMPUTE_DTYPE, device=device)  # noqa: E731
+
+    if shape.kind == "decode":
+        return {"embeds": emb(1)} if cfg.embed_inputs else {"tokens": tok(1)}
+    if cfg.family == "encdec":
+        out = {"frames": emb(s), "tokens": tok(s)}
+    elif cfg.embed_inputs:
+        out = {"embeds": emb(s)}
+    else:
+        out = {"tokens": tok(s)}
+    if shape.kind == "train":
+        out["labels"] = tok(s)
+    return out
+
+
+def decode_state_spec(cfg: ArchConfig, batch: int, seq_len: int, *, device="meta"):
+    """The decode state of ``batch`` rows and ``seq_len`` positions; on the
+    ``meta`` device (the default) shapes and dtypes only, no memory."""
+
+    return init_decode_state(cfg, batch, seq_len, device=device)
+
+
 __all__ = [
+    "batch_spec",
     "bulk_prefill_from_decode",
+    "decode_state_spec",
     "init_decode_state",
     "init_decode_state_paged",
     "init_params",

@@ -366,20 +366,29 @@ def embed_tokens(params, cfg: ArchConfig, batch):
     return params["embed"][batch["tokens"].long()].to(L.COMPUTE_DTYPE)
 
 
+def _write_plan(acfg: L.AttnConfig, state, batch, pos, b: int, device):
+    """Where a step's new K/V land, one plan for every layer of the step."""
+
+    if "pages_k" in state:
+        n_pages, page_size = state["pages_k"].shape[1:3]
+        return L.paged_write_plan(batch["page_table"], pos, page_size, n_pages, acfg)
+    return L.dense_write_plan(pos, b, state["k"].shape[2], acfg, device)
+
+
 def _decode_attn_block(p, x, cfg: ArchConfig, acfg: L.AttnConfig, state, i: int, batch, pos,
-                       live):
+                       live, plan=None):
     """Layer ``i``'s attention block on one token, its dense or paged
-    cache written in place."""
+    cache written in place (at ``plan``'s targets, when given)."""
 
     h_in = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if "pages_k" in state:
         h, _ = L.decode_attention_paged(
             p["attn"], h_in, acfg, state["pages_k"][i], state["pages_v"][i],
-            batch["page_table"], pos, live=live,
+            batch["page_table"], pos, live=live, plan=plan,
         )
     else:
         h, _ = L.decode_attention(p["attn"], h_in, acfg, state["k"][i], state["v"][i], pos,
-                                  live=live)
+                                  live=live, plan=plan)
     x = x + h
     return x + _ffn(p, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)[0]
 
@@ -425,9 +434,10 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
     else:
         live = batch.get("live")
         acfg = attn_config(cfg)
+        plan = _write_plan(acfg, state, batch, pos, x.shape[0], x.device)
         for i in range(cfg.n_layers):
             x = _decode_attn_block(layer_params(params["blocks"], i), x, cfg, acfg, state, i,
-                                   batch, pos, live)
+                                   batch, pos, live, plan)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))

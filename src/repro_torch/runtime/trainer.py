@@ -51,6 +51,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.asymmetric import AsymmetricMesh
 from repro_torch.core.execution import ClassShardedFn, ExecutionContext
 from repro_torch.data.pipeline import AsymmetricBatcher, SyntheticLM
+from repro_torch.distributed.collectives import note_collective
 from repro_torch.distributed.sharding import PodSplit
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model_zoo as Z
@@ -153,6 +154,9 @@ def weighted_mean_epilogue(outs, shard_args, axis):
 
     if axis is None:
         return outs
+    # The reference's psum of each pod's (loss, metrics, grads): one pod's
+    # tree is the operand every device sends.
+    note_collective("all-reduce", [outs[0][0], list(outs[0][1].values()), outs[0][2]])
     ws = [_shard_weight(batch) for _, batch in shard_args]
     total = sum(ws)
     scales = [torch.where(total > 0, w / torch.clamp(total, min=1.0), torch.zeros_like(w))

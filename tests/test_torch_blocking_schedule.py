@@ -116,7 +116,7 @@ def test_validate_objective_matches_reference():
     for obj in ("perf", "energy", "edp"):
         assert TS.validate_objective(obj) == JS.validate_objective(obj)
     with pytest.raises(ValueError):
-        TS.validate_objective("speed")  # repro: noqa=RPR005 -- negative test: an unknown objective must raise
+        TS.validate_objective("speed")  # repro: noqa=RPR005 -- negative test: an unknown objective must raise  # repro_torch: noqa=RPR005 -- negative test: an unknown objective must raise
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +294,7 @@ def test_default_trees_mirror_the_reference_structure():
     and ``cuda_lean`` under the same rule."""
 
     t, j = _meshes(batch_tile=1, backend="cuda")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
-    _, jref = _meshes(batch_tile=1, backend="pallas")
+    _, jref = _meshes(batch_tile=1, backend="pallas")  # repro_torch: noqa=RPR005 -- the reference's backend name (repro.core.execution.BACKENDS)
     trees, jtrees = t.control_trees(), jref.control_trees()
     rename = {"pallas": "cuda", "pallas_lean": "cuda_lean"}
     assert {k: v.backend for k, v in trees.items()} == {

@@ -170,7 +170,7 @@ def test_gemm_step_matches_reference():
     x = rng.normal(size=(256, 128)).astype(np.float32)
     w = rng.normal(size=(128, 128)).astype(np.float32)
     jam = JMesh(jax_classes(chips_per_pod=1), tree_shape=(128, 128, 128),
-                backend="pallas_interpret")
+                backend="pallas_interpret")  # repro_torch: noqa=RPR005 -- the reference's backend name (repro.core.execution.BACKENDS)
     jstep = jam.class_sharded(lambda a, b: jgemm(a, b), mesh=jax_host_mesh(pod=2),
                               in_specs=(P("pod"), P()), out_specs=P("pod"))
     want = np.asarray(jax.jit(jstep)(jnp.asarray(x), jnp.asarray(w)))

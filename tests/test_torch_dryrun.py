@@ -1,0 +1,356 @@
+"""The port's one-card dry-run against the reference's, on the CPU.
+
+``repro_torch.launch.dryrun`` runs a cell's step on the ``meta`` device
+under the operator counter of ``launch.op_analysis``; the reference
+AOT-compiles it and parses the HLO (``repro.launch.hlo_analysis``).  At
+the reduced size of the reference's three families of
+``tests/test_dryrun_small.py`` (internlm2-1.8b ``train_4k``,
+mixtral-8x7b ``decode_32k``, mamba2-1.3b ``long_500k``; published shapes,
+``ArchConfig.reduced()`` widths), the reference's side compiled on a
+one-device mesh:
+
+  * argument bytes equal ``memory_analysis().argument_size_in_bytes``
+    exactly (the same params, optimizer trees, batch and decode state; an
+    argument the step never reads is pruned by the reference's ``jit`` and
+    not counted by the port);
+  * total FLOPs agree within ``FLOPS_RTOL``.
+
+``model_flops`` agrees exactly for every config x shape.  The claims of
+``test_dryrun_small.py`` hold on one card, and the GEMM funnel's counts
+at the card's shapes are the ones ``chip_smoke.py`` phase 23 holds to the
+card's own launch counters.  Last, the sync-free decode writes of
+``models/layers.py`` leave the dense cache and the paged arena bitwise
+what the dropped writes left.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ShapeSpec, get_config, list_configs
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import op_analysis as OA
+from repro_torch.launch import roofline as R
+from repro_torch.models import layers as L
+from repro_torch.models import model_zoo as Z
+
+# Both count the same dots: every projection, the attention's score and
+# value products of each query chunk, with remat's forward counted twice.
+# One difference: ``torch.utils.checkpoint`` recomputes each layer's whole
+# forward, its last product (the MLP's down projection, whose output the
+# backward never reads) included, where XLA drops that product as dead
+# code: 0.36% of the reduced internlm2 training step (the card runs it:
+# 675 launches a step), nothing in the decode steps.  2% bounds the rest.
+FLOPS_RTOL = 0.02
+
+CELLS = [
+    ("internlm2-1.8b", "train_4k"),
+    ("mixtral-8x7b", "decode_32k"),
+    ("mamba2-1.3b", "long_500k"),
+]
+
+
+def _reference_dryrun():
+    """``repro.launch.dryrun`` imported without its 512-device ``XLA_FLAGS``
+    leaking into this process's later subprocesses."""
+
+    old = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun as RD
+    finally:
+        if old is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = old
+    return RD
+
+
+@pytest.fixture(scope="module")
+def reference_cells():
+    """The reference's reduced cells compiled on a one-device mesh:
+    ``{(arch, shape): (flops, argument bytes)}``."""
+
+    import jax
+
+    from repro.configs import get_config as ref_config
+    from repro.launch import hlo_analysis as H
+    from repro.launch.mesh import make_host_mesh
+
+    RD = _reference_dryrun()
+    mesh = make_host_mesh()
+    out = {}
+    orig = RD.get_config
+    RD.get_config = lambda name: ref_config(name).reduced()
+    try:
+        for arch, shape in CELLS:
+            fn, args, in_sh, out_sh = RD.build_cell(arch, shape, mesh)
+            donate = (0, 1) if len(args) == 3 else (2,)
+            with mesh:
+                compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,  # repro: noqa=RPR003 -- one compile per distinct cell, each its own program
+                                   donate_argnums=donate).lower(*args).compile()
+            out[(arch, shape)] = (H.analyze(compiled.as_text()).flops,
+                                  compiled.memory_analysis().argument_size_in_bytes)
+    finally:
+        RD.get_config = orig
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_cells():
+    return {(arch, shape): D.run_cell(get_config(arch).reduced(), shape, write=False)
+            for arch, shape in CELLS}
+
+
+# ---------------------------------------------------------------------------
+# Against the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", list_configs())
+def test_model_flops_equal_reference(arch):
+    from repro.launch.roofline import model_flops as ref_model_flops
+
+    for shape in get_config(arch).shapes(include_skipped=True):
+        assert R.model_flops(arch, shape.name) == ref_model_flops(arch, shape.name), shape.name
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}:{c[1]}")
+def test_argument_bytes_equal_reference(cell, reference_cells, port_cells):
+    rec = port_cells[cell]
+    assert rec["ok"], rec.get("error")
+    assert rec["memory"]["argument_bytes"] == reference_cells[cell][1]
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}:{c[1]}")
+def test_total_flops_match_reference(cell, reference_cells, port_cells):
+    got, want = port_cells[cell]["hlo_cost"]["flops"], reference_cells[cell][0]
+    assert abs(got - want) <= FLOPS_RTOL * want, (got, want)
+
+
+def test_batch_and_state_specs_match_reference():
+    import jax
+
+    from repro.configs import get_config as ref_config
+    from repro.models import model_zoo as RZ
+
+    for arch, shape_name in CELLS + [("whisper-small", "prefill_32k"), ("pixtral-12b", "train_4k")]:
+        cfg, rcfg = get_config(arch).reduced(), ref_config(arch).reduced()
+        shape = next(s for s in cfg.shapes(include_skipped=True) if s.name == shape_name)
+        rshape = next(s for s in rcfg.shapes(include_skipped=True) if s.name == shape_name)
+        got = Z.batch_spec(cfg, shape)
+        want = RZ.batch_spec(rcfg, rshape)
+        assert set(got) == set(want)
+        for k in got:
+            assert got[k].device.type == "meta"
+            assert tuple(got[k].shape) == tuple(want[k].shape), k
+            assert str(got[k].dtype).split(".")[-1] == str(want[k].dtype), k
+        if shape.kind == "decode":
+            st = Z.decode_state_spec(cfg, shape.global_batch, shape.seq_len)
+            rst = RZ.decode_state_spec(rcfg, rshape.global_batch, rshape.seq_len)
+            assert OA.tree_bytes(st) == sum(
+                int(np.prod(x.shape)) * x.dtype.itemsize for x in jax.tree.leaves(rst))
+
+
+# ---------------------------------------------------------------------------
+# test_dryrun_small.py's claims, on one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}:{c[1]}")
+def test_every_family_counts_work(cell, port_cells):
+    cost = port_cells[cell]["hlo_cost"]
+    assert cost["flops"] > 0 and cost["bytes"] > 0
+    assert cost["gemm_calls"] > 0 and 0 < cost["gemm_flops"] <= cost["flops"]
+
+
+def test_class_sharded_train_cell_communicates():
+    rec = D.run_cell(get_config("internlm2-1.8b").reduced(), "train_4k",
+                     little_spec="h100-little", write=False)
+    assert rec["ok"], rec.get("error")
+    assert rec["class_sharded"] and [c[1] for c in rec["shard_classes"]] == ["big", "little"]
+    assert rec["hlo_cost"]["collective_bytes"] > 0
+    assert set(rec["hlo_cost"]["by_collective"]) == {"all-reduce"}
+    row = R.analyze_record(rec)
+    assert row.collective_s > 0
+
+
+def test_ssm_long_context_decode_state_is_small():
+    rec = D.run_cell("mamba2-1.3b", "long_500k", write=False)
+    assert rec["ok"], rec.get("error")
+    assert rec["memory"]["temp_bytes"] / 2**30 < 4.0
+    assert rec["fits"] and rec["memory"]["alias_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The funnel at the card's shapes (chip_smoke.py phase 23 holds the card's
+# launch counters to these), full width on the meta device
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,shape,calls", [
+    ("internlm2-1.8b", ShapeSpec("phase8", 4096, 12, "decode"), 169),
+    ("minitron-4b", ShapeSpec("phase7", 2048, 2, "prefill"), 225),
+    ("internlm2-1.8b", ShapeSpec("phase16", 512, 8, "train"), 675),
+], ids=["decode", "forward", "train"])
+def test_funnel_calls_at_the_cards_shapes(arch, shape, calls):
+    rec = D.run_cell(arch, shape, write=False)
+    assert rec["ok"], rec.get("error")
+    assert rec["hlo_cost"]["gemm_calls"] == calls
+    assert rec["exec_backend"] == "matmul"  # set, never probed
+    assert rec["attn_backends"]["flash_attn"] == "flash_attn_torch"
+
+
+def test_minitron_forward_operations_bound():
+    # PERF.md §6 row 1: 35.7 ms of GEMM operations a 2 x 2048 forward.
+    rec = D.run_cell("minitron-4b", ShapeSpec("phase7", 2048, 2, "prefill"), write=False)
+    bound_ms = rec["hlo_cost"]["gemm_flops"] / R.PEAK_FLOPS * 1e3
+    assert abs(bound_ms - 35.7) <= 0.01 * 35.7, bound_ms
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's own surface
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_backend_fails_the_cell_on_meta():
+    rec = D.run_cell(get_config("internlm2-1.8b").reduced(), "decode_32k", backend="cuda",  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
+                     write=False)
+    assert not rec["ok"] and "meta device" in rec["error"]
+
+
+def test_quadratic_long_context_is_skipped_with_the_reference_reason():
+    rec = D.run_cell("internlm2-1.8b", "long_500k", write=False)
+    assert rec["skipped"] and rec["reason"] == "full quadratic attention (see DESIGN.md)"
+
+
+def test_multi_card_meshes_raise(capsys):
+    for flag in ("--multi-pod", "--both-meshes"):
+        with pytest.raises(SystemExit) as e:
+            D.main(["--arch", "internlm2-1.8b", flag])
+        assert e.value.code == 2
+        assert "one card" in capsys.readouterr().err
+
+
+def test_cli_writes_records_and_roofline_formats(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        D.main(["--arch", "mamba2-1.3b", "--shape", "long_500k", "--out", str(tmp_path)])
+    assert e.value.code == 0
+    (path,) = tmp_path.iterdir()
+    assert path.name == "mamba2-1.3b__long_500k__card1.json"
+    R.main(["--dir", str(tmp_path), "--csv", str(tmp_path / "rows.csv")])
+    out = capsys.readouterr().out
+    assert "mamba2-1.3b" in out and "long_500k" in out
+    assert (tmp_path / "rows.csv").read_text().count("\n") == 2
+
+
+def test_roofline_constants_come_from_the_spec():
+    from repro_torch.core.blocking import H100
+
+    assert (R.PEAK_FLOPS, R.HBM_BW) == (H100.peak_flops, H100.hbm_bw)
+    rec = {"ok": True, "arch": "x", "shape": "y", "mesh": "card1", "n_chips": 1,
+           "hlo_cost": {"flops": 989e12, "bytes": 6.7e12, "attn_score_bytes": 3.35e12,
+                        "collective_bytes": 0.0}}
+    row = R.analyze_record(rec)
+    assert row.compute_s == pytest.approx(1.0) and row.memory_s == pytest.approx(2.0)
+    assert row.memory_flash_s == pytest.approx(1.0) and row.collective_s == 0.0
+
+
+def test_op_cost_has_the_reference_fields_and_the_funnels():
+    from repro.launch.hlo_analysis import HloCost
+
+    assert set(OA.OpCost().as_dict()) == set(HloCost().as_dict()) | {"gemm_calls", "gemm_flops"}
+
+
+def test_counter_rules():
+    a = torch.zeros((8, 16), device="meta")
+    b = torch.zeros((16, 4), device="meta")
+    with OA.count_ops() as cost:
+        c = a @ b              # mm: 2 x 8 x 16 x 4
+        v = c.view(32)         # a view moves nothing
+        d = v.clone()          # a copy: read + write
+        del c, v, d
+    assert cost.flops == 2 * 8 * 16 * 4 and cost.dot_count == 1
+    assert cost.bytes == (8 * 16 + 16 * 4 + 8 * 4) * 4 + 2 * 32 * 4
+    # c and its clone were alive together, then released.
+    assert cost.peak_live_bytes == 2 * 32 * 4 and cost.live_bytes == 0
+
+
+# ---------------------------------------------------------------------------
+# The sync-free decode writes (models/layers.py) keep the caches bitwise
+# ---------------------------------------------------------------------------
+
+ACFG = L.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, d_head=8)
+
+
+def _qkv(p, x, pos):
+    return L._qkv(p, x, ACFG, pos.long()[:, None])
+
+
+def _dropping_dense(cache_k, cache_v, k, v, pos):
+    # The former write: rows past a linear cache dropped by a mask.
+    rows = torch.arange(k.shape[0])
+    ok = pos.long() < cache_k.shape[1]
+    cache_k[rows[ok], pos.long()[ok]] = k[ok, 0].to(cache_k.dtype)
+    cache_v[rows[ok], pos.long()[ok]] = v[ok, 0].to(cache_v.dtype)
+
+
+def _dropping_paged(pages_k, pages_v, table, k, v, pos):
+    n_pages, ps = pages_k.shape[:2]
+    w = table.shape[1]
+    slot = pos.long()
+    page = table[torch.arange(k.shape[0]), torch.clamp(slot // ps, 0, w - 1)].long()
+    ok = (slot < w * ps) & (page >= 0) & (page < n_pages)
+    pages_k[page[ok], (slot % ps)[ok]] = k[ok, 0].to(pages_k.dtype)
+    pages_v[page[ok], (slot % ps)[ok]] = v[ok, 0].to(pages_v.dtype)
+
+
+@pytest.mark.parametrize("pos", [[0, 3, 5, 2], [6, 9, 1, 6], [7, 8, 9, 10]],
+                         ids=["in_cache", "some_past", "all_past"])
+def test_dense_write_bitwise(pos):
+    g = torch.Generator().manual_seed(0)
+    p = L.init_attention(g, ACFG, device="cpu")
+    x = torch.randn((4, 1, 32), generator=g).to(L.COMPUTE_DTYPE)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    cache = [torch.randn((4, 7, 2, 8), generator=g).to(L.COMPUTE_DTYPE) for _ in range(2)]
+    want = [c.clone() for c in cache]
+    _, k, v = _qkv(p, x, pos)
+    _dropping_dense(*want, k, v, pos)
+    L.decode_attention(p, x, ACFG, *cache, pos)
+    assert all(torch.equal(c, w) for c, w in zip(cache, want))
+
+
+SENT = int(np.int32(1 << 30))
+
+
+@pytest.mark.parametrize("table,pos", [
+    ([[0, 1], [2, 3], [4, 5], [6, 7]], [0, 5, 6, 7]),
+    ([[SENT, SENT], [2, 3], [SENT, SENT], [6, SENT]], [1, 5, 2, 6]),      # unallocated pages
+    ([[0, 1], [2, 3], [4, 5], [6, 7]], [8, 3, 9, 12]),                    # past the cache
+    ([[SENT, SENT], [SENT, 3], [4, 5], [6, 7]], [0, 1, 8, 11]),           # none accepted
+    ([[2, 3], [2, 3], [4, 5], [SENT, SENT]], [6, 6, 1, 3]),               # shared (phantom) page
+], ids=["all_live", "unallocated", "past_cache", "none_accepted", "shared_page"])
+def test_paged_write_bitwise(table, pos):
+    g = torch.Generator().manual_seed(1)
+    p = L.init_attention(g, ACFG, device="cpu")
+    x = torch.randn((4, 1, 32), generator=g).to(L.COMPUTE_DTYPE)
+    x[1] = x[0]  # rows 0 and 1 write the same values (the phantom rows' case)
+    pos = torch.tensor(pos, dtype=torch.int32)
+    table = torch.tensor(table, dtype=torch.int32)
+    arena = [torch.randn((8, 4, 2, 8), generator=g).to(L.COMPUTE_DTYPE) for _ in range(2)]
+    want = [a.clone() for a in arena]
+    _, k, v = _qkv(p, x, pos)
+    _dropping_paged(*want, table, k, v, pos)
+    L.decode_attention_paged(p, x, ACFG, *arena, table, pos)
+    assert all(torch.equal(a, w) for a, w in zip(arena, want))
+
+
+def test_decode_step_runs_on_meta():
+    # The host syncs the writes replaced raised on a meta tensor.
+    cfg = get_config("internlm2-1.8b").reduced()
+    shape = ShapeSpec("d", 16, 3, "decode")
+    fn, args, alias = D.build_cell(cfg, shape)
+    logits, state = fn(*args)
+    assert logits.device.type == "meta" and tuple(logits.shape) == (3, 1, cfg.vocab)
+    assert state is args[2] and alias == (2,)

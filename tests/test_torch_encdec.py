@@ -199,7 +199,7 @@ def test_decode_step_with_the_reference_state(whisper):
         for t in range(S):
             pos = torch.full((B,), t, dtype=torch.int32) if t % 2 else t
             lg, out = dec(params, {"tokens": toks[:, t:t + 1]}, state, pos)
-            assert out is state and lg.shape == (B, 1, cfg.vocab)
+            assert out is state and lg.shape == (B, 1, cfg.vocab)  # repro_torch: noqa=RPR001 -- checks the step updated the state in place
             steps.append(lg)
     got = torch.cat(steps, 1)
     np.testing.assert_allclose(_np(got), want["decode"], **TOL)

@@ -360,9 +360,9 @@ def test_arm_disarm_and_injected_restores():
 
 def test_fault_validation():
     with pytest.raises(ValueError):
-        faults.validate_point("not_a_point")  # repro: noqa=RPR006 -- negative test: validation must reject drift
+        faults.validate_point("not_a_point")  # repro: noqa=RPR006 -- negative test: validation must reject drift  # repro_torch: noqa=RPR006 -- negative test: validation must reject drift
     with pytest.raises(ValueError):
-        faults.FaultEvent(point="not_a_point", engine=0, tick=1)  # repro: noqa=RPR006 -- negative test: validation must reject drift
+        faults.FaultEvent(point="not_a_point", engine=0, tick=1)  # repro: noqa=RPR006 -- negative test: validation must reject drift  # repro_torch: noqa=RPR006 -- negative test: validation must reject drift
     with pytest.raises(ValueError):
         faults.FaultEvent(point="engine_stall", engine=-1, tick=1)
     plan = faults.FaultPlan([faults.FaultEvent(point="engine_stall", engine=0, tick=1)])

@@ -10,6 +10,7 @@ port's package.  No tolerances: these are structural checks.
 """
 
 import ast
+import difflib
 import os
 import pathlib
 import re
@@ -88,6 +89,12 @@ def test_port_covers_the_slice_modules():
         "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.distributed",
         "repro_torch.distributed.sharding", "repro_torch.distributed.collectives",
         "repro_torch.runtime.faults", "repro_torch.runtime.fleet",
+        "repro_torch.analysis", "repro_torch.analysis.__main__",
+        "repro_torch.analysis.ast_checks", "repro_torch.analysis.cli",
+        "repro_torch.analysis.configcheck", "repro_torch.analysis.diagnostics",
+        "repro_torch.analysis.donation", "repro_torch.analysis.registry",
+        "repro_torch.launch.op_analysis", "repro_torch.launch.dryrun",
+        "repro_torch.launch.roofline",
     ):
         assert name in mods, name
     for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):
@@ -101,11 +108,25 @@ COPIES = ("runtime/faults.py", "runtime/fleet.py", "runtime/paging.py", "util/at
           "core/schedule.py", "core/simulator.py")
 
 
-@pytest.mark.parametrize("rel", COPIES)
+# Copies that differ from the reference in a counted number of lines, each
+# replaced by one: the analyzer's diagnostic model reads the port's own
+# suppression comment (``# repro_torch: noqa=...``) and gives some codes
+# their port meaning.
+DIFFERING = {"analysis/diagnostics.py": 15}
+
+
+@pytest.mark.parametrize("rel", COPIES + tuple(DIFFERING))
 def test_copied_module_matches_reference(rel):
     ref = (ROOT / "src" / "repro" / rel).read_text()
     want = re.sub(r"^(\s*)(from|import) repro([ .])", r"\1\2 repro_torch\3", ref, flags=re.M)
-    assert (PORT / rel).read_text() == want, f"{rel} drifted from src/repro/{rel}"
+    got = (PORT / rel).read_text()
+    if rel not in DIFFERING:
+        assert got == want, f"{rel} drifted from src/repro/{rel}"
+        return
+    diff = list(difflib.unified_diff(want.splitlines(), got.splitlines(), n=0, lineterm=""))
+    added = [d for d in diff if d.startswith("+") and not d.startswith("+++")]
+    removed = [d for d in diff if d.startswith("-") and not d.startswith("---")]
+    assert len(added) == len(removed) == DIFFERING[rel], "\n".join(diff)
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -230,7 +230,7 @@ def test_registry_is_closed():
     with pytest.raises(ValueError, match="not a paged-attention"):
         X.resolve_paged_attn_backend("cuda")  # repro: noqa=RPR005 -- a negative test: a name of the other op family must raise
     with pytest.raises(ValueError, match="unknown backend"):
-        X.resolve_backend("pallas")
+        X.resolve_backend("pallas")  # repro_torch: noqa=RPR005 -- negative test: the reference's name must raise
 
 
 # ---------------------------------------------------------------------------

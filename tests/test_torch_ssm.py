@@ -316,7 +316,7 @@ def test_decode_steps_and_state_match_reference(zoo):
     with torch.no_grad():
         for t in range(S_LEN):
             lg, out = dec(params, {"tokens": toks[:, t:t + 1]}, state, t)
-            assert out is state
+            assert out is state  # repro_torch: noqa=RPR001 -- checks the step updated the state in place
             steps.append(lg)
     np.testing.assert_allclose(_np(torch.cat(steps, 1)), want["decode"], **TOL)
     ref = want["decode_state"]

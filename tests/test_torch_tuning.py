@@ -406,7 +406,7 @@ def test_each_package_reads_only_its_own_cache(tmp_path, monkeypatch):
     path = str(tmp_path / "cache.json")
     cache = C.TuningCache(path=path)
     cache.put("h100", "bfloat16", 256, 256, 256, B.BlockConfig(64, 128, 32), backend="cuda")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
-    cache.put("tpu-v5e", "bfloat16", 256, 256, 256, B.BlockConfig(128, 128, 128), backend="pallas")
+    cache.put("tpu-v5e", "bfloat16", 256, 256, 256, B.BlockConfig(128, 128, 128), backend="pallas")  # repro_torch: noqa=RPR005 -- the reference's backend name (repro.core.execution.BACKENDS)
     cache.save()
     monkeypatch.setenv(JC.ENV_VAR, path)
     assert X.tuned_block_config(256, 256, 256) is None
