@@ -233,6 +233,30 @@ Phases (any failed check exits non-zero and prints no result line):
      roofline bound lies below the card's measured time of that step, and
      the training cell's bytes lie within ``DRYRUN_MEM_RTOL`` of phase
      16's peak.
+ 24. the multi-card half on one card: 4 spawned ranks (``launch.mesh
+     .spawn_ranks``) share the card over ``gloo`` as a (data=2, model=2)
+     mesh (NCCL refuses two ranks on one device; the collectives stage
+     through host memory) and run full-width internlm2-1.8b, FSDP over
+     ``data`` and tensor parallelism over ``model``: (a) 3 training steps
+     of phase 16's 8 x 512 tokens through ``launch/train.py``'s trainer
+     from seed 0, losses within ``SPMD_LOSS_RTOL`` and grad norms within
+     ``SPMD_NORM_RTOL`` of the one-card trainer's on the same seed and
+     batches (run here first), 675 ``gemm_cuda`` a step a rank at the
+     local shapes and no other kernel, each rank's collective bytes a step
+     by kind equal to the dry-run's count for the cell at (2,2); (b)
+     ``reshard`` to (data=4, model=1) and one more step, held the same
+     way; (c) one decode step of 12 rows at the last position of a
+     4,096-token cache split over ``model`` (random bf16 K/V built one
+     layer at a time from a seed), logits within ``LOGIT_TOL`` of the
+     one-card step, and a prefill of 12 x 512 tokens on the ranks' local
+     heads (24 ``flash_attention_cuda`` a rank), its last positions'
+     logits within ``LOGIT_TOL`` of the one-card forward's; rank 0's
+     ``gemm_cuda`` at a local shape and ``flash_attention_cuda`` at the
+     prefill's local shape (6 rows x 512, 8 query and 4 KV heads) against
+     their plain versions, within ``BF16_TOL`` (flash also
+     ``FLASH_ROW_TOL``).  Per-rank
+     peak GB beside the dry-run's bytes and step wall ms are printed: the
+     ranks share one card, so these are not a multi-card step time.
  Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
  of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
@@ -240,7 +264,8 @@ Each of phases 2-4, the forward of phase 7, the steps of phase 8, the
 engines and the kernel step of phases 11 and 12, the paths of phases
 13-15, the training runs and little-tree steps of phases 16-17, the
 training runs of phase 18, the steps of phase 19, the paths and steps
-of phases 20-21 and the lanes of phase 22 resets the kernels' launch counters just before it and
+of phases 20-21, the lanes of phase 22 and each rank's steps and paths of
+phase 24 resets the kernels' launch counters just before it and
 reads them just after; the launches of phases 1, 5, 6, 10 and the
 comparisons of phases 7, 8, 11, 12, 13-15 and 20 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
@@ -4383,6 +4408,314 @@ def phase23(torch, fwd: dict, long_step: dict, train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the multi-card half, 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (data, model) of the training and decode mesh, and of the reshard's.
+SPMD_MESH, SPMD_RESHARD = (2, 2), (4, 1)
+SPMD_STEPS = 3
+# Against the one-card trainer on the same seed and batches, as the CPU
+# tests hold the port to the reference (tests/test_torch_train.py).
+SPMD_LOSS_RTOL, SPMD_NORM_RTOL = 1e-2, 3e-2
+# The decode step and the prefill of (c): 12 rows at the last position of
+# a 4,096-token cache; 12 x 512 prompt tokens, the last SPMD_LAST logits.
+SPMD_ROWS, SPMD_CACHE, SPMD_PREFILL, SPMD_LAST = 12, 4096, 512, 4
+SPMD_TIMEOUT_S = 900
+
+
+def spmd_train_args(steps: int):
+    from repro_torch.launch import train as TL
+
+    return TL.build_parser().parse_args([
+        "--arch", ARCH, "--steps", str(steps), "--global-batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--ckpt-every", "100", "--seed", "0"])
+
+
+def spmd_serving_inputs(torch, cfg, device, mesh=None):
+    """Phase 24's decode state (full on one card, a rank's part on a
+    mesh: every layer's K and V drawn whole from one seed, then cut), the
+    decode tokens and positions and the prefill tokens, all from seeds."""
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model_zoo as Z
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    state = Z.init_decode_state(cfg, SPMD_ROWS, SPMD_CACHE, device=device, mesh=mesh)
+    spec = SH.cache_pspec(mesh, (cfg.n_layers, SPMD_ROWS, SPMD_CACHE, cfg.n_kv_heads, cfg.head_dim)) \
+        if mesh is not None else None
+    for layer in range(cfg.n_layers):
+        for key in ("k", "v"):
+            full = torch.randn((SPMD_ROWS, SPMD_CACHE, cfg.n_kv_heads, cfg.head_dim), generator=gen,
+                               device=device, dtype=torch.bfloat16)
+            part = full if spec is None else SH.local_slice(full[None], spec, mesh)[0]
+            state[key][layer].copy_(part)
+            del full, part
+    toks = torch.randint(0, cfg.vocab, (SPMD_ROWS, 1), generator=gen, device=device, dtype=torch.int32)
+    ptoks = torch.randint(0, cfg.vocab, (SPMD_ROWS, SPMD_PREFILL), generator=gen, device=device,
+                          dtype=torch.int32)
+    pos = torch.full((SPMD_ROWS,), SPMD_CACHE - 1, dtype=torch.int32, device=device)
+    if mesh is not None:
+        rows = SH.batch_pspec(mesh, SPMD_ROWS)
+        toks, ptoks, pos = (SH.local_slice(t, rows, mesh) for t in (toks, ptoks, pos))
+    return state, toks, ptoks, pos
+
+
+def phase24_rank(rank: int, plan: dict) -> dict:
+    """One rank of phase 24 (a spawned process, the card shared): (a) and
+    (b)'s training steps, then (c)'s decode step and prefill."""
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import execution as X
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as Z
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {"rank": rank}
+    mesh = make_host_mesh(data=SPMD_MESH[0], model=SPMD_MESH[1], device="cuda")
+    t0 = time.perf_counter()
+    trainer = TL.make_trainer(spmd_train_args(SPMD_STEPS + 1), mesh=mesh)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["backend"] = mesh.transport
+    seen: dict = {}
+
+    def note(kind, nbytes):
+        seen[kind] = seen.get(kind, 0) + nbytes
+
+    C.COLLECTIVE_OBSERVERS.append(note)
+    steps = []
+    for i in range(SPMD_STEPS + 1):
+        if i == SPMD_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+            trainer.reshard(make_host_mesh(data=SPMD_RESHARD[0], model=SPMD_RESHARD[1], device="cuda"))
+            out["peak_gb_reshard"] = torch.cuda.max_memory_allocated() / 1e9
+        batch, _ = trainer.next_batch(i)
+        seen.clear()
+        G.reset_launches()
+        FA.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "wall_s": time.perf_counter() - t, "rows": int(batch["tokens"].shape[0]),
+                      "launches": {**G.LAUNCHES, **FA.LAUNCHES}, "collective_bytes": dict(seen),
+                      "mesh": dict(trainer.mesh.shape), "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    C.COLLECTIVE_OBSERVERS.remove(note)
+    out["steps"] = steps
+    del trainer, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (c): serving params (bf16, no FSDP) drawn leaf by leaf from phase 8's seed.
+    cfg = get_config(ARCH)
+    mesh = make_host_mesh(data=SPMD_MESH[0], model=SPMD_MESH[1], device="cuda")
+    specs = Z.param_specs(cfg, mesh, fsdp=False)
+    params = spmd.init_sharded(lambda g, d: Z.init_params(cfg, g, d),
+                               torch.Generator(device="cuda").manual_seed(0), specs, mesh)
+    state, toks, ptoks, pos = spmd_serving_inputs(torch, cfg, "cuda", mesh)
+    decode = Z.make_decode_fn(cfg, mesh=mesh, batch=SPMD_ROWS, seq_len=SPMD_CACHE)
+    prefill = Z.make_prefill_fn(cfg, mesh=mesh)
+    seen.clear()
+    C.COLLECTIVE_OBSERVERS.append(note)
+    with torch.no_grad():
+        G.reset_launches()
+        FA.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = decode(params, {"tokens": toks}, state, pos)
+        torch.cuda.synchronize()
+        out["decode"] = {"wall_s": time.perf_counter() - t, "launches": {**G.LAUNCHES, **FA.LAUNCHES},
+                         "collective_bytes": dict(seen)}
+        C.COLLECTIVE_OBSERVERS.remove(note)
+        full = C.all_gather(C.all_gather(logits, mesh, "model", 2), mesh, SH.dp_axes(mesh), 0)
+        del state
+        G.reset_launches()
+        FA.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plog = prefill(params, {"tokens": ptoks})[:, -SPMD_LAST:].contiguous()
+        torch.cuda.synchronize()
+        out["prefill"] = {"wall_s": time.perf_counter() - t, "launches": {**G.LAUNCHES, **FA.LAUNCHES}}
+        pfull = C.all_gather(C.all_gather(plog, mesh, "model", 2), mesh, SH.dp_axes(mesh), 0)
+    out["peak_gb_serve"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_gb"] = max([st["peak_gb"] for st in steps] + [out["peak_gb_reshard"], out["peak_gb_serve"]])
+    if rank == 0:
+        out["decode"]["logits"] = full.float().cpu()
+        out["prefill"]["logits"] = pfull.float().cpu()
+        # One product at a rank-local shape (wq's columns of one model rank).
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        a = torch.randn((TRAIN_BATCH * TRAIN_SEQ // SPMD_MESH[0], cfg.d_model), generator=gen,
+                        device="cuda").bfloat16()
+        b = (torch.randn((cfg.d_model, cfg.n_heads * cfg.head_dim // SPMD_MESH[1]), generator=gen,
+                         device="cuda") / math.sqrt(cfg.d_model)).bfloat16()
+        ctx = X.default_context()
+        blk = ctx.block_config(a.shape[0], a.shape[1], b.shape[1], "bfloat16", 2)
+        got, ref = G.gemm_cuda(a, b, blk), G.gemm_plain(a, b, blk)
+        ok, err = within(torch, got, ref, BF16_TOL)
+        out["local_gemm"] = {"shape": [a.shape[0], a.shape[1], b.shape[1]], "ok": ok, "max_abs_err": err,
+                             "block": [blk.bm, blk.bk, blk.bn]}
+        # The prefill's attention at its rank-local shape: this rank's rows,
+        # its model rank's query heads and their KV heads.
+        m = SPMD_MESH[1]
+        rows, s = ptoks.shape
+        q = torch.randn((rows, s, cfg.n_heads // m, cfg.head_dim), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((rows, s, cfg.n_kv_heads // m, cfg.head_dim), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        got, ref = FA.flash_attention_cuda(q, k, v, causal=True), FA.flash_attention_torch(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ok, err = within(torch, got, ref, BF16_TOL)
+        row_err = row_rel_err(got, ref)
+        out["local_flash"] = {"shape": [rows, s, s, q.shape[2], k.shape[2], cfg.head_dim],
+                              "ok": ok and got.shape == q.shape and row_err <= FLASH_ROW_TOL,
+                              "max_abs_err": err, "row_err": row_err}
+    return out
+
+
+def phase24(torch, counts, reset) -> dict:
+    """The multi-card half on one card: the one-card references, the
+    dry-run's counts, then 4 ranks (``phase24_rank``) and their checks."""
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import RankMesh, spawn_ranks
+    from repro_torch.models import model_zoo as Z
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    # The one-card trainer on the same seed and batches.
+    trainer = TL.make_trainer(spmd_train_args(SPMD_STEPS + 1))
+    one = []
+    for i in range(SPMD_STEPS + 1):
+        batch, _ = trainer.next_batch(i)
+        m = trainer.train_step(batch)
+        one.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+    del trainer, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The one-card decode step and prefill on phase 8's weights.
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    state, toks, ptoks, pos = spmd_serving_inputs(torch, cfg, "cuda")
+    with torch.no_grad():
+        one_decode = Z.make_decode_fn(cfg)(params, {"tokens": toks}, state, pos)[0].float().cpu()
+        del state
+        one_prefill = Z.make_prefill_fn(cfg)(params, {"tokens": ptoks})[:, -SPMD_LAST:].float().cpu()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The dry-run's counts for the same cells on the abstract meshes.
+    train_shape = ShapeSpec("phase24_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    dry = {}
+    for sizes in (SPMD_MESH, SPMD_RESHARD):
+        rec = D.run_cell(cfg, train_shape, mesh=RankMesh.abstract(("data", "model"), sizes),
+                         seq_shard=False, write=False)
+        check(rec["ok"], f"dry-run at {sizes}: {rec.get('error')}")
+        dry[sizes] = rec
+    rec = D.run_cell(cfg, ShapeSpec("phase24_decode", SPMD_CACHE, SPMD_ROWS, "decode"),
+                     mesh=RankMesh.abstract(("data", "model"), SPMD_MESH), write=False)
+    check(rec["ok"], f"dry-run decode: {rec.get('error')}")
+    dry["decode"] = rec
+
+    # The prefill splits the heads over model (rank 0 holds its flash call
+    # at that local shape against the plain version).
+    check(cfg.n_heads % SPMD_MESH[1] == 0 and cfg.n_kv_heads % SPMD_MESH[1] == 0,
+          f"{cfg.name}'s heads {cfg.n_heads}/{cfg.n_kv_heads} do not split {SPMD_MESH[1]} ways")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(phase24_rank, SPMD_MESH[0] * SPMD_MESH[1], {}, device="cuda",
+                        timeout=SPMD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    per_step = 4 * forward_gemm_calls(cfg) - 1
+    r0 = ranks[0]
+    for r in ranks:
+        for i, st in enumerate(r["steps"]):
+            sizes = SPMD_MESH if i < SPMD_STEPS else SPMD_RESHARD
+            lc = st["launches"]
+            check(lc["gemm_cuda"] == per_step and all(v == 0 for k, v in lc.items() if k != "gemm_cuda"),
+                  f"rank {r['rank']} step {i} launched {lc}, want {per_step} gemm_cuda only")
+            want = {k: v for k, v in dry[sizes]["hlo_cost"]["by_collective"].items()}
+            check(st["collective_bytes"] == want,
+                  f"rank {r['rank']} step {i}: collective bytes {st['collective_bytes']} != dry-run {want}")
+        check(r["decode"]["collective_bytes"] == dry["decode"]["hlo_cost"]["by_collective"],
+              f"rank {r['rank']} decode collective bytes {r['decode']['collective_bytes']} != dry-run "
+              f"{dry['decode']['hlo_cost']['by_collective']}")
+        check(r["decode"]["launches"]["gemm_cuda"] == forward_gemm_calls(cfg),
+              f"rank {r['rank']} decode launches {r['decode']['launches']}")
+        check(r["prefill"]["launches"]["flash_attention_cuda"] == cfg.n_layers
+              and r["prefill"]["launches"]["gemm_cuda"] == forward_gemm_calls(cfg),
+              f"rank {r['rank']} prefill launches {r['prefill']['launches']}")
+    for i, (o, st) in enumerate(zip(one, r0["steps"])):
+        check(abs(st["loss"] - o["loss"]) <= SPMD_LOSS_RTOL * abs(o["loss"]),
+              f"step {i} loss {st['loss']} vs one card {o['loss']}")
+        check(abs(st["grad_norm"] - o["grad_norm"]) <= SPMD_NORM_RTOL * abs(o["grad_norm"]),
+              f"step {i} grad_norm {st['grad_norm']} vs one card {o['grad_norm']}")
+    dlog = float((r0["decode"]["logits"] - one_decode).abs().max())
+    plog = float((r0["prefill"]["logits"] - one_prefill).abs().max())
+    check(tuple(r0["decode"]["logits"].shape) == tuple(one_decode.shape), "decode logits shape")
+    check(bool(torch.isfinite(r0["decode"]["logits"]).all()), "sharded decode logits not finite")
+    check(dlog <= LOGIT_TOL, f"sharded decode logits differ from one card's by {dlog}")
+    check(plog <= LOGIT_TOL, f"sharded prefill logits differ from one card's by {plog}")
+    check(r0["local_gemm"]["ok"], f"gemm_cuda at a rank-local shape: {r0['local_gemm']}")
+    check(r0["local_flash"]["ok"], f"flash_attention_cuda at the prefill's rank-local shape "
+          f"(tol {BF16_TOL}, row tol {FLASH_ROW_TOL}): {r0['local_flash']}")
+
+    walls = [[round(st["wall_s"] * 1e3, 1) for st in r["steps"]] for r in ranks]
+    peaks = [round(r["peak_gb"], 2) for r in ranks]
+    step_peaks = [[round(st["peak_gb"], 2) for st in r["steps"]] for r in ranks]
+    dry_gb = {f"{s[0]}x{s[1]}": dry[s]["memory"]["total_bytes"] / 1e9 for s in (SPMD_MESH, SPMD_RESHARD)}
+    print(f"phase 24: {cfg.name} on a (data={SPMD_MESH[0]}, model={SPMD_MESH[1]}) mesh of "
+          f"{len(ranks)} ranks sharing the card over {r0['backend']}: losses "
+          f"{[round(st['loss'], 5) for st in r0['steps']]} vs one card {[round(o['loss'], 5) for o in one]}; "
+          f"grad norms {[round(st['grad_norm'], 4) for st in r0['steps']]} vs "
+          f"{[round(o['grad_norm'], 4) for o in one]} (the last step after reshard to "
+          f"{SPMD_RESHARD})", flush=True)
+    print(f"  step wall ms by rank {walls} (ranks share one card over gloo: not a multi-card step "
+          f"time); launches a step a rank {r0['steps'][0]['launches']}; collective bytes a step a rank "
+          f"{r0['steps'][0]['collective_bytes']} = dry-run; after reshard {r0['steps'][-1]['collective_bytes']}",
+          flush=True)
+    print(f"  peak GB by rank and step {step_peaks}, with the reshard's moves "
+          f"{[round(r['peak_gb_reshard'], 2) for r in ranks]}, serving "
+          f"{[round(r['peak_gb_serve'], 2) for r in ranks]}, whole run {peaks} (sum {sum(peaks):.2f}); "
+          f"dry-run GB a device {dry_gb}; init {[round(r['init_s'], 1) for r in ranks]} s", flush=True)
+    check(sum(peaks) < 80, f"the ranks' peaks {peaks} exceed the card's 80 GB")
+    print(f"  decode step at a {SPMD_CACHE}-token cache split over model, {SPMD_ROWS} rows: max |logit diff| "
+          f"{dlog:.4f} vs one card (tol {LOGIT_TOL}), wall {[round(r['decode']['wall_s'] * 1e3, 1) for r in ranks]} "
+          f"ms; prefill {SPMD_ROWS} x {SPMD_PREFILL}: last {SPMD_LAST} positions' max |logit diff| "
+          f"{plog:.4f}, {r0['prefill']['launches']['flash_attention_cuda']} flash launches a rank; "
+          f"rank 0's gemm_cuda at {r0['local_gemm']['shape']} max err {r0['local_gemm']['max_abs_err']:.4f}, "
+          f"flash_attention_cuda at (B, Sq, Sk, Hq, Hkv, D) {r0['local_flash']['shape']} max err "
+          f"{r0['local_flash']['max_abs_err']:.4f} (row {r0['local_flash']['row_err']:.3g})",
+          flush=True)
+    out = {
+        "mesh": list(SPMD_MESH), "reshard": list(SPMD_RESHARD), "backend": r0["backend"],
+        "one_card": one, "ranks": [{k: v for k, v in r.items() if k not in ("decode", "prefill")}
+                                   | {"decode_wall_s": r["decode"]["wall_s"],
+                                      "prefill_wall_s": r["prefill"]["wall_s"]} for r in ranks],
+        "decode_logit_diff": dlog, "prefill_logit_diff": plog, "per_step": per_step,
+        "dry_run": {f"{s[0]}x{s[1]}": {"collective_bytes": dry[s]["hlo_cost"]["by_collective"],
+                                       "total_bytes": dry[s]["memory"]["total_bytes"]}
+                    for s in (SPMD_MESH, SPMD_RESHARD)},
+        "launches": {"gemm_cuda": sum(st["launches"]["gemm_cuda"] for r in ranks for st in r["steps"]),
+                     "flash_attention_cuda": sum(r["prefill"]["launches"]["flash_attention_cuda"]
+                                                 for r in ranks)},
+        "ranks_s": ranks_s, "local_gemm": r0["local_gemm"], "local_flash": r0["local_flash"],
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 24 took {out['phase_s']:.1f} s (the ranks {ranks_s:.1f} s)", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4587,6 +4920,12 @@ def main() -> None:
     print("phase 23: the static verifier and the dry-run against the card's own counters",
           flush=True)
     detail["verifier_dryrun"] = phase23(torch, fwd, detail["long_cache_step"], train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 24: the multi-card half, {ARCH} at full width on a (data={SPMD_MESH[0]}, "
+          f"model={SPMD_MESH[1]}) mesh of ranks sharing the card", flush=True)
+    spmd_run = phase24(torch, counts, reset)
+    detail["spmd"] = spmd_run
     for run in (train_moe, *train_ssm.values(), train_encdec, mixed_train):
         for name, err in run["backward_products"]["max_abs_err"].items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -4662,6 +5001,10 @@ def main() -> None:
                 moe_launches[name][f"internlm2_mixed_{label}"] = run["launches"][name]
     for name in ("gemm_cuda", "gemm_cuda_lean"):
         moe_launches[name]["internlm2_mixed_train"] = mixed_train["launches"][name]
+    # Phase 24, the ranks: the steps' launches summed over the ranks.
+    moe_launches["gemm_cuda"]["internlm2_spmd_train_4_ranks"] = spmd_run["launches"]["gemm_cuda"]
+    moe_launches["flash_attention_cuda"]["internlm2_spmd_prefill_4_ranks"] = \
+        spmd_run["launches"]["flash_attention_cuda"]
     # Phase 22, the fleet: each lane's launches read from its own run.
     for label, run in fleet["lanes"].items():
         for name in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda"):

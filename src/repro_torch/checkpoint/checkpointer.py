@@ -21,6 +21,12 @@ numpy arrays; a bf16 tensor has no numpy dtype and is refused.
     publishes the step (``util/atomic.py``), so a crash never leaves a
     committed-looking step with torn payloads;
   * ``keep`` newest committed steps survive each save (0 keeps all).
+
+On a rank mesh (``mesh=`` and the tree's ``specs=``) the save gathers
+every leaf's full tensor, one leaf at a time, and rank 0 writes the same
+layout; the restore gives each rank its slice of every leaf, so a step
+written on one mesh restores on another (or on one card), as the
+reference's ``restore(..., shardings=)`` does.
 """
 
 from __future__ import annotations
@@ -90,10 +96,18 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, *, extra: Optional[dict] = None):
-        """Snapshot to host memory synchronously, write asynchronously."""
+    def save(self, step: int, tree: Any, *, extra: Optional[dict] = None, mesh=None,
+             specs=None):
+        """Snapshot to host memory synchronously, write asynchronously.
+        On a rank mesh every rank gathers each leaf whole (``specs``: the
+        tree's spec tree) and rank 0 writes."""
 
-        flat = _flatten(tree)  # the device->host copy happens here, on purpose
+        if mesh is not None:
+            flat = _gathered(tree, specs, mesh)
+            if mesh.rank != 0:
+                return
+        else:
+            flat = _flatten(tree)  # the device->host copy happens here, on purpose
         manifest = {
             "step": int(step),
             "time": time.time(),
@@ -157,14 +171,20 @@ class Checkpointer:
         steps = self.committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like: Any, *, step: Optional[int] = None, device=None):
+    def restore(self, tree_like: Any, *, step: Optional[int] = None, device=None, mesh=None,
+                specs=None):
         """``(tree, manifest)``: the step's arrays in the structure of
         ``tree_like`` (nested dicts of tensors, arrays or ``(shape, dtype)``
         pairs; every shape checked), as tensors on ``device``, or numpy
         arrays with ``device=None``.  ``step=None`` reads the newest
-        committed step."""
+        committed step.  On a rank mesh ``tree_like`` holds this rank's
+        shapes and each leaf comes back as its slice under ``specs``
+        (after every rank has reached the restore: rank 0's write is
+        done)."""
 
         self.wait()
+        if mesh is not None:
+            mesh.barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints under {self.dir}")
@@ -174,12 +194,47 @@ class Checkpointer:
             if name.endswith(".npz"):
                 with np.load(os.path.join(d, name)) as z:
                     flat.update({k: z[k] for k in z.files})
-        tree = _unflatten(tree_like, flat)
+        if mesh is not None:
+            tree = _sliced(tree_like, flat, specs, mesh)
+        else:
+            tree = _unflatten(tree_like, flat)
         if device is not None:
             tree = _to_device(tree, device)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         return tree, manifest
+
+
+def _gathered(tree, specs, mesh) -> dict:
+    """``_flatten`` of the full tensors of a sharded tree: each leaf
+    gathered whole on every rank, kept on the host by rank 0 only."""
+
+    from repro_torch.distributed import spmd
+
+    out = {}
+    for (key, leaf), (_, spec) in zip(_paths(tree), _paths(specs)):
+        full = spmd.gather_full(leaf, spec, mesh)
+        if mesh.rank == 0:
+            out[key] = _to_numpy(full)
+        del full
+    return out
+
+
+def _sliced(tree_like, flat, specs, mesh, prefix: str = ""):
+    """``_unflatten`` for a rank: each leaf checked against the full shape
+    of ``tree_like``'s shard, then cut to it."""
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd
+
+    if isinstance(tree_like, dict):
+        return {k: _sliced(v, flat, specs[k], mesh, f"{prefix}{k}/") for k, v in tree_like.items()}
+    key = prefix[:-1]
+    arr = flat[key]
+    want = spmd.global_shape(_leaf_shape(tree_like), specs, mesh)
+    if tuple(arr.shape) != tuple(want):
+        raise ValueError(f"checkpoint shape mismatch at {key}: {arr.shape} vs {want}")
+    return np.array(SH.local_slice(arr, specs, mesh))
 
 
 def _to_device(tree, device):

@@ -25,6 +25,12 @@ returns the port's nested dict of tensors on ``device``, the same tree:
 training state across: the reference's fp32 params stay fp32 masters (the
 same tree), and its AdamW state ``{"m", "v", "step"}`` becomes the port's,
 so both packages start a trainer from the same numbers.
+
+On a rank mesh (``mesh=``) both give this rank's shards, cut from the
+full arrays by the same slicer the sharded step uses
+(``sharding.local_slice`` under the spec tree of ``model_zoo.param_specs``):
+serving params by the serving rules (no FSDP), a training state by
+``fsdp``.
 """
 
 from __future__ import annotations
@@ -50,10 +56,25 @@ FP32_LEAVES = {
 }
 
 
-def params_from_jax(tree, cfg: ArchConfig, device="cuda"):
-    """Convert a numpy param tree of the reference into the port's params."""
+def _shards(tree, cfg: ArchConfig, mesh, fsdp: bool):
+    """The rank's slices of a numpy tree (views) by ``cfg``'s spec tree."""
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd
+    from repro_torch.models import model_zoo as Z
+
+    specs = Z.param_specs(cfg, mesh, fsdp=fsdp)
+    return spmd.map_specs(lambda x, spec: SH.local_slice(np.asarray(x), spec, mesh), dict(tree),
+                          specs)
+
+
+def params_from_jax(tree, cfg: ArchConfig, device="cuda", *, mesh=None):
+    """Convert a numpy param tree of the reference into the port's params
+    (on a rank mesh, this rank's shards of them)."""
 
     keep = FP32_LEAVES[cfg.family]
+    if mesh is not None:
+        tree = _shards(tree, cfg, mesh, fsdp=False)
 
     def conv(node, name: str):
         if isinstance(node, dict):
@@ -76,15 +97,22 @@ def _tensors(node, device, requires_grad: bool = False):
     return t.requires_grad_(requires_grad and t.is_floating_point())
 
 
-def train_state_from_jax(params, opt_state, device="cuda"):
+def train_state_from_jax(params, opt_state, device="cuda", *, cfg: ArchConfig = None, mesh=None,
+                         fsdp: bool = True):
     """``(params, opt_state)`` of the port's trainer from the reference's
     (numpy trees): fp32 master params that require grad, in the
     reference's tree, and ``{"m", "v"}`` fp32 with ``"step"`` a 0-d int32
     tensor.  ``opt_state=None`` gives a fresh state (zeros, step 0).  Every
     family's tree carries over as it is (the MoE stacks, the Mamba2 leaves,
     the hybrid's unstacked ``shared`` block, the enc-dec's two stacks):
-    the masters are fp32 everywhere, so :data:`FP32_LEAVES` plays no part."""
+    the masters are fp32 everywhere, so :data:`FP32_LEAVES` plays no part.
+    With a rank ``mesh`` (and ``cfg``) every tree is this rank's shards."""
 
+    if mesh is not None:
+        params = _shards(params, cfg, mesh, fsdp)
+        if opt_state is not None:
+            opt_state = dict(opt_state, m=_shards(opt_state["m"], cfg, mesh, fsdp),
+                             v=_shards(opt_state["v"], cfg, mesh, fsdp))
     p = _tensors(dict(params), device, requires_grad=True)
     if opt_state is None:
         from repro_torch.optim.adamw import init_opt_state

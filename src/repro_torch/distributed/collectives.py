@@ -1,5 +1,29 @@
-"""Distributed-optimization collectives (the port's
-``repro.distributed.collectives``).
+"""Collectives (the port's ``repro.distributed.collectives``).
+
+Two parts.  The mesh collectives of the sharded step
+(``distributed/spmd.py``): all-gather, reduce-scatter and all-reduce over
+the process group of one or more axes of a
+:class:`~repro_torch.launch.mesh.RankMesh`, each an explicit call on that
+group, and their autograd forms:
+
+  * :func:`gather` — all-gather along a dim; its backward reduce-scatters
+    (``grad="reduce_scatter"``: the ranks used the gathered tensor for
+    distinct work, as FSDP's gathered weights or a gathered sequence) or
+    takes this rank's slice (``grad="slice"``: the ranks computed the same
+    thing from it);
+  * :func:`scatter` — reduce-scatter along a dim; its backward all-gathers;
+  * :func:`reduce` — all-reduce (Megatron's ``g``, a row-parallel
+    output); its backward is the identity;
+  * :func:`enter` — the identity (Megatron's ``f``, a column-parallel
+    input); its backward all-reduces.
+
+Each reports through :func:`note_collective` under the reference's HLO
+op name with the operand bytes of one device, in the forward and the
+backward alike.  On an abstract mesh (the dry-run's, on the ``meta``
+device) they only make shapes.  Under ``gloo`` a CUDA tensor is staged
+through host memory (:func:`_staged`, the one place that does it).
+
+Then the distributed-optimization reduction across pods:
 
 ``compressed_crosspod_mean`` is the int8-quantized gradient reduction
 across pods with error feedback: each pod quantizes ``g + err`` to int8
@@ -19,7 +43,7 @@ exactly (``runtime.trainer.weighted_mean_epilogue``).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -114,8 +138,192 @@ def init_error_feedback(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
 
 
+# ---------------------------------------------------------------------------
+# Mesh collectives
+# ---------------------------------------------------------------------------
+
+
+def _staged(mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the backend takes it: contiguous, and in host memory when a
+    CUDA tensor meets ``gloo`` (which reduces on the host)."""
+
+    x = x.contiguous()
+    if mesh.transport == "gloo" and x.is_cuda:
+        return x.cpu()
+    return x
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Concatenate the ranks' ``x`` along ``dim`` over ``axes``, in the
+    row-major order of the ranks' coordinates."""
+
+    n = mesh.size(axes)
+    if n == 1:
+        return x
+    note_collective("all-gather", x)
+    shape = list(x.shape)
+    shape[dim] *= n
+    if mesh.is_abstract:
+        return x.new_empty(shape)
+    import torch.distributed as dist
+
+    xs = _staged(mesh, x)
+    out = xs.new_empty((n * x.shape[0],) + tuple(x.shape[1:]) if x.ndim else (n,))
+    dist.all_gather_into_tensor(out, xs.reshape(-1) if not x.ndim else xs, group=mesh.group(axes))
+    return out.to(x.device).reshape((n,) + tuple(x.shape)).movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """Sum ``x`` over ``axes`` and keep this rank's block along ``dim``."""
+
+    n = mesh.size(axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {tuple(x.shape)} tensor does not split {n} ways")
+    note_collective("reduce-scatter", x)
+    shape = list(x.shape)
+    shape[dim] //= n
+    if mesh.is_abstract:
+        return x.new_empty(shape)
+    import torch.distributed as dist
+
+    xs = _staged(mesh, x.movedim(dim, 0))
+    out = xs.new_empty((xs.shape[0] // n,) + tuple(xs.shape[1:]))
+    dist.reduce_scatter_tensor(out, xs, group=mesh.group(axes))
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """``x`` summed (``op="max"``: maxed) over ``axes``; a new tensor."""
+
+    if mesh.size(axes) == 1:
+        return x
+    note_collective("all-reduce", x)
+    if mesh.is_abstract:
+        return x.new_empty(x.shape)
+    import torch.distributed as dist
+
+    xs = _staged(mesh, x)
+    if xs is x:
+        xs = x.clone()
+    dist.all_reduce(xs, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=mesh.group(axes))
+    return xs.to(x.device)
+
+
+def local_block(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (no
+    communication)."""
+
+    n = mesh.size(axes)
+    if n == 1:
+        return x
+    c = x.shape[dim] // n
+    return x.narrow(dim, mesh.index(axes) * c, c)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, grad):
+        ctx.args = (mesh, axes, dim, grad)
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, grad = ctx.args
+        if grad == "slice":
+            return local_block(g, mesh, axes, dim).contiguous(), None, None, None, None
+        return reduce_scatter(g, mesh, axes, dim), None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return all_gather(g, mesh, axes, dim), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return all_reduce(g, mesh, axes), None, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def gather(x, mesh, axes, dim: int, *, grad: str = "reduce_scatter"):
+    """All-gather along ``dim``; the backward reduce-scatters, or with
+    ``grad="slice"`` keeps this rank's block."""
+
+    if mesh.size(axes) == 1:
+        return x
+    if not _differentiable(x):
+        return all_gather(x, mesh, axes, dim)
+    return _Gather.apply(x, mesh, axes, dim, grad)
+
+
+def scatter(x, mesh, axes, dim: int):
+    """Reduce-scatter along ``dim``; the backward all-gathers."""
+
+    if mesh.size(axes) == 1:
+        return x
+    if not _differentiable(x):
+        return reduce_scatter(x, mesh, axes, dim)
+    return _Scatter.apply(x, mesh, axes, dim)
+
+
+def reduce(x, mesh, axes):
+    """All-reduce (sum); the backward is the identity."""
+
+    if mesh.size(axes) == 1:
+        return x
+    if not _differentiable(x):
+        return all_reduce(x, mesh, axes)
+    return _Reduce.apply(x, mesh, axes)
+
+
+def enter(x, mesh, axes):
+    """The identity; the backward all-reduces."""
+
+    if mesh.size(axes) == 1 or not _differentiable(x):
+        return x
+    return _Enter.apply(x, mesh, axes)
+
+
 __all__ = [
     "COLLECTIVE_OBSERVERS",
+    "all_gather",
+    "all_reduce",
+    "enter",
+    "gather",
+    "local_block",
+    "reduce",
+    "reduce_scatter",
+    "scatter",
     "note_collective",
     "quantize_int8",
     "dequantize_int8",

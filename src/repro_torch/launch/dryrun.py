@@ -1,4 +1,4 @@
-"""One-card dry-run: every (arch x shape) cell's step on the ``meta`` device.
+"""Dry-run: every (arch x shape x mesh) cell's step on the ``meta`` device.
 
 The port's counterpart of ``repro.launch.dryrun``.  The reference
 AOT-lowers and compiles each cell on a 512-device placeholder mesh and
@@ -15,12 +15,19 @@ dtypes, no memory, no kernel) under the operator counter of
   * the roofline's inputs (``hlo_cost``: FLOPs, bytes, collective bytes,
     the GEMM funnel's calls and FLOPs), read by ``launch.roofline``.
 
-The mesh is one card (tag ``card1``): the reference's 16x16 and 2x16x16
-meshes shard the params over hundreds of chips, which is multi-card work
-(``--multi-pod`` / ``--both-meshes`` raise, as
-``launch.mesh.make_production_mesh`` does).  ``--little-spec`` runs the
-cell class-sharded on one card (``execution.class_sharded``: pod 0 under
-``--spec``, pod 1 under the little spec, in turn).
+The mesh is one card (tag ``card1``) unless ``--multi-pod`` (the
+reference's 2x16x16, tag ``pod2x16x16``) or ``--both-meshes`` (16x16 and
+2x16x16, tags ``pod16x16`` and ``pod2x16x16``) name the production
+meshes.  There each cell runs once as rank 0 of the abstract mesh
+(``launch.mesh.make_production_mesh`` without the ranks): its params,
+AdamW state, batch and caches are rank 0's shards by the reference's
+rules (FSDP unless ``--no-fsdp``, the stream sequence-sharded unless
+``--no-seq-shard``, as the reference's dry-run), its collectives make
+shapes and report their bytes, and the record is per device (``n_chips``
+the mesh's size).  Only the dense family runs sharded: the other
+families' cells record an error naming slice 14.  ``--little-spec``
+runs the cell class-sharded on one card (``execution.class_sharded``:
+pod 0 under ``--spec``, pod 1 under the little spec, in turn).
 
 The backend is set, never probed: the cells run under an execution
 context whose GEMM backend is ``--backend`` (default ``matmul``) and whose
@@ -34,6 +41,7 @@ Usage::
 
     python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--force]
+    python -m repro_torch.launch.dryrun --all --both-meshes
 
 One JSON artifact per cell lands in ``artifacts/dryrun_torch/``.
 """
@@ -100,7 +108,60 @@ def make_asym(spec_name: str, little_spec: str, backend: str):
     )
 
 
-def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta"):
+def mesh_tag(mesh) -> str:
+    """``card1``, the production meshes' ``pod16x16`` / ``pod2x16x16``, or
+    ``mesh`` and the sizes of another rank mesh (``mesh2x2``)."""
+
+    if mesh is None:
+        return MESH_TAG
+    sizes = tuple(mesh.axis_sizes)
+    if sizes in ((16, 16), (2, 16, 16)):
+        return "pod" + "x".join(map(str, sizes))
+    return "mesh" + "x".join(map(str, sizes))
+
+
+def _build_sharded(cfg, shape, mesh, *, remat: bool, fsdp: bool, seq_shard: bool):
+    """The cell as rank ``mesh.rank`` runs it on a rank mesh (the dense
+    family; ``transformer.*_sharded``)."""
+
+    from repro_torch.distributed import spmd
+    from repro_torch.runtime.trainer import sharded_train_step
+
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: the {cfg.family} family on a sharded mesh is slice 14's "
+                         "(only the dense family runs sharded)")
+    device = mesh.device
+    batch = Z.batch_spec(cfg, shape, device=device, mesh=mesh)
+    if shape.kind == "train":
+        loss = Z.make_loss_fn(cfg, remat=remat, mesh=mesh, fsdp=fsdp, seq_shard=seq_shard)
+        lay = loss.layout
+        params = spmd.shard_tree(meta_params(cfg, train=True, device=device), lay.specs, mesh,
+                                 requires_grad=True)
+        opt_state = O.init_opt_state(params)
+        opt_cfg = O.AdamWConfig()
+
+        def train_step(params, opt_state, b):
+            with torch.enable_grad():
+                params, opt_state, metrics = sharded_train_step(loss, params, opt_state, b,
+                                                                opt_cfg, lay)
+            return params, opt_state, metrics["loss"]
+
+        return train_step, (params, opt_state, batch), (0, 1)
+    params = spmd.shard_tree(meta_params(cfg, train=False, device=device),
+                             Z.param_specs(cfg, mesh, fsdp=False), mesh)
+    if shape.kind == "prefill":
+        fn = Z.make_prefill_fn(cfg, attn_backend=ATTN_BACKENDS["flash_attn"], mesh=mesh,
+                               seq_shard=seq_shard)
+        return fn, (params, batch), ()
+    state = Z.decode_state_spec(cfg, shape.global_batch, shape.seq_len, device=device, mesh=mesh)
+    fn = torch.no_grad()(Z.make_decode_fn(cfg, mesh=mesh, batch=shape.global_batch,
+                                          seq_len=shape.seq_len))
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    return fn, (params, batch, state, pos), (2,)
+
+
+def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta", mesh=None,
+               fsdp: bool = True, seq_shard: bool = True):
     """``(fn, args, alias)``: the cell's step, its inputs on ``device``, and
     the positions of ``args`` the step updates in place (params and
     optimizer state for a train cell, the decode state for a decode cell).
@@ -110,7 +171,9 @@ def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta"):
     :class:`ShapeSpec`.  With
     a multi-class ``asym`` the step runs class-sharded: each pod's rows
     under its own class's control tree (``execution.class_sharded``), the
-    train cell's pods reduced by the trainer's epilogue.
+    train cell's pods reduced by the trainer's epilogue.  With a rank
+    ``mesh`` (abstract, on ``meta``) the step is the rank's part of the
+    sharded step (``fsdp``, ``seq_shard`` as the reference's dry-run).
     """
 
     from repro_torch.distributed import sharding as SH
@@ -118,6 +181,8 @@ def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta"):
 
     cfg = _config(arch)
     shape = _shape(cfg, shape)
+    if mesh is not None:
+        return _build_sharded(cfg, shape, mesh, remat=remat, fsdp=fsdp, seq_shard=seq_shard)
     batch = Z.batch_spec(cfg, shape, device=device)
     mixed = asym is not None and len(asym.classes) > 1
     mesh = make_host_mesh(pod=asym.n_pods, device=device) if mixed else None
@@ -169,14 +234,17 @@ def _storages(tree) -> set:
 
 def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
              remat: bool = True, tag: str = "", spec_name: str = "h100",
-             little_spec: str = "", backend: str = "matmul", write: bool = True) -> dict:
+             little_spec: str = "", backend: str = "matmul", write: bool = True,
+             mesh=None, fsdp: bool = True, seq_shard: bool = True) -> dict:
     """Dry-run one cell and write its record (``write``); a record already
-    on disk is returned unless ``force``."""
+    on disk is returned unless ``force``.  ``mesh``: an abstract
+    :class:`~repro_torch.launch.mesh.RankMesh` (``None``: one card)."""
 
     cfg = _config(arch)
     shape = _shape(cfg, shape)
+    tag_m = mesh_tag(mesh)
     cell_id = (
-        f"{cfg.name}__{shape.name}__{MESH_TAG}"
+        f"{cfg.name}__{shape.name}__{tag_m}"
         + (f"__{spec_name}" if spec_name != "h100" else "")
         + (f"__mixed-{little_spec}" if little_spec else "")
         + (f"__{backend}" if backend != "matmul" else "")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
@@ -187,7 +255,7 @@ def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
         with open(path) as f:
             return json.load(f)
 
-    rec = {"arch": cfg.name, "shape": shape.name, "mesh": MESH_TAG, "tag": tag,
+    rec = {"arch": cfg.name, "shape": shape.name, "mesh": tag_m, "tag": tag,
            "ok": False, "skipped": False}
     if shape.name == "long_500k" and not cfg.subquadratic:
         rec.update(skipped=True, reason="full quadratic attention (see DESIGN.md)")
@@ -208,7 +276,10 @@ def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
         exec_ctx = X.default_context(spec=get_spec(spec_name), backend=backend)
         t0 = time.time()
         with exec_ctx:
-            fn, args, alias = build_cell(cfg, shape, remat=remat, asym=asym)
+            if mesh is not None and asym is not None:
+                raise ValueError("--little-spec runs on one card, not on a rank mesh")
+            fn, args, alias = build_cell(cfg, shape, remat=remat, asym=asym, mesh=mesh,
+                                         fsdp=fsdp, seq_shard=seq_shard)
             with op_analysis.count_ops() as cost:
                 out = fn(*args)
         t_lower = time.time() - t0
@@ -237,7 +308,10 @@ def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
                 [(p.pod, p.device_class, p.block_source, p.backend) for p in provenance]
                 if asym is not None else None
             ),
-            n_chips=1,
+            n_chips=mesh.world if mesh is not None else 1,
+            mesh_shape=dict(mesh.shape) if mesh is not None else None,
+            fsdp=fsdp if mesh is not None else None,
+            seq_shard=seq_shard if mesh is not None else None,
             batch=shape.global_batch,
             seq_len=shape.seq_len,
             kind=shape.kind,
@@ -276,15 +350,15 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's 2x16x16 mesh: multi-card work, raises")
+                    help="the reference's 2x16x16 mesh (rank 0 of 512, abstract)")
     ap.add_argument("--both-meshes", action="store_true",
-                    help="the reference's two production meshes: multi-card work, raises")
+                    help="the reference's 16x16 and 2x16x16 meshes")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--no-fsdp", action="store_true",
-                    help="accepted for the reference's command lines: one card shards nothing")
+                    help="on a production mesh, shard the train cells' params over model only")
     ap.add_argument("--no-seq-shard", action="store_true",
-                    help="accepted for the reference's command lines: one card shards nothing")
+                    help="on a production mesh, keep the residual stream's sequence whole")
     ap.add_argument("--spec", default="h100", choices=sorted(SPECS),
                     help="class spec whose execution context runs the cells")
     ap.add_argument("--little-spec", default="", choices=[""] + sorted(SPECS),
@@ -297,11 +371,15 @@ def main(argv=None):
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=DEFAULT_OUT)
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        try:
-            make_production_mesh(multi_pod=True)
-        except ValueError as e:
-            ap.error(str(e))
+    if args.both_meshes:
+        meshes = [make_production_mesh(multi_pod=False, device="meta"),
+                  make_production_mesh(multi_pod=True, device="meta")]
+    elif args.multi_pod:
+        meshes = [make_production_mesh(multi_pod=True, device="meta")]
+    else:
+        meshes = [None]
+    if any(m is not None and not m.is_abstract for m in meshes):
+        ap.error("the dry-run runs rank 0 of the abstract mesh, not under a launcher's world")
 
     archs = list_configs() if (args.all or not args.arch) else [args.arch]
     n_ok = n_fail = n_skip = 0
@@ -312,26 +390,28 @@ def main(argv=None):
             if (args.all or not args.shape) else [args.shape]
         )
         for shape in shapes:
-            rec = run_cell(arch, shape, out_dir=args.out, force=args.force,
-                           remat=not args.no_remat, tag=args.tag, spec_name=args.spec,
-                           little_spec=args.little_spec, backend=args.backend)
-            if rec.get("skipped"):
-                n_skip += 1
-                status = "SKIP"
-            elif rec.get("ok"):
-                n_ok += 1
-                status = "ok"
-            else:
-                n_fail += 1
-                status = "FAIL"
-            mem = rec.get("memory", {}).get("total_bytes")
-            mem_s = f"{mem / 2**30:8.2f} GiB/card" if mem else "-"
-            print(
-                f"[{status:4s}] {arch:18s} {shape:12s} {MESH_TAG:6s} {mem_s} "
-                f"fits={rec.get('fits', '-')} lower={rec.get('lower_s', '-')}s"
-                + (f"  err={rec.get('error', '')[:120]}" if status == "FAIL" else ""),
-                flush=True,
-            )
+            for mesh in meshes:
+                rec = run_cell(arch, shape, out_dir=args.out, force=args.force,
+                               remat=not args.no_remat, tag=args.tag, spec_name=args.spec,
+                               little_spec=args.little_spec, backend=args.backend, mesh=mesh,
+                               fsdp=not args.no_fsdp, seq_shard=not args.no_seq_shard)
+                if rec.get("skipped"):
+                    n_skip += 1
+                    status = "SKIP"
+                elif rec.get("ok"):
+                    n_ok += 1
+                    status = "ok"
+                else:
+                    n_fail += 1
+                    status = "FAIL"
+                mem = rec.get("memory", {}).get("total_bytes")
+                mem_s = f"{mem / 2**30:8.2f} GiB/card" if mem else "-"
+                print(
+                    f"[{status:4s}] {arch:18s} {shape:12s} {rec['mesh']:10s} {mem_s} "
+                    f"fits={rec.get('fits', '-')} lower={rec.get('lower_s', '-')}s"
+                    + (f"  err={rec.get('error', '')[:120]}" if status == "FAIL" else ""),
+                    flush=True,
+                )
     print(f"\ndry-run summary: ok={n_ok} fail={n_fail} skip={n_skip}")
     raise SystemExit(1 if n_fail else 0)
 
@@ -340,4 +420,5 @@ if __name__ == "__main__":
     main()
 
 
-__all__ = ["CARD_BYTES", "MESH_TAG", "build_cell", "main", "make_asym", "meta_params", "run_cell"]
+__all__ = ["CARD_BYTES", "MESH_TAG", "build_cell", "main", "make_asym", "mesh_tag", "meta_params",
+           "run_cell"]

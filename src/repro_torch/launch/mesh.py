@@ -1,24 +1,46 @@
-"""Pod meshes on one card (the port's ``repro.launch.mesh``).
+"""Meshes (the port's ``repro.launch.mesh``).
 
 The reference builds ``jax.sharding.Mesh`` objects: a host mesh over the
-machine's devices for tests and examples, and the production meshes,
-256 chips as (data=16, model=16) or 2 pods of them as (pod=2, data=16,
-model=16), FSDP over the ``data`` axis.  The port runs on one H100, where
-NCCL will not place two ranks on one device, so a pod is a CUDA stream:
-:class:`PodMesh` carries the axis names and sizes (the ``axis_names`` /
-``shape`` surface the reference's class-sharded step reads), the device,
-and one ``torch.cuda.Stream`` per pod, made on first use.  On the CPU a
-pod has no stream and the pods run in turn.
+machine's devices for tests and examples, and the production meshes, 256
+chips as (data=16, model=16) or 2 pods of them as (pod=2, data=16,
+model=16).  The port has two kinds:
 
-The production meshes have no one-card counterpart: they shard the
-params and optimizer state over hundreds of chips, and the port holds
-them whole on one card.  :func:`make_production_mesh` says so.
+  * :class:`RankMesh` — a ``(data, model)`` or ``(pod, data, model)``
+    mesh over the ranks of an initialised ``torch.distributed`` process
+    group, with one process group per axis (and one over the dp axes
+    together) made when the mesh is built.  A rank runs on
+    ``cuda:(local_rank % device_count)`` (or the CPU), its local rank the
+    launcher's ``LOCAL_RANK`` or else its rank, and the sharded step
+    (``distributed/spmd.py``) calls the collectives of
+    ``distributed/collectives.py`` on these groups.  An *abstract* mesh
+    has sizes and a rank but no groups: the dry-run runs a cell as its
+    rank 0 on the ``meta`` device, where a collective only makes shapes.
+  * :class:`PodMesh` — the class-sharded step's pods on one card: the
+    axis names and sizes, the device, and one ``torch.cuda.Stream`` per
+    pod, made on first use (on the CPU the pods run in turn).
+
+:func:`make_host_mesh` gives a :class:`PodMesh` when ``data`` and
+``model`` are 1 (the one-process default) and a :class:`RankMesh`
+otherwise; :func:`make_production_mesh` the 16x16 / 2x16x16 mesh, real
+under a launcher with that world and abstract otherwise.
+
+The backend is decided per node: ``nccl`` when the ranks on a node
+(a launcher's ``LOCAL_WORLD_SIZE``, else the world) have a card each, and
+``gloo`` otherwise (NCCL refuses two ranks on one device); the choice is
+printed.  Under ``gloo`` a collective on CUDA tensors stages them through
+host memory (``collectives._staged``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+import itertools
+import os
+import sys
+import tempfile
+import traceback
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -58,17 +80,27 @@ class PodMesh:
         return self._streams
 
 
-def make_host_mesh(*, model: int = 1, data: int = 1, pod: int = 0, device="cuda") -> PodMesh:
-    """A mesh on one device: ``(pod, data, model)`` with a pod axis, else
-    ``(data, model)``, as the reference's ``make_host_mesh``."""
+def _axes_of(pod: int) -> tuple:
+    return ("pod", "data", "model") if pod else ("data", "model")
 
-    if model != 1 or data != 1:
-        raise ValueError(f"data={data}, model={model}: on one card the data and model "
-                         "axes have extent 1 (nothing is sharded over them)")
-    device = torch.device(device)
-    if pod:
-        return PodMesh(("pod", "data", "model"), (int(pod), 1, 1), device)
-    return PodMesh(("data", "model"), (1, 1), device)
+
+def make_host_mesh(*, model: int = 1, data: int = 1, pod: int = 0, device="cuda"):
+    """``(pod, data, model)`` with a pod axis, else ``(data, model)``, as
+    the reference's ``make_host_mesh``.
+
+    With ``data == model == 1`` a :class:`PodMesh` on ``device`` (the
+    class-sharded step's pods as streams, or the one-process default).
+    Otherwise a :class:`RankMesh` over the ranks of the initialised
+    process group, whose world must equal ``pod · data · model``; each
+    rank on ``cuda:(rank % device_count)`` for ``device="cuda"``."""
+
+    if model == 1 and data == 1:
+        device = torch.device(device)
+        if pod:
+            return PodMesh(("pod", "data", "model"), (int(pod), 1, 1), device)
+        return PodMesh(("data", "model"), (1, 1), device)
+    sizes = ((int(pod),) if pod else ()) + (int(data), int(model))
+    return RankMesh.over_world(_axes_of(pod), sizes, device=device)
 
 
 def resolve_pods(mode: str, asym, device) -> Optional[PodMesh]:
@@ -97,16 +129,286 @@ def resolve_pods(mode: str, asym, device) -> Optional[PodMesh]:
     return make_host_mesh(pod=asym.n_pods, device=device)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16x16 / 2x16x16 TPU meshes (FSDP over 256 or 512
-    chips) have no one-card counterpart."""
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh: 256 ranks as (data=16, model=16),
+    or 512 as (pod=2, data=16, model=16).
 
-    shape = "2x16x16" if multi_pod else "16x16"
-    raise ValueError(
-        f"the {shape} production mesh shards the params and optimizer state (FSDP) over "
-        f"{512 if multi_pod else 256} TPU chips; the port runs on one card and has no "
-        "counterpart (use the host mesh)"
-    )
+    Real when this process is one rank of a world of that size: an
+    initialised process group, or a launcher's environment (``torchrun``
+    sets ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), which
+    initialises one here.  Otherwise abstract: rank 0's sizes, no groups,
+    on the ``meta`` device (the dry-run's)."""
+
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = 1
+    for n in sizes:
+        world *= n
+    import torch.distributed as dist
+
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) == world:
+        init_ranks(int(os.environ["RANK"]), world, device=device)
+    if dist.is_initialized() and dist.get_world_size() == world:
+        return RankMesh.over_world(axes, sizes, device=device)
+    return RankMesh.abstract(axes, sizes)
 
 
-__all__ = ["PodMesh", "make_host_mesh", "make_production_mesh", "resolve_pods"]
+# ---------------------------------------------------------------------------
+# Rank meshes over a torch.distributed process group
+# ---------------------------------------------------------------------------
+
+
+def _mesh_coords(sizes: Sequence[int]) -> list:
+    """Every rank's coordinates, rank-major (rank = row-major index)."""
+
+    return list(itertools.product(*(range(n) for n in sizes)))
+
+
+@dataclasses.dataclass(eq=False)
+class RankMesh:
+    """A mesh of ``torch.distributed`` ranks: axis names and sizes, this
+    rank and its coordinates, its device, the process group's backend
+    (``transport``: ``nccl`` or ``gloo``), and one process group per set
+    of axes the step reduces over (each single axis of size above 1, the
+    dp axes together, every axis).  ``transport is None`` makes it abstract (:meth:`abstract`): no groups, and the collectives only
+    make shapes."""
+
+    axis_names: tuple
+    axis_sizes: tuple
+    rank: int
+    device: torch.device
+    transport: Optional[str] = None
+    groups: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: size}``, in axis order (as ``jax.sharding.Mesh.shape``)."""
+
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def world(self) -> int:
+        n = 1
+        for s in self.axis_sizes:
+            n *= s
+        return n
+
+    @property
+    def is_abstract(self) -> bool:
+        return self.transport is None
+
+    @functools.cached_property
+    def coords(self) -> tuple:
+        """This rank's coordinates, one per axis."""
+
+        return _mesh_coords(self.axis_sizes)[self.rank]
+
+    @property
+    def n_pods(self) -> int:
+        return self.shape.get("pod", 1)
+
+    def coord(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 for an axis the mesh lacks)."""
+
+        if axis not in self.axis_names:
+            return 0
+        return self.coords[self.axis_names.index(axis)]
+
+    def reduced_axes(self, axes) -> tuple:
+        """``axes`` (a name, a tuple or ``None``) as a tuple in mesh order,
+        without the axes of size 1 or not in the mesh."""
+
+        if axes is None:
+            return ()
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        return tuple(a for a in self.axis_names if a in axes and self.shape[a] > 1)
+
+    def size(self, axes) -> int:
+        n = 1
+        for a in self.reduced_axes(axes):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (its group rank)."""
+
+        i = 0
+        for a in self.reduced_axes(axes):
+            i = i * self.shape[a] + self.coord(a)
+        return i
+
+    def group(self, axes):
+        return self.groups[self.reduced_axes(axes)]
+
+    def barrier(self) -> None:
+        if not self.is_abstract:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.groups[self.reduced_axes(tuple(self.axis_names))])
+
+    @classmethod
+    def abstract(cls, axis_names, axis_sizes, *, rank: int = 0, device="meta") -> "RankMesh":
+        return cls(tuple(axis_names), tuple(int(n) for n in axis_sizes), int(rank),
+                   torch.device(device))
+
+    @classmethod
+    def over_world(cls, axis_names, axis_sizes, *, device="cuda") -> "RankMesh":
+        """The mesh over the initialised process group's ranks, its groups
+        made here (every rank must call this, in the same order)."""
+
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise ValueError(f"a {'x'.join(map(str, axis_sizes))} mesh needs an initialised "
+                             "process group (launch.mesh.init_ranks or a launcher); there is none")
+        world, rank = dist.get_world_size(), dist.get_rank()
+        device = torch.device(device)
+        if device.type == "cuda":  # the card init_ranks set for this rank
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = cls(tuple(axis_names), tuple(int(n) for n in axis_sizes), rank, device,
+                   dist.get_backend())
+        if mesh.world != world:
+            raise ValueError(f"a {'x'.join(map(str, axis_sizes))} mesh needs {mesh.world} ranks; "
+                             f"the process group has {world}")
+        coords = _mesh_coords(mesh.axis_sizes)
+        wanted = {mesh.reduced_axes((a,)) for a in axis_names}
+        wanted |= {mesh.reduced_axes(("pod", "data")), mesh.reduced_axes(tuple(axis_names))}
+        for axes in sorted(a for a in wanted if a):
+            idx = [axis_names.index(a) for a in axes]
+            blocks: dict = {}
+            for r, c in enumerate(coords):
+                key = tuple(v for i, v in enumerate(c) if i not in idx)
+                blocks.setdefault(key, []).append(r)
+            for ranks in blocks.values():  # every rank makes every group, in one order
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mesh.groups[axes] = g
+        return mesh
+
+
+def rank_device(local_rank: int, device="cuda") -> torch.device:
+    """The device of the rank with index ``local_rank`` on its node:
+    ``cuda:(local_rank % device_count)``, or ``device`` as given when it is
+    not CUDA."""
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def choose_backend(rank: int, world: int, *, device="cuda", launcher: bool = False):
+    """``(backend, local_rank, why)`` for ``rank`` of ``world``.
+
+    Decided per node: ``nccl`` when the ranks on this node have a card
+    each, else ``gloo``.  Under a launcher (``env://``) its
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` say which ranks share this node;
+    without one every rank runs on this node."""
+
+    device = torch.device(device)
+    local_rank, per_node = rank, world
+    if launcher and "LOCAL_WORLD_SIZE" in os.environ:
+        local_rank = int(os.environ["LOCAL_RANK"])
+        per_node = int(os.environ["LOCAL_WORLD_SIZE"])
+    if device.type != "cuda":
+        return "gloo", local_rank, "ranks on the CPU"
+    cards = torch.cuda.device_count()
+    if per_node <= cards:
+        return "nccl", local_rank, f"{per_node} rank(s) a node, each with a card of its own"
+    return "gloo", local_rank, f"{per_node} ranks a node share {cards} card(s)"
+
+
+def init_ranks(rank: int, world: int, *, device="cuda", store_path: Optional[str] = None):
+    """Initialise this process as ``rank`` of ``world`` on the backend
+    ``choose_backend`` picks (printed to stderr).  Rendezvous through a
+    ``FileStore`` at ``store_path``, or the launcher's environment
+    (``env://``) without one."""
+
+    import warnings
+
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    backend, local_rank, why = choose_backend(rank, world, device=device,
+                                              launcher=store_path is None)
+    if rank == 0:
+        print(f"torch.distributed: backend {backend} for {world} ranks ({why})", file=sys.stderr,
+              flush=True)
+    if device.type == "cuda":
+        torch.cuda.set_device(rank_device(local_rank, device))
+    # all_gather_into_tensor / reduce_scatter_tensor are deprecated in
+    # newer torch in favour of names older releases lack.
+    warnings.filterwarnings("ignore", message=r".*is deprecated\. Please use .*_single")
+    kw = dict(backend=backend, rank=rank, world_size=world)
+    if store_path is not None:
+        kw["store"] = dist.FileStore(store_path, world)
+    else:
+        kw["init_method"] = "env://"
+    dist.init_process_group(**kw)
+    return backend
+
+
+def _rank_main(target, rank, world, device, store_path, out_dir, args):
+    torch.set_num_threads(1)
+    try:
+        init_ranks(rank, world, device=device, store_path=store_path)
+        result = target(rank, *args)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:  # recorded for the parent, then re-raised
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(target: Callable, world: int, *args, device="cpu", timeout: float = 120.0) -> list:
+    """Run ``target(rank, *args)`` in ``world`` spawned processes, each
+    one rank of a process group (a ``FileStore`` in a temporary
+    directory); returns
+    the ranks' results in rank order.  ``target`` and ``args`` are sent by
+    pickling (``target`` by import path).  A rank that raises, exits or
+    outlives ``timeout`` seconds fails the call; every process is stopped
+    before it returns."""
+
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_main, args=(target, r, world, device, store, tmp, args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            import time
+
+            deadline = time.monotonic() + timeout
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+            errs = []
+            for r, p in enumerate(procs):
+                err = os.path.join(tmp, f"rank{r}.err")
+                if os.path.exists(err):
+                    with open(err) as f:
+                        errs.append(f"rank {r}:\n{f.read()}")
+                elif p.is_alive():
+                    errs.append(f"rank {r}: still running after {timeout:.0f} s")
+                elif p.exitcode != 0:
+                    errs.append(f"rank {r}: exit code {p.exitcode}")
+            if errs:
+                raise RuntimeError("spawned ranks failed:\n" + "\n".join(errs))
+            return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                    for r in range(world)]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(5.0)
+
+
+__all__ = ["PodMesh", "RankMesh", "choose_backend", "init_ranks", "make_host_mesh",
+           "make_production_mesh", "rank_device", "resolve_pods", "spawn_ranks"]

@@ -31,8 +31,13 @@ is unrolled, so nothing needs a trip count.  Counted (all for one card):
     scores, probabilities and fp32 copies that ``flash_attention_cuda``
     and ``paged_attention_cuda`` keep on chip;
   * ``collective_bytes`` by type — what the port's collectives report
-    (``distributed.collectives.note_collective``): the class-sharded
-    step's cross-pod reduction, the int8 cross-pod mean;
+    (``distributed.collectives.note_collective``) under the reference's
+    ``hlo_analysis`` kinds (``all-gather``, ``reduce-scatter``,
+    ``all-reduce``), one device's operand bytes: on a rank mesh the
+    sharded step's FSDP gathers and gradient reduce-scatters, the tensor-
+    and sequence-parallel boundaries, the vocab-parallel embedding and
+    cross-entropy, the dp gradient sums and the norm; on one card the
+    class-sharded step's cross-pod reduction and the int8 cross-pod mean;
   * the GEMM funnel apart — ``gemm_calls`` and ``gemm_flops`` (Σ 2·M·N·K)
     of every product through ``execution.dispatch_gemm``: the calls a card
     run launches a kernel for;

@@ -1,8 +1,10 @@
-"""Roofline analysis over the one-card dry-run artifacts.
+"""Roofline analysis over the dry-run artifacts.
 
-The port's counterpart of ``repro.launch.roofline``.  Per (arch x shape)
-cell, the three roofline terms from the dry-run's operator counts
-(``launch.op_analysis``; all for one card):
+The port's counterpart of ``repro.launch.roofline``.  Per (arch x shape x
+mesh) cell, the three roofline terms from the dry-run's operator counts
+(``launch.op_analysis``; all per device: one card, or rank 0 of a
+production mesh, whose ``hlo_flops_global`` is its FLOPs times the
+mesh's devices, as the reference's):
 
     compute term    = FLOPs / peak FLOP/s              [s]
     memory term     = bytes / HBM bandwidth            [s]
@@ -12,7 +14,11 @@ Hardware model: an H100 as ``core.blocking.HopperClassSpec`` describes it
 (``peak_flops``, dense bf16 on the tensor cores; ``hbm_bw``) and one
 NVLink link a direction (``core.asymmetric.DeviceClass.ici_bw``).  The
 collective term is 0 on one card except for a class-sharded cell, whose
-cross-pod reduction would cross NVLink were its pods on two cards.
+cross-pod reduction would cross NVLink were its pods on two cards.  On
+the 16x16 and 2x16x16 meshes it is a device's collective bytes over that
+one link: a lower bound, since a 16-wide ``model`` axis spans two 8-card
+NVLink domains of H100 nodes and its collectives cross the slower
+inter-node network.
 
 ``memory_flash_s`` drops the attention's score traffic (the plain
 attentions the dry-run runs write their scores, probabilities and fp32
@@ -166,7 +172,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.roofline")
     ap.add_argument("--dir", default=os.path.join("artifacts", "dryrun_torch"))
-    ap.add_argument("--mesh", default="card1")
+    ap.add_argument("--mesh", default="card1",
+                    help="card1, pod16x16 or pod2x16x16 (the dry-run's mesh tags)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--csv", default=None)
     args = ap.parse_args(argv)

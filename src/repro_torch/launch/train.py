@@ -25,9 +25,15 @@ Flags are the reference's (with its defaults), plus ``--device`` and
 ``--seed``.  ``--class-sharded auto`` never takes the mixed step, since
 the port never puts pods on separate cards (``launch.mesh.resolve_pods``);
 ``on`` runs the pods as streams on one card (the summary's ``shard_classes`` lists each pod's class,
-block source and kernel).  ``--mesh 16x16`` / ``2x16x16`` (the
-reference's FSDP meshes over 256 / 512 TPU chips) raise: one card has no
-counterpart.
+block source and kernel).  ``--mesh 16x16`` / ``2x16x16`` train the dense
+family on the reference's production mesh, FSDP over ``data`` and tensor
+parallelism over ``model``, one process a rank: they run under a launcher
+with a world of 256 / 512 ranks (``torchrun --nnodes ... --nproc-per-node
+...``, each rank on ``cuda:LOCAL_RANK``, over ``nccl``) and raise a
+``ValueError`` naming the world they need anywhere else::
+
+    torchrun --nnodes 32 --nproc-per-node 8 ... -m repro_torch.launch.train \
+        --arch internlm2-1.8b --mesh 16x16
 """
 
 from __future__ import annotations
@@ -72,9 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_trainer(args, cfg=None, **hooks) -> Trainer:
+def make_trainer(args, cfg=None, mesh=None, **hooks) -> Trainer:
     """The trainer the CLI runs for parsed ``args``; ``cfg`` replaces the
-    config of ``--arch`` (a caller's depth cut), ``hooks`` are passed on
+    config of ``--arch`` (a caller's depth cut), ``mesh`` the mesh of
+    ``--mesh`` (a caller's rank mesh), ``hooks`` are passed on
     (``failure_hook``, ``pod_time_hook``)."""
 
     device = resolve_device(args.device)
@@ -90,13 +97,19 @@ def make_trainer(args, cfg=None, **hooks) -> Trainer:
             else [DeviceClass("pod0", chips_per_pod=1), DeviceClass("pod1", chips_per_pod=1)]
         )
         asym = AsymmetricMesh(classes, strategy=args.strategy, batch_tile=2)
-    if args.mesh == "host":
+    if mesh is not None:
+        pass
+    elif args.mesh == "host":
         # The class-sharded step needs a pod axis: give the mesh one when
         # the run wants the mixed step.
         mesh = (resolve_pods(args.class_sharded, asym, device) if asym is not None else None) \
             or make_host_mesh(device=device)
     else:
-        mesh = make_production_mesh(multi_pod=args.mesh == "2x16x16")
+        mesh = make_production_mesh(multi_pod=args.mesh == "2x16x16", device=device)
+        if mesh.is_abstract:
+            raise ValueError(f"--mesh {args.mesh} needs {mesh.world} ranks (a launcher such as "
+                             f"torchrun with a world of {mesh.world}); this process is not one "
+                             "rank of such a world")
     # The asymmetric mesh's primary control tree governs every GEMM of a
     # single-context step; homogeneous runs get the default single-class
     # context.

@@ -19,14 +19,17 @@ through donated jit arguments; here the tensors are simply written).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import grouped_attention, valid_mask
 
@@ -39,16 +42,38 @@ PARAM_DTYPE = torch.float32
 # ---------------------------------------------------------------------------
 
 
+# Applied to every tensor the two initializers below return, while
+# :func:`init_placement` is active (the sharded init's cut to a rank's shard).
+_PLACE: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def init_placement(place: Callable):
+    """Pass every leaf :func:`dense_init` / :func:`embed_init` makes through
+    ``place`` as it is made (``distributed.spmd.init_sharded``)."""
+
+    global _PLACE
+    prev, _PLACE = _PLACE, place
+    try:
+        yield
+    finally:
+        _PLACE = prev
+
+
+def _placed(w):
+    return _PLACE(w) if _PLACE is not None else w
+
+
 def dense_init(generator, shape, scale: Optional[float] = None, *, device, dtype=PARAM_DTYPE):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return _placed((w * scale).to(dtype))
 
 
 def embed_init(generator, shape, *, device, dtype=PARAM_DTYPE):
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return _placed((w * 0.02).to(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -423,11 +448,212 @@ def sinusoidal_positions(s: int, d: int, *, device="cpu") -> torch.Tensor:
     return torch.from_numpy(out).to(device)
 
 
+# ---------------------------------------------------------------------------
+# A rank's part of attention and the GLU on a (data, model) mesh
+# ---------------------------------------------------------------------------
+#
+# The reference's rules (``distributed/sharding.py``): wq / wk / wv / w1 /
+# w3 split their output features over ``model`` (column-parallel), wo / w2
+# their input features (row-parallel), all of them their other dim over
+# ``data`` (FSDP, gathered at use by ``spmd.use``).  ``xn`` and the
+# returned tensor are in the residual stream's layout (``spmd``): ``seq``
+# says whether it is sequence-sharded over ``model``.
+
+
+def _local_kv(k, v, r: int, hl: int, group: int):
+    """The KV heads the query heads ``[r·hl, (r+1)·hl)`` read, from the
+    whole set: a run of heads when ``hl`` is a multiple of the group, else
+    one head a query head (a group of 1)."""
+
+    if hl % group == 0:
+        lo = r * hl // group
+        return k[:, :, lo:lo + hl // group], v[:, :, lo:lo + hl // group]
+    idx = (r * hl + torch.arange(hl, device=k.device)) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def apply_attention_tp(p, sp, xn, cfg: AttnConfig, lay, *, positions, seq: bool,
+                       backend: str = "auto"):
+    """Full-sequence attention, a rank's part; returns the block's output in
+    the residual layout.
+
+    * ``n_heads % model == 0``: this rank's query heads and the projections'
+      columns for them; the KV heads split the same way when ``n_kv_heads``
+      divides ``model``, else wk / wv are gathered whole over ``model`` and
+      each rank reads the KV heads of its query heads; ``wo`` row-parallel,
+      its partial sums reduced.
+    * otherwise the context-parallel split of
+      ``sharding.constrain_qkv_context_parallel``: every weight gathered
+      whole, this rank's query rows ``[r·S/m, (r+1)·S/m)`` against the K/V
+      of every position up to its last row (causal), its rows of the output
+      joined over ``model`` (or left sequence-sharded under ``seq``); with a
+      sequence ``model`` does not divide, every rank computes the whole
+      (the weights' gradients then kept, not summed, over ``model``).
+    """
+
+    from repro_torch.core.execution import dispatch_flash_attention
+
+    m, r = lay.model, lay.model_index
+    b = xn.shape[0]
+    dh = cfg.d_head
+    if cfg.n_heads % m == 0:
+        x = spmd.tp_enter(xn, lay, seq)
+        s = x.shape[1]
+        hl = cfg.n_heads // m
+        spmd.require_model(sp["wq"], "wq", lay, 1)
+        q = spmd.column(x, _w(p["wq"]), sp["wq"], lay, p.get("bq"), sp.get("bq"))
+        kv_split = cfg.n_kv_heads % m == 0
+        hkv = cfg.n_kv_heads // m if kv_split else cfg.n_kv_heads
+        k = spmd.column(x, _w(p["wk"]), sp["wk"], lay, p.get("bk"), sp.get("bk"),
+                        gather_model=not kv_split)
+        v = spmd.column(x, _w(p["wv"]), sp["wv"], lay, p.get("bv"), sp.get("bv"),
+                        gather_model=not kv_split)
+        q = q.reshape(b, s, hl, dh)
+        k, v = k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
+        if cfg.use_rope:
+            q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+        if not kv_split:
+            k, v = _local_kv(k, v, r, hl, cfg.n_heads // cfg.n_kv_heads)
+        o = dispatch_flash_attention(q, k, v, causal=cfg.causal, window=cfg.window, backend=backend)
+        spmd.require_model(sp["wo"], "wo", lay, 0)
+        h = spmd.row(o.reshape(b, s, hl * dh), _w(p["wo"]), sp["wo"], lay)
+        return spmd.tp_exit(h, lay, seq)
+
+    s_full = xn.shape[1] * (m if seq else 1)
+    if not cfg.causal:
+        raise ValueError("the context-parallel split is causal (the dense family)")
+    cp = lay.context_parallel(b, s_full, cfg)
+    x = spmd.tp_enter(xn, lay, seq) if cp else xn
+    kw = dict(gather_model=True, model_grad="reduce_scatter" if cp else "slice")
+    k = spmd.column(x, _w(p["wk"]), sp["wk"], lay, p.get("bk"), sp.get("bk"), **kw)
+    v = spmd.column(x, _w(p["wv"]), sp["wv"], lay, p.get("bv"), sp.get("bv"), **kw)
+    k = k.reshape(b, s_full, cfg.n_kv_heads, dh)
+    v = v.reshape(b, s_full, cfg.n_kv_heads, dh)
+    if cfg.use_rope:
+        k = rope(k, positions, cfg.rope_theta)
+    lo, c = (r * (s_full // m), s_full // m) if cp else (0, s_full)
+    q = spmd.column(x[:, lo:lo + c], _w(p["wq"]), sp["wq"], lay, p.get("bq"), sp.get("bq"), **kw)
+    q = q.reshape(b, c, cfg.n_heads, dh)
+    if cfg.use_rope:
+        q = rope(q, positions[..., lo:lo + c], cfg.rope_theta)
+    o = dispatch_flash_attention(q, k[:, :lo + c], v[:, :lo + c], causal=True, window=cfg.window,
+                                 backend=backend)
+    h = spmd.row(o.reshape(b, c, cfg.n_heads * dh), _w(p["wo"]), sp["wo"], lay, **kw)
+    if cp and not seq:
+        return C.gather(h, lay.mesh, "model", 1, grad="slice")
+    return h
+
+
+def apply_glu_tp(p, sp, xn, lay, *, seq: bool):
+    """The GLU, a rank's part: w1 / w3 column-parallel (its features of
+    ``d_ff``), w2 row-parallel, its partial sums reduced."""
+
+    for name, dim in (("w1", 1), ("w3", 1), ("w2", 0)):
+        spmd.require_model(sp[name], name, lay, dim)
+    x = spmd.tp_enter(xn, lay, seq)
+    h = F.silu(spmd.row(x, _w(p["w1"]), sp["w1"], lay).float()).to(COMPUTE_DTYPE)
+    h = h * spmd.row(x, _w(p["w3"]), sp["w3"], lay)
+    return spmd.tp_exit(spmd.row(h, _w(p["w2"]), sp["w2"], lay), lay, seq)
+
+
+def _whole_features(x, p, sp, name: str, bias: str, lay):
+    """``x · W (+ b)`` with every output feature: this rank's columns,
+    all-gathered over ``model`` when ``W`` splits them there."""
+
+    y = spmd.column(x, _w(p[name]), sp[name], lay, p.get(bias), sp.get(bias))
+    if len(sp[name]) > 1 and sp[name][-1] == "model":
+        y = C.all_gather(y, lay.mesh, "model", y.ndim - 1)
+    return y
+
+
+def cache_split_plan(pos, b: int, s_local: int, lay, split: bool, device) -> tuple:
+    """``(rows, slot, ok, offset)``: where each row's new K/V land in this
+    rank's slice of a linear cache whose length is split over ``model``
+    (``split``; slice ``r`` holds positions ``[r·s_local, (r+1)·s_local)``).
+    Only the rank whose slice holds ``pos`` writes (``ok``); the others
+    write a slot's own value back, as :func:`dense_write_plan` does."""
+
+    pos = _per_row(pos, b, device).long()
+    off = lay.model_index * s_local if split else 0
+    local = pos - off
+    ok = ((local >= 0) & (local < s_local))[:, None, None]
+    return torch.arange(b, device=device), torch.clamp(local, 0, s_local - 1), ok, off
+
+
+def decode_attention_tp(p, sp, xn, cfg: AttnConfig, lay, cache_k, cache_v, pos, *, plan,
+                        s_total: int, split: bool, live=None):
+    """Single-token decode, a rank's part, over its rows and its slice of
+    the cache length (``split``: sharded over ``model`` by
+    ``sharding.cache_pspec``).  q, k and v are computed column-parallel and
+    all-gathered whole (every query head), the new K/V written by the rank
+    whose slice holds ``pos``; each rank attends over its slice for all
+    query heads and the partial (max, sum, output) merge across ``model``
+    in log-sum-exp form (:func:`grouped_attention_split`); ``wo``
+    row-parallel, its partial sums reduced.
+    ``xn`` (B, 1, D) is replicated over ``model``."""
+
+    if cfg.window is not None:
+        raise ValueError("a ring cache (sliding window) on a sharded mesh is slice 14's")
+    b = xn.shape[0]
+    pos = _per_row(pos, b, xn.device)
+    q = _whole_features(xn, p, sp, "wq", "bq", lay).reshape(b, 1, cfg.n_heads, cfg.d_head)
+    k = _whole_features(xn, p, sp, "wk", "bk", lay).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    v = _whole_features(xn, p, sp, "wv", "bv", lay).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    if cfg.use_rope:
+        q, k = rope(q, pos[:, None], cfg.rope_theta), rope(k, pos[:, None], cfg.rope_theta)
+
+    rows, slot, ok, off = plan
+    cache_k[rows, slot] = torch.where(ok, k[:, 0].to(cache_k.dtype), cache_k[rows, slot])
+    cache_v[rows, slot] = torch.where(ok, v[:, 0].to(cache_v.dtype), cache_v[rows, slot])
+
+    s_local = cache_k.shape[1]
+    k_idx = off + torch.arange(s_local, device=xn.device)
+    valid = k_idx[None, :] < torch.clamp(pos.long()[:, None] + 1, max=s_total)
+    if split and lay.model > 1:
+        o = grouped_attention_split(q[:, 0], cache_k, cache_v, valid, lay.mesh).to(q.dtype)
+    else:
+        o = grouped_attention(q[:, 0], cache_k, cache_v, valid).to(q.dtype)
+    if live is not None:
+        o = torch.where(live[:, None, None], o, torch.zeros((), dtype=o.dtype, device=o.device))
+    o = o.to(xn.dtype).reshape(b, 1, cfg.n_heads * cfg.d_head)
+    if len(sp["wo"]) > 1 and sp["wo"][0] == "model":
+        o = C.local_block(o, lay.mesh, "model", 2)
+        return C.all_reduce(spmd.row(o, _w(p["wo"]), sp["wo"], lay), lay.mesh, "model")
+    return spmd.row(o, _w(p["wo"]), sp["wo"], lay)
+
+
+def grouped_attention_split(q, view_k, view_v, valid, mesh):
+    """:func:`grouped_attention` over keys split across ``mesh``'s
+    ``model`` ranks, this rank holding one slice: the row max and the sum
+    of exponentials are all-reduced first, so each rank's probabilities
+    are the whole softmax's, rounded to the cache dtype as the one-card
+    step rounds them, and the partial ``p · V`` sums are all-reduced in
+    fp32 (the log-sum-exp merge, in two passes)."""
+
+    b, hq, d = q.shape
+    hkv = view_k.shape[2]
+    g = hq // hkv
+    ct = view_k.dtype
+    qg = q.reshape(b, hkv, g, d).to(ct).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, view_k.float()) / math.sqrt(d)
+    s = torch.where(valid[:, None, None, :], s, torch.full((), -1e30, dtype=s.dtype, device=s.device))
+    mx = C.all_reduce(s.amax(-1, keepdim=True), mesh, "model", op="max")
+    e = torch.exp(s - mx)
+    p_attn = (e / C.all_reduce(e.sum(-1, keepdim=True), mesh, "model")).to(ct)
+    o = torch.einsum("bhgs,bshd->bhgd", p_attn.float(), view_v.float())
+    return C.all_reduce(o, mesh, "model").reshape(b, hq, d)
+
 __all__ = [
     "COMPUTE_DTYPE",
     "PARAM_DTYPE",
     "AttnConfig",
     "apply_attention",
+    "apply_attention_tp",
+    "apply_glu_tp",
+    "cache_split_plan",
+    "decode_attention_tp",
+    "grouped_attention_split",
+    "init_placement",
     "apply_glu",
     "apply_mlp",
     "chunked_attention",

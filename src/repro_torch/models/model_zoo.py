@@ -19,6 +19,15 @@ families (token or embedding inputs) run through
 ``make_prefill_fn``'s ``attn_backend`` names the forward's attention route
 (``"auto"``: the CUDA kernel for tensors on a card, ``chunked_attention``
 for tensors on the CPU).
+
+Under a :class:`~repro_torch.launch.mesh.RankMesh` (``mesh=``) the same
+entry points run a rank's part of the dense family's step
+(``transformer.*_sharded``): the params are its shards by the reference's
+rules (``distributed/sharding.py``; :func:`param_specs`), the batch its
+rows over the dp axes, the decode state its rows and its slice of the
+cache length, the logits its rows and its vocab slice.  ``batch_spec``,
+``decode_state_spec`` and ``init_decode_state`` give the rank-local
+shapes.  The other families raise (slice 14).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import spmd
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 
@@ -76,7 +87,34 @@ def bulk_prefill_from_decode(decode_fn):
     return f
 
 
-def make_decode_fn(cfg: ArchConfig):
+def param_specs(cfg: ArchConfig, mesh, *, fsdp: bool) -> dict:
+    """The spec tree of ``cfg``'s params on ``mesh`` (the reference's
+    ``shard_params``; ``fsdp=False`` for serving params)."""
+
+    return spmd.param_specs(init_params(cfg, None, "meta", dtype=torch.float32), mesh, fsdp=fsdp)
+
+
+def _layout(cfg, mesh, *, fsdp: bool, seq_shard: bool = False) -> spmd.Layout:
+    return spmd.Layout(mesh, param_specs(cfg, mesh, fsdp=fsdp), seq_shard)
+
+
+def _state_shape(cfg: ArchConfig, batch: int, seq_len: int) -> tuple:
+    return (cfg.n_layers, batch, T.cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
+
+
+def make_decode_fn(cfg: ArchConfig, *, mesh=None, batch: int = 0, seq_len: int = 0):
+    """``(params, batch, state, pos) -> (logits, state)``; on a rank mesh a
+    rank's part of the step over the caches of ``batch`` rows and
+    ``seq_len`` positions (their global shape, which their spec reads)."""
+
+    if spmd.is_sharded(mesh):
+        lay = _layout(cfg, mesh, fsdp=False)
+        cspec = SH.cache_pspec(mesh, _state_shape(cfg, batch, seq_len))
+
+        def f(params, batch_, state, pos):
+            return T.decode_step_sharded(params, cfg, batch_, state, pos, lay, cspec)
+
+        return f
     step = E.decode_step if cfg.family == "encdec" else T.decode_step
 
     def f(params, batch, state, pos):
@@ -91,7 +129,8 @@ def _requires_grad(tree) -> bool:
     return isinstance(tree, torch.Tensor) and tree.requires_grad
 
 
-def make_loss_fn(cfg: ArchConfig, *, remat: bool = True):
+def make_loss_fn(cfg: ArchConfig, *, remat: bool = True, mesh=None, fsdp: bool = True,
+                 seq_shard: bool = False):
     """``(params, batch) -> (loss, {"ce", "aux"})``.
 
     When autograd will differentiate it (grad mode on and a leaf of
@@ -102,8 +141,22 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True):
     (serving params, ``no_grad``, ``inference_mode``) it is the eval loss,
     its attention by ``"auto"`` (the flash kernel for tensors on a card).
     The enc-dec's cross-attention takes the route of its self-attention.
+    On a rank mesh the loss is this rank's term of the global mean (the dp
+    ranks' terms add up to it) over params sharded by ``fsdp``, its stream
+    sequence-sharded under ``seq_shard``.
     """
 
+    if spmd.is_sharded(mesh):
+        lay = _layout(cfg, mesh, fsdp=fsdp, seq_shard=seq_shard)
+
+        def f(params, batch):
+            if torch.is_grad_enabled() and _requires_grad(params):
+                return T.loss_fn_sharded(params, cfg, batch, lay,
+                                         attn_backend="flash_attn_torch", remat=remat)
+            return T.loss_fn_sharded(params, cfg, batch, lay)
+
+        f.layout = lay
+        return f
     loss = E.loss_fn if cfg.family == "encdec" else T.loss_fn
 
     def f(params, batch):
@@ -114,7 +167,8 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True):
     return f
 
 
-def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: str = "auto"):
+def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: str = "auto",
+                    mesh=None, seq_shard: bool = False, batch: int = 0, seq_len: int = 0):
     """Prefill forward.
 
     ``with_cache=False`` (default): the full-sequence forward,
@@ -123,10 +177,23 @@ def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: 
     ``with_cache=True``: the bulk prefill the serving stack uses,
     ``(params, batch, state, pos0) -> (last_logits, state)``, a loop of
     :func:`make_decode_fn` steps (see :func:`bulk_prefill_from_decode`).
+
+    On a rank mesh a rank's part over serving params (no FSDP): its rows'
+    logits, their vocab over ``model`` (``with_cache``: the caches of
+    ``batch`` rows and ``seq_len`` positions).
     """
 
     if with_cache:
-        return bulk_prefill_from_decode(make_decode_fn(cfg))
+        return bulk_prefill_from_decode(make_decode_fn(cfg, mesh=mesh, batch=batch,
+                                                       seq_len=seq_len))
+    if spmd.is_sharded(mesh):
+        lay = _layout(cfg, mesh, fsdp=False, seq_shard=seq_shard)
+
+        def f(params, batch_):
+            with torch.inference_mode():
+                return T.forward_lm_sharded(params, cfg, batch_, lay, attn_backend=attn_backend)[0]
+
+        return f
 
     def f(params, batch):
         with torch.inference_mode():
@@ -137,7 +204,17 @@ def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: 
     return f
 
 
-def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda"):
+def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda", mesh=None):
+    """The decode state of ``batch`` rows and ``seq_len`` positions; on a
+    rank mesh this rank's part of it (``sharding.cache_pspec``)."""
+
+    if spmd.is_sharded(mesh):
+        T._require_dense(cfg)
+        shape = _state_shape(cfg, batch, seq_len)
+        local = SH.local_shape(shape, SH.cache_pspec(mesh, shape), mesh)
+        from repro_torch.models.layers import COMPUTE_DTYPE
+
+        return {k: torch.zeros(local, dtype=COMPUTE_DTYPE, device=device) for k in ("k", "v")}
     if cfg.family == "encdec":
         return E.init_decode_state(cfg, batch, seq_len, device=device)
     return T.init_decode_state(cfg, batch, seq_len, device=device)
@@ -151,16 +228,19 @@ def init_decode_state_paged(cfg: ArchConfig, n_pages: int, page_size: int, *, de
     return T.init_decode_state_paged(cfg, n_pages, page_size, device=device)
 
 
-def batch_spec(cfg: ArchConfig, shape, *, device="meta") -> dict:
+def batch_spec(cfg: ArchConfig, shape, *, device="meta", mesh=None) -> dict:
     """Inputs for one (arch x shape) cell, as the reference's ``batch_spec``
     gives them: tokens (int32), embeddings (the compute dtype), labels for
     a train cell, one position for a decode cell.  On the ``meta`` device
     (the default) they hold shapes and dtypes only, as the reference's
-    ``ShapeDtypeStruct`` s do; elsewhere they are zeros."""
+    ``ShapeDtypeStruct`` s do; elsewhere they are zeros.  On a rank mesh,
+    this rank's rows (``sharding.batch_pspec``)."""
 
     from repro_torch.models.layers import COMPUTE_DTYPE
 
     b, s = shape.global_batch, shape.seq_len
+    if spmd.is_sharded(mesh):
+        b = SH.local_shape((b,), SH.batch_pspec(mesh, b), mesh)[0]
     tok = lambda ss: torch.zeros((b, ss), dtype=torch.int32, device=device)  # noqa: E731
     emb = lambda ss: torch.zeros((b, ss, cfg.d_model), dtype=COMPUTE_DTYPE, device=device)  # noqa: E731
 
@@ -177,11 +257,12 @@ def batch_spec(cfg: ArchConfig, shape, *, device="meta") -> dict:
     return out
 
 
-def decode_state_spec(cfg: ArchConfig, batch: int, seq_len: int, *, device="meta"):
+def decode_state_spec(cfg: ArchConfig, batch: int, seq_len: int, *, device="meta", mesh=None):
     """The decode state of ``batch`` rows and ``seq_len`` positions; on the
-    ``meta`` device (the default) shapes and dtypes only, no memory."""
+    ``meta`` device (the default) shapes and dtypes only, no memory; on a
+    rank mesh this rank's part."""
 
-    return init_decode_state(cfg, batch, seq_len, device=device)
+    return init_decode_state(cfg, batch, seq_len, device=device, mesh=mesh)
 
 
 __all__ = [
@@ -194,4 +275,5 @@ __all__ = [
     "make_decode_fn",
     "make_loss_fn",
     "make_prefill_fn",
+    "param_specs",
 ]

@@ -33,6 +33,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core import execution as X
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -444,11 +446,181 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
     return logits, state
 
 
+# ---------------------------------------------------------------------------
+# The dense family on a (data, model) mesh: a rank's part
+# ---------------------------------------------------------------------------
+#
+# ``lay`` (``distributed.spmd.Layout``) holds the mesh, the params' spec
+# tree and ``seq_shard``; ``params`` hold this rank's shards.  Where the
+# reference pins an activation with ``constrain_batch`` (the embedding's
+# output, each sub-block's output, the residual carry at each layer, the
+# logits), the residual stream here *is* in that layout: its rows this
+# rank's share of the batch over the dp axes, its sequence split over
+# ``model`` under ``seq_shard`` (else whole), the logits' vocab over
+# ``model``.
+
+
+def _require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: the {cfg.family} family on a sharded mesh is slice 14's "
+                         "(only the dense family runs sharded)")
+
+
+def _seq_local(x, lay, seq: bool):
+    """This rank's share of a replicated (B, S, ...) tensor's sequence."""
+
+    if not seq:
+        return x
+    c = x.shape[1] // lay.model
+    return x.narrow(1, lay.model_index * c, c)
+
+
+def embed_tokens_sharded(params, cfg: ArchConfig, batch, lay, *, seq: bool):
+    """The vocab-parallel embedding: each rank looks up the token ids in
+    its rows of ``embed`` (``P("model", None)``), the others give zeros,
+    and the partial rows are all-reduced over ``model`` (reduce-scattered
+    along the sequence under ``seq``).  Embedding inputs are sliced."""
+
+    if cfg.embed_inputs:
+        return _seq_local(batch["embeds"].to(L.COMPUTE_DTYPE), lay, seq)
+    emb, spec = params["embed"], lay.specs["embed"]
+    spmd.require_model(spec, "embed", lay, 0)
+    ids = batch["tokens"].long()
+    if lay.model == 1:
+        return _seq_local(emb[ids].to(L.COMPUTE_DTYPE), lay, seq)
+    v_loc = emb.shape[0]
+    local = ids - lay.model_index * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    x = emb[torch.clamp(local, 0, v_loc - 1)].to(L.COMPUTE_DTYPE)
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    if seq:
+        return C.scatter(x, lay.mesh, "model", 1)
+    return C.reduce(x, lay.mesh, "model")
+
+
+def _attn_block_sharded(p, sp, x, cfg: ArchConfig, lay, positions, seq: bool, attn_backend):
+    acfg = attn_config(cfg)
+    h = L.apply_attention_tp(p["attn"], sp["attn"],
+                             L.rms_norm(x, spmd.norm_weight(p["ln1"], lay, seq), cfg.norm_eps),
+                             acfg, lay, positions=positions, seq=seq, backend=attn_backend)
+    x = x + h
+    h = L.apply_glu_tp(p["mlp"], sp["mlp"],
+                       L.rms_norm(x, spmd.norm_weight(p["ln2"], lay, seq), cfg.norm_eps),
+                       lay, seq=seq)
+    return x + h
+
+
+def forward_lm_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
+                       remat: bool = False):
+    """:func:`forward_lm` on a mesh: returns ``(logits, aux)``, the logits
+    this rank's rows (B_local, S, V / model), their vocab split over
+    ``model`` as the reference's ``constrain_batch(logits, extra=("model",))``
+    pins them; ``aux`` 0 (the dense family).  Each layer's FSDP gathers run
+    inside its body, so ``remat`` gathers again in the backward."""
+
+    _require_dense(cfg)
+    b, s = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[:2]
+    seq = lay.seq_sharded((b, s, cfg.d_model))
+    x = embed_tokens_sharded(params, cfg, batch, lay, seq=seq)
+    positions = torch.arange(s, device=x.device)[None, :]
+    specs = spmd.layer_specs(lay.specs["blocks"])
+
+    def body(x, p):
+        return _attn_block_sharded(p, specs, x, cfg, lay, positions, seq, attn_backend)
+
+    if remat:
+        body = _remat(body)
+    layers = _unstack(_cast_params(params["blocks"]), cfg.n_layers)
+    for i in range(cfg.n_layers):
+        x = body(x, layers[i])
+    x = L.rms_norm(x, spmd.norm_weight(params["final_norm"], lay, seq), cfg.norm_eps)
+    x = spmd.tp_enter(x, lay, seq)
+    spmd.require_model(lay.specs["lm_head"], "lm_head", lay, 1)
+    logits = spmd.row(x, params["lm_head"].to(L.COMPUTE_DTYPE), lay.specs["lm_head"], lay)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def cross_entropy_sharded(logits, labels, lay, mask=None):
+    """The vocab-parallel cross-entropy of this rank's rows: the row max,
+    the sum of exponentials and the target's logit each reduced over
+    ``model``; the sum over this rank's tokens divided by the *global*
+    token count (the dp ranks' counts all-reduced), so that the dp ranks'
+    terms add up to the reference's mean (``spmd.dp_sum``)."""
+
+    lf = logits.float()
+    mx = C.all_reduce(lf.amax(dim=-1).detach(), lay.mesh, "model", op="max")
+    shifted = lf - mx[..., None]
+    lse = torch.log(C.reduce(torch.exp(shifted).sum(dim=-1), lay.mesh, "model"))
+    v_loc = lf.shape[-1]
+    local = labels.long() - lay.model_index * v_loc
+    ok = (local >= 0) & (local < v_loc)
+    tgt = shifted.gather(-1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
+    tgt = C.reduce(torch.where(ok, tgt, torch.zeros((), device=tgt.device)), lay.mesh, "model")
+    ll = tgt - lse
+    if mask is None:
+        num, count = ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
+    else:
+        mask = mask.float()
+        num, count = (ll * mask).sum(), mask.sum()
+    count = C.all_reduce(count.detach(), lay.mesh, lay.dp)
+    return -num / torch.clamp(count, min=1.0)
+
+
+def loss_fn_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
+                    remat: bool = False):
+    """``(loss, {"ce", "aux"})`` of this rank's rows: its term of the global
+    mean (``spmd.dp_sum`` over the dp ranks gives the reference's loss)."""
+
+    logits, aux = forward_lm_sharded(params, cfg, batch, lay, attn_backend=attn_backend,
+                                     remat=remat)
+    ce = cross_entropy_sharded(logits, batch["labels"], lay, batch.get("mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def decode_step_sharded(params, cfg: ArchConfig, batch, state, pos, lay, cache_spec):
+    """:func:`decode_step` on a mesh: this rank's rows, its slice of each
+    cache's length (``cache_spec``, the caches' ``sharding.cache_pspec``),
+    the logits' vocab over ``model``; dense caches only (the reference
+    never runs the paged engine on a data/model mesh)."""
+
+    _require_dense(cfg)
+    if "pages_k" in state:
+        raise ValueError("the paged arena is not sharded over a data/model mesh")
+    x = embed_tokens_sharded(params, cfg, batch, lay, seq=False)
+    b = x.shape[0]
+    acfg = attn_config(cfg)
+    if cache_spec[2] is not None and cache_spec[2] != ("model",):
+        raise ValueError(f"a cache length split over {cache_spec[2]!r} (a batch the dp axes "
+                         "cannot split) is slice 14's")
+    split = cache_spec[2] == ("model",)
+    s_local = state["k"].shape[2]
+    s_total = s_local * (lay.model if split else 1)
+    plan = L.cache_split_plan(pos, b, s_local, lay, split, x.device)
+    specs = spmd.layer_specs(lay.specs["blocks"])
+    live = batch.get("live")
+    for i in range(cfg.n_layers):
+        p = layer_params(params["blocks"], i)
+        h = L.decode_attention_tp(p["attn"], specs["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                                  acfg, lay, state["k"][i], state["v"][i], pos, plan=plan,
+                                  s_total=s_total, split=split, live=live)
+        x = x + h
+        x = x + L.apply_glu_tp(p["mlp"], specs["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
+                               lay, seq=False)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = spmd.row(x, params["lm_head"].to(L.COMPUTE_DTYPE), lay.specs["lm_head"], lay)
+    return logits, state
+
+
 __all__ = [
     "attn_config",
     "block_kind",
     "cache_len",
     "cross_entropy",
+    "cross_entropy_sharded",
+    "decode_step_sharded",
+    "embed_tokens_sharded",
+    "forward_lm_sharded",
+    "loss_fn_sharded",
     "decode_step",
     "embed_tokens",
     "forward_lm",

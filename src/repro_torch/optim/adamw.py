@@ -122,15 +122,19 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, norm: Optional[Callable] = None):
     """One AdamW step; returns ``(params, state, {"lr", "grad_norm"})``.
 
     ``params``, ``state["m"]``/``["v"]`` and ``grads`` are updated in
     place (``grads`` holds the clipped values afterwards) and returned.
+    ``norm`` computes the gradients' global norm (:func:`global_norm`
+    unless given: a sharded tree's is ``distributed.spmd.global_norm``).
+    On shards the update is the same element-wise arithmetic, and weight
+    decay reads a leaf's logical ``ndim``, which its shard keeps.
     """
 
     step = state["step"] + 1
-    grad_norm = global_norm(grads)
+    grad_norm = (norm or global_norm)(grads)
     flat_g = tree_leaves(grads)
     if cfg.clip_norm is not None:
         scale = _clip_scale(grad_norm, cfg.clip_norm)

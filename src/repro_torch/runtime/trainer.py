@@ -27,7 +27,19 @@ Composes:
   * elastic re-placement: :meth:`Trainer.reshard` rebuilds the step for
     another pod mesh, the state left in place.
 
-``fsdp`` is accepted and has no effect (nothing is sharded on one card).
+On a :class:`~repro_torch.launch.mesh.RankMesh` (``mesh=``) each process
+is one rank of the ``(data, model)`` / ``(pod, data, model)`` mesh and
+the trainer runs the dense family's sharded step
+(:func:`sharded_train_step`): the params and the AdamW state are this
+rank's shards by the reference's rules (FSDP over ``data`` when
+``TrainerConfig.fsdp``, tensor-parallel over ``model``), built one leaf at
+a time from the seeded generator (the same numbers as the one-card
+trainer's), each batch cut to this rank's rows after the asymmetric
+layout, the gradients reduce-scattered / all-reduced, the norm and the
+loss global; checkpoints are gathered to rank 0 and sliced on restore,
+and :meth:`Trainer.reshard` moves the state to another mesh of the same
+world.
+
 It trains the families whose batches ``SyntheticLM`` gives (tokens and
 labels): dense, MoE (the router's auxiliary loss in the gradient), Mamba2
 and hybrid.  The enc-dec family (``frames``) and embedding inputs
@@ -44,6 +56,7 @@ import tempfile
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -51,6 +64,8 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.asymmetric import AsymmetricMesh
 from repro_torch.core.execution import ClassShardedFn, ExecutionContext
 from repro_torch.data.pipeline import AsymmetricBatcher, SyntheticLM
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import spmd
 from repro_torch.distributed.collectives import note_collective
 from repro_torch.distributed.sharding import PodSplit
 from repro_torch.launch.mesh import make_host_mesh
@@ -85,8 +100,8 @@ class TrainerConfig:
     ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
     ckpt_every: int = 20
     n_micro: int = 1
-    # The reference's parameter-sharding switch, kept so its configs carry
-    # over; nothing is sharded on one card, so it has no effect here.
+    # FSDP: on a rank mesh, shard the params and AdamW state over "data"
+    # too (else only over "model"); no effect on one card.
     fsdp: bool = True
     # True CA-SAS: per-class programs within one step (a stream per pod).
     # None = auto (on when the asym mesh has more than one class and the
@@ -209,6 +224,25 @@ def build_class_sharded_grad_step(
     )
 
 
+def sharded_train_step(loss_fn, params, opt_state, batch, opt_cfg, lay, n_micro: int = 1):
+    """One training step of a rank on a mesh: its gradients (FSDP leaves
+    reduce-scattered by their gathers' backward), the leaves replicated
+    over a dp axis summed over it (``spmd.sync_grads``), AdamW on the
+    shards with the global norm; returns ``(params, opt_state, metrics)``
+    with the loss and metrics summed over the dp ranks (the global mean)."""
+
+    loss, metrics, grads = O.accumulate_gradients(loss_fn, params, batch, n_micro)
+    grads = spmd.sync_grads(grads, lay.specs, lay.mesh)
+    params, opt_state, om = O.adamw_update(
+        params, grads, opt_state, opt_cfg,
+        norm=lambda g: spmd.global_norm(g, lay.specs, lay.mesh))
+    metrics = {k: spmd.dp_sum(v, lay.mesh) if isinstance(v, torch.Tensor) else v
+               for k, v in metrics.items()}
+    metrics.update(om)
+    metrics["loss"] = spmd.dp_sum(loss, lay.mesh)
+    return params, opt_state, metrics
+
+
 class Trainer:
     def __init__(
         self,
@@ -255,15 +289,43 @@ class Trainer:
         self.data = SyntheticLM(vocab=arch.vocab, seed=seed)
         self.batcher = AsymmetricBatcher(self.data, asym) if asym else None
 
-        self.loss_fn = Z.make_loss_fn(arch)
+        self.sharded = spmd.is_sharded(self.mesh)
+        if self.sharded:
+            self.device = self.mesh.device
+        self.loss_fn = self._make_loss_fn()
         self._build_step()
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed) if params is None else None
+        if self.sharded:
+            specs = self.layout.specs
+            full = Z.init_params(arch, None, "meta", dtype=torch.float32)
+            if params is None:
+                params = spmd.init_sharded(
+                    lambda g, d: Z.init_params(arch, g, d, dtype=torch.float32), gen, specs,
+                    self.mesh)
+            params = O.tree_map(lambda p: p.requires_grad_(True),
+                                spmd.localize(params, specs, self.mesh, full))
+            if opt_state is not None:
+                opt_state = dict(opt_state, m=spmd.localize(opt_state["m"], specs, self.mesh, full),
+                                 v=spmd.localize(opt_state["v"], specs, self.mesh, full))
+        elif params is None:
             params = O.tree_map(lambda p: p.requires_grad_(True),
                                 Z.init_params(arch, gen, self.device, dtype=torch.float32))
         self.params = params
         self.opt_state = opt_state if opt_state is not None else O.init_opt_state(params)
         self.step = 0
+
+    def _make_loss_fn(self):
+        if not self.sharded:
+            return Z.make_loss_fn(self.arch)
+        fn = Z.make_loss_fn(self.arch, mesh=self.mesh, fsdp=self.tcfg.fsdp)
+        self.layout = fn.layout
+        return fn
+
+    def state_specs(self) -> dict:
+        """The spec tree of ``{"params", "opt"}`` on the rank mesh."""
+
+        specs = self.layout.specs
+        return {"params": specs, "opt": SH.shard_opt_state(None, specs, self.mesh)}
 
     def _execution(self):
         return self.exec_ctx if self.exec_ctx is not None else contextlib.nullcontext()
@@ -311,6 +373,12 @@ class Trainer:
         ``n_micro`` micro-batches), then AdamW in place; returns the
         metrics as tensors."""
 
+        if self.sharded:
+            with self._execution():
+                self.params, self.opt_state, metrics = sharded_train_step(
+                    self.loss_fn, self.params, self.opt_state, batch, self.opt_cfg, self.layout,
+                    self.tcfg.n_micro)
+            return metrics
         with self._execution():
             if self.class_sharded_step is not None:
                 loss, metrics, grads = self.class_sharded_step(self.params, batch)
@@ -326,9 +394,33 @@ class Trainer:
 
     def reshard(self, new_mesh):
         """Elastic re-placement: the step rebuilt for ``new_mesh`` (pods
-        joining or leaving between steps).  On one card the params and
-        optimizer state stay where they are: nothing is sharded."""
+        joining or leaving between steps).  Between rank meshes of one
+        world the params and AdamW state move to the new mesh's shards one
+        leaf at a time (gathered whole, cut again); on one card they stay
+        where they are: nothing is sharded."""
 
+        if self.sharded or spmd.is_sharded(new_mesh):
+            if not (self.sharded and spmd.is_sharded(new_mesh)) or \
+                    new_mesh.world != self.mesh.world:
+                raise ValueError(f"reshard moves state between rank meshes of one world, not "
+                                 f"{dict(self.mesh.shape)} to {dict(new_mesh.shape)}")
+            old_specs, old_mesh = self.layout.specs, self.mesh
+            self.mesh = new_mesh
+            self.loss_fn = self._make_loss_fn()
+            new_specs = self.layout.specs
+
+            def move(x, old, new):
+                full = spmd.gather_full(x, old, old_mesh)
+                out = SH.local_slice(full, new, new_mesh).clone()
+                return out.requires_grad_(x.requires_grad)
+
+            tm = spmd.map_specs
+            self.params = tm(move, self.params, old_specs, new_specs)
+            self.opt_state = dict(self.opt_state,
+                                  m=tm(move, self.opt_state["m"], old_specs, new_specs),
+                                  v=tm(move, self.opt_state["v"], old_specs, new_specs))
+            self._build_step()
+            return
         self.mesh = new_mesh
         self._build_step()
 
@@ -341,7 +433,11 @@ class Trainer:
         else:
             arrays = self.data.batch(step, self.tcfg.global_batch, self.tcfg.seq_len)
             layout = None
-        batch = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
+        if self.sharded:  # this rank's rows, after the asymmetric layout
+            specs = SH.batch_sharding(self.mesh, arrays)
+            arrays = {k: SH.local_slice(v, specs[k], self.mesh) for k, v in arrays.items()}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                 for k, v in arrays.items()}
         return batch, layout
 
     # -- fault tolerance ------------------------------------------------------
@@ -350,7 +446,8 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def _checkpoint(self):
-        self.ckpt.save(self.step, self._state(), extra={"restarts": self.restarts})
+        shard = dict(mesh=self.mesh, specs=self.state_specs()) if self.sharded else {}
+        self.ckpt.save(self.step, self._state(), extra={"restarts": self.restarts}, **shard)
 
     def _restart(self):
         """Restore the newest committed state (node-failure recovery),
@@ -358,7 +455,8 @@ class Trainer:
         card."""
 
         self.restarts += 1
-        tree, manifest = self.ckpt.restore(self._state(), device="cpu")
+        shard = dict(mesh=self.mesh, specs=self.state_specs()) if self.sharded else {}
+        tree, manifest = self.ckpt.restore(self._state(), device="cpu", **shard)
         with torch.no_grad():
             O.tree_map(lambda live, saved: live.copy_(saved), self._state(), tree)
         self.step = int(manifest["step"])
@@ -409,5 +507,6 @@ __all__ = [
     "Trainer",
     "TrainerConfig",
     "build_class_sharded_grad_step",
+    "sharded_train_step",
     "weighted_mean_epilogue",
 ]

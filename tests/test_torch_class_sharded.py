@@ -65,7 +65,7 @@ from repro_torch.kernels import gemm as G
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import choose_backend, make_host_mesh, make_production_mesh, rank_device
 from repro_torch.models import model_zoo as Z
 from repro_torch.optim import adamw as O
 from repro_torch.runtime import trainer as TR
@@ -233,11 +233,42 @@ def test_meshes():
     assert mesh.shape == {"pod": 2, "data": 1, "model": 1} and mesh.n_pods == 2
     assert mesh.pod_streams() == [None, None]  # the CPU: the pods run in turn
     assert make_host_mesh(device="cpu").axis_names == ("data", "model")
-    with pytest.raises(ValueError, match="data and model"):
+    # A data or model axis above 1 is a mesh of ranks: it needs the process
+    # group whose ranks it spans (tests/test_torch_spmd.py spawns them).
+    with pytest.raises(ValueError, match="initialised process group"):
         make_host_mesh(data=2, device="cpu")
-    for multi in (False, True):
-        with pytest.raises(ValueError, match="no counterpart"):
-            make_production_mesh(multi_pod=multi)
+    # The production meshes, the reference's axes and sizes; abstract (rank
+    # 0, no groups, on the meta device) outside a launcher's world.
+    for multi, ref in ((False, jax.sharding.AbstractMesh((16, 16), ("data", "model"))),
+                       (True, jax.sharding.AbstractMesh((2, 16, 16), ("pod", "data", "model")))):
+        mesh = make_production_mesh(multi_pod=multi)
+        assert mesh.axis_names == tuple(ref.axis_names)
+        assert mesh.shape == dict(ref.shape)
+        assert mesh.is_abstract and mesh.rank == 0 and mesh.device.type == "meta"
+        assert mesh.world == (512 if multi else 256)
+
+
+@pytest.mark.parametrize("env, world, cards, launcher, want", [
+    # 256 ranks over 32 nodes of 8 cards under a launcher: a card each.
+    ({"LOCAL_RANK": "5", "LOCAL_WORLD_SIZE": "8"}, 256, 8, True, ("nccl", 5)),
+    # 16 ranks a node on 8 cards: two share a card.
+    ({"LOCAL_RANK": "13", "LOCAL_WORLD_SIZE": "16"}, 256, 8, True, ("gloo", 13)),
+    # Spawned on one node (a FileStore): every rank is on this node.
+    ({}, 4, 1, False, ("gloo", 3)),
+    ({}, 4, 4, False, ("nccl", 3)),
+    # A parent's launcher variables do not describe ranks spawned here.
+    ({"LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}, 4, 1, False, ("gloo", 3)),
+])
+def test_backend_is_chosen_per_node(monkeypatch, env, world, cards, launcher, want):
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    backend, local_rank, why = choose_backend(3, world, device="cuda", launcher=launcher)
+    assert (backend, local_rank) == want and why
+    assert choose_backend(3, world, device="cpu", launcher=launcher)[0] == "gloo"
+    assert rank_device(local_rank, "cuda") == torch.device("cuda", local_rank % cards)
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +510,7 @@ def test_train_cli_class_sharded_on(monkeypatch, capsys, tmp_path):
     assert [list(s[:3]) for s in got["shard_classes"]] == [s[:3] for s in want["shard_classes"]]
     assert [s[1] for s in got["shard_classes"]] == ["big", "little"]
     assert got["steps"] == 2 and got["chunk_sizes"] == want["chunk_sizes"]
-    with pytest.raises(ValueError, match="no counterpart"):
+    with pytest.raises(ValueError, match="--mesh 16x16 needs 256 ranks"):
         train_cli.main(["--device", "cpu", "--arch", ARCH, "--reduced", "--mesh", "16x16"])
 
 

@@ -324,6 +324,7 @@ FLASH_CASES = [
     (2, 1500, 1500, 12, 12, 64, False, None),  # whisper-small's encoder: 1,500 keys
     (2, 448, 1500, 12, 12, 64, False, None),   # its cross-attention in the forward
     (12, 1, 1500, 12, 12, 64, False, None),    # and in a decode step
+    (6, 512, 512, 8, 4, 128, True, None),      # internlm2-1.8b's prefill a rank at (data=2, model=2)
 ]
 
 
@@ -775,3 +776,41 @@ def test_paged_attention_on_a_side_stream_equals_the_default_stream(cuda):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_ranks_sharing_the_card(cuda, tmp_path):
+    """Four ranks on the card as a (data=2, model=2) mesh over ``gloo``:
+    the collectives on CUDA tensors (staged through host memory) give
+    their definitions, every product of a sharded training step runs on
+    ``gemm_cuda`` (4n - 1 launches a rank), and the losses follow the
+    one-process trainer's on the card within 1e-3."""
+
+    import spmd_workers as W
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.optim import adamw as O
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tcfg, opt = dict(steps=2, global_batch=4, seq_len=16), dict(lr=1e-3, total_steps=2, warmup_steps=2)
+    cfg = get_config(W.ARCH).reduced()
+    # The one-process run first: it builds the kernel the ranks then load.
+    one = Trainer(cfg, device=cuda, opt_cfg=O.AdamWConfig(**opt),
+                  tcfg=TrainerConfig(ckpt_dir=str(tmp_path / "one"), ckpt_every=100, **tcfg))
+    want = []
+    for step in range(tcfg["steps"]):
+        batch, _ = one.next_batch(step)
+        want.append(float(one.train_step(batch)["loss"]))
+    runs = spawn_ranks(W.card_run, 4, {"mesh": (2, 2, 0), "tcfg": tcfg, "opt": opt,
+                                       "ckpt_dir": str(tmp_path / "r")}, device="cuda", timeout=300)
+    n = 7 * cfg.n_layers + 1
+    for rank, run in enumerate(runs):
+        assert run["transport"] == "gloo" and run["device"] == "cuda:0"
+        for got, loss in zip(run["steps"], want):
+            assert got["launches"]["gemm_cuda"] == 4 * n - 1
+            assert got["loss"] == pytest.approx(loss, rel=1e-3)
+        model_peer = rank ^ 1  # the other rank of this rank's model group
+        assert run["gathered"][:, :3].eq(min(rank, model_peer) + 1).all()
+        assert run["gathered"][:, 3:].eq(max(rank, model_peer) + 1).all()
+        assert run["reduced"].eq(10.0).all()
+        data_index = rank // 2
+        assert torch.equal(run["scattered"], 2 * torch.arange(8.0).reshape(4, 2)[2 * data_index:2 * data_index + 2])

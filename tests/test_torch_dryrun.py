@@ -23,6 +23,7 @@ card's own launch counters.  Last, the sync-free decode writes of
 what the dropped writes left.
 """
 
+import json
 import os
 
 import numpy as np
@@ -209,6 +210,55 @@ def test_minitron_forward_operations_bound():
     assert abs(bound_ms - 35.7) <= 0.01 * 35.7, bound_ms
 
 
+# A sharded cell: the reference compiled on the conftest's 8 host devices as
+# a (pod=2, data=2, model=2) mesh, the port as rank 0 of the abstract mesh
+# (FSDP, the stream sequence-sharded, as the reference's dry-run).  The
+# arguments are the same shards; the FLOPs are rank 0's share of the same
+# products (the +0.36% recompute of the one-card cell); the collectives are
+# GSPMD's choice against the port's explicit ones (PERF.md §6: XLA
+# all-reduces where the port reduce-scatters), held within 2x either way.
+SHARDED_FLOPS_RTOL = 0.05
+SHARDED_COLLECTIVE_RATIO = 2.0
+
+
+@pytest.fixture(scope="module")
+def sharded_cells():
+    import jax
+
+    from repro.configs import get_config as ref_config
+    from repro.launch import hlo_analysis as H
+    from repro.launch.mesh import make_host_mesh
+
+    from repro_torch.launch.mesh import RankMesh
+
+    RD = _reference_dryrun()
+    mesh = make_host_mesh(data=2, model=2, pod=2)
+    orig = RD.get_config
+    RD.get_config = lambda name: ref_config(name).reduced()
+    try:
+        fn, args, in_sh, out_sh = RD.build_cell("internlm2-1.8b", "train_4k", mesh)
+        with mesh:
+            compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,  # repro: noqa=RPR003 -- one compile, the one sharded cell
+                               donate_argnums=(0, 1)).lower(*args).compile()
+    finally:
+        RD.get_config = orig
+    cost = H.analyze(compiled.as_text())
+    port = D.run_cell(get_config("internlm2-1.8b").reduced(), "train_4k",
+                      mesh=RankMesh.abstract(("pod", "data", "model"), (2, 2, 2)), write=False)
+    return {"flops": cost.flops, "args": compiled.memory_analysis().argument_size_in_bytes,
+            "collective": cost.collective_bytes}, port
+
+
+def test_sharded_cell_matches_reference_hlo(sharded_cells):
+    ref, rec = sharded_cells
+    assert rec["ok"], rec.get("error")
+    assert rec["mesh"] == "mesh2x2x2" and rec["n_chips"] == 8
+    assert rec["memory"]["argument_bytes"] == ref["args"]
+    assert abs(rec["hlo_cost"]["flops"] - ref["flops"]) <= SHARDED_FLOPS_RTOL * ref["flops"]
+    ratio = rec["hlo_cost"]["collective_bytes"] / ref["collective"]
+    assert 1 / SHARDED_COLLECTIVE_RATIO <= ratio <= SHARDED_COLLECTIVE_RATIO, ratio
+
+
 # ---------------------------------------------------------------------------
 # The dry-run's own surface
 # ---------------------------------------------------------------------------
@@ -225,12 +275,21 @@ def test_quadratic_long_context_is_skipped_with_the_reference_reason():
     assert rec["skipped"] and rec["reason"] == "full quadratic attention (see DESIGN.md)"
 
 
-def test_multi_card_meshes_raise(capsys):
-    for flag in ("--multi-pod", "--both-meshes"):
+def test_multi_card_meshes_raise(tmp_path, capsys):
+    # The production meshes no longer raise: --multi-pod writes the
+    # reference's pod2x16x16 records, --both-meshes pod16x16 beside them,
+    # each a device's share (rank 0 of the abstract mesh).
+    for flag, tags in (("--multi-pod", {"pod2x16x16"}), ("--both-meshes", {"pod16x16", "pod2x16x16"})):
+        out = tmp_path / flag.strip("-")
         with pytest.raises(SystemExit) as e:
-            D.main(["--arch", "internlm2-1.8b", flag])
-        assert e.value.code == 2
-        assert "one card" in capsys.readouterr().err
+            D.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k", flag, "--out", str(out)])
+        assert e.value.code == 0
+        recs = [json.loads(p.read_text()) for p in sorted(out.iterdir())]
+        assert {r["mesh"] for r in recs} == tags
+        for r in recs:
+            assert r["ok"] and r["n_chips"] == (512 if r["mesh"] == "pod2x16x16" else 256)
+            assert r["hlo_cost"]["collective_bytes"] > 0
+        assert "pod2x16x16" in capsys.readouterr().out
 
 
 def test_cli_writes_records_and_roofline_formats(tmp_path, capsys):
