@@ -236,12 +236,13 @@ Phases (any failed check exits non-zero and prints no result line):
  24. the multi-card half on one card: 4 spawned ranks (``launch.mesh
      .spawn_ranks``) share the card over ``gloo`` as a (data=2, model=2)
      mesh (NCCL refuses two ranks on one device; the collectives stage
-     through host memory) and run full-width internlm2-1.8b, FSDP over
-     ``data`` and tensor parallelism over ``model``: (a) 3 training steps
+     through host memory) and run internlm2-1.8b at full width and 12 of
+     its 24 layers (``SPMD_LAYERS``), FSDP over ``data`` and tensor
+     parallelism over ``model``: (a) 3 training steps
      of phase 16's 8 x 512 tokens through ``launch/train.py``'s trainer
      from seed 0, losses within ``SPMD_LOSS_RTOL`` and grad norms within
      ``SPMD_NORM_RTOL`` of the one-card trainer's on the same seed and
-     batches (run here first), 675 ``gemm_cuda`` a step a rank at the
+     batches (run here first), 339 ``gemm_cuda`` a step a rank at the
      local shapes and no other kernel, each rank's collective bytes a step
      by kind equal to the dry-run's count for the cell at (2,2); (b)
      ``reshard`` to (data=4, model=1) and one more step, held the same
@@ -249,7 +250,7 @@ Phases (any failed check exits non-zero and prints no result line):
      4,096-token cache split over ``model`` (random bf16 K/V built one
      layer at a time from a seed), logits within ``LOGIT_TOL`` of the
      one-card step, and a prefill of 12 x 512 tokens on the ranks' local
-     heads (24 ``flash_attention_cuda`` a rank), its last positions'
+     heads (12 ``flash_attention_cuda`` a rank), its last positions'
      logits within ``LOGIT_TOL`` of the one-card forward's; rank 0's
      ``gemm_cuda`` at a local shape and ``flash_attention_cuda`` at the
      prefill's local shape (6 rows x 512, 8 query and 4 KV heads) against
@@ -257,6 +258,37 @@ Phases (any failed check exits non-zero and prints no result line):
      ``FLASH_ROW_TOL``).  Per-rank
      peak GB beside the dry-run's bytes and step wall ms are printed: the
      ranks share one card, so these are not a multi-card step time.
+ 25. the MoE, Mamba2, hybrid and enc-dec families on the same 4 ranks at
+     (data=2, model=2), one ``spawn_ranks`` running them in turn at full
+     width, depth cut for time (``P25_FAMILIES``): qwen2-moe-a2.7b at 1 of
+     24 layers, mamba2-1.3b at 4 of 48, zamba2-2.7b at 6 of 54 (2
+     training steps each through ``launch/train.py``'s trainer, against
+     one card's trainer at the same cut, seed and batches, run here; the
+     Mamba2 families' second step starts on the ranks from one card's
+     state after the first), whisper-small whole (2 gradient steps
+     through ``trainer.sharded_train_step``, phase 19's first two), each
+     with a decode step of 12 rows and a prefill (whisper: its encoder +
+     decoder forward);
+     mamba2-1.3b also a decode step at a batch of 1, its 64 SSM heads split
+     over (data, model), 16 a rank; mixtral-8x7b at 2 of 32 layers, two
+     ring decode steps at a batch of 1 at positions 6,000 and 6,001 of its
+     4,096-token ring split over (data, model), 1,024 slots a rank, and
+     one at 12 rows.  Held per family: every step's loss within
+     ``SPMD_LOSS_RTOL`` and grad norm within ``SPMD_NORM_RTOL`` of one
+     card's, gathered logits within ``LOGIT_TOL`` of one card's (the MoE
+     routing of one card forced on the ranks: a near tie breaks alike),
+     each rank's ``gemm_cuda`` and ``flash_attention_cuda`` launches equal
+     to one card's, each rank's collective bytes by kind equal to the
+     dry-run's for the same cell, each rank's training (mixtral: ring)
+     step peak within ``P25_MEM_RTOL`` of the dry-run's bytes, and rank
+     0's ``gemm_cuda`` and ``flash_attention_cuda`` at a rank-local shape
+     of the family against their plain versions.  The serving steps'
+     peaks, the bytes allocated at their start and their requested
+     growth are printed beside the dry-run's bytes and arguments (not
+     held: the dry-run counts the plain GEMM backend and only the
+     arguments a step reads).  ``python3 chip_smoke.py --phase25``
+     runs phase 0 and this phase alone (whisper's one-card steps then run
+     here too); ``--phase24`` phase 0 and phase 24 alone.
  Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
  of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
@@ -265,7 +297,7 @@ engines and the kernel step of phases 11 and 12, the paths of phases
 13-15, the training runs and little-tree steps of phases 16-17, the
 training runs of phase 18, the steps of phase 19, the paths and steps
 of phases 20-21, the lanes of phase 22 and each rank's steps and paths of
-phase 24 resets the kernels' launch counters just before it and
+phases 24 and 25 resets the kernels' launch counters just before it and
 reads them just after; the launches of phases 1, 5, 6, 10 and the
 comparisons of phases 7, 8, 11, 12, 13-15 and 20 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
@@ -276,6 +308,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -4415,6 +4448,10 @@ def phase23(torch, fwd: dict, long_step: dict, train: dict) -> dict:
 # (data, model) of the training and decode mesh, and of the reshard's.
 SPMD_MESH, SPMD_RESHARD = (2, 2), (4, 1)
 SPMD_STEPS = 3
+# internlm2-1.8b at full width, 12 of its 24 layers: depth cut for the
+# script's time limit when phase 25 came (the whole depth took 148-174 s
+# on an NVIDIA H100 80GB HBM3 at 700 W, most of it gloo moving the state).
+SPMD_LAYERS = 12
 # Against the one-card trainer on the same seed and batches, as the CPU
 # tests hold the port to the reference (tests/test_torch_train.py).
 SPMD_LOSS_RTOL, SPMD_NORM_RTOL = 1e-2, 3e-2
@@ -4422,6 +4459,14 @@ SPMD_LOSS_RTOL, SPMD_NORM_RTOL = 1e-2, 3e-2
 # a 4,096-token cache; 12 x 512 prompt tokens, the last SPMD_LAST logits.
 SPMD_ROWS, SPMD_CACHE, SPMD_PREFILL, SPMD_LAST = 12, 4096, 512, 4
 SPMD_TIMEOUT_S = 900
+
+
+def spmd_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(ARCH), n_layers=SPMD_LAYERS)
 
 
 def spmd_train_args(steps: int):
@@ -4467,7 +4512,6 @@ def phase24_rank(rank: int, plan: dict) -> dict:
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import execution as X
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed import sharding as SH
@@ -4482,7 +4526,7 @@ def phase24_rank(rank: int, plan: dict) -> dict:
     out: dict = {"rank": rank}
     mesh = make_host_mesh(data=SPMD_MESH[0], model=SPMD_MESH[1], device="cuda")
     t0 = time.perf_counter()
-    trainer = TL.make_trainer(spmd_train_args(SPMD_STEPS + 1), mesh=mesh)
+    trainer = TL.make_trainer(spmd_train_args(SPMD_STEPS + 1), cfg=spmd_config(), mesh=mesh)
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     out["backend"] = mesh.transport
@@ -4519,7 +4563,7 @@ def phase24_rank(rank: int, plan: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     # (c): serving params (bf16, no FSDP) drawn leaf by leaf from phase 8's seed.
-    cfg = get_config(ARCH)
+    cfg = spmd_config()
     mesh = make_host_mesh(data=SPMD_MESH[0], model=SPMD_MESH[1], device="cuda")
     specs = Z.param_specs(cfg, mesh, fsdp=False)
     params = spmd.init_sharded(lambda g, d: Z.init_params(cfg, g, d),
@@ -4587,16 +4631,16 @@ def phase24(torch, counts, reset) -> dict:
     """The multi-card half on one card: the one-card references, the
     dry-run's counts, then 4 ranks (``phase24_rank``) and their checks."""
 
-    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.configs import ShapeSpec
     from repro_torch.launch import dryrun as D
     from repro_torch.launch import train as TL
     from repro_torch.launch.mesh import RankMesh, spawn_ranks
     from repro_torch.models import model_zoo as Z
 
     t_phase = time.perf_counter()
-    cfg = get_config(ARCH)
+    cfg = spmd_config()
     # The one-card trainer on the same seed and batches.
-    trainer = TL.make_trainer(spmd_train_args(SPMD_STEPS + 1))
+    trainer = TL.make_trainer(spmd_train_args(SPMD_STEPS + 1), cfg=spmd_config())
     one = []
     for i in range(SPMD_STEPS + 1):
         batch, _ = trainer.next_batch(i)
@@ -4716,6 +4760,633 @@ def phase24(torch, counts, reset) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the MoE, Mamba2, hybrid and enc-dec families on the mesh of ranks
+# ---------------------------------------------------------------------------
+
+# The families in the order the ranks run them: (arch, layers kept, the
+# AdamW schedule's steps (its one-card phase's) or None for no training,
+# whether each training step after the first starts on the ranks from one
+# card's state after the step before).  Depth is cut for the script's time
+# limit, never width: qwen2-moe-a2.7b 1 of 24 layers, mamba2-1.3b 4 of 48,
+# zamba2-2.7b 6 of 54 (one group and its shared block), mixtral-8x7b 2 of
+# 32 (about 6 GB of bf16); whisper-small runs whole and repeats phase 19's
+# first steps.  The Mamba2 families restart each later step from one
+# card's state: AdamW's first update is lr * sign(g), and a gradient entry
+# whose sign its last bits decide moves by 2 lr, so two free-running
+# copies part by 2-4% in their second step's grad norm (on an NVIDIA H100
+# 80GB HBM3 at 700 W); restarted, the step measures the sharding alone.
+# qwen2-moe's state (about 14 GB) would take longer to pass than the step.
+P25_FAMILIES = (
+    (MOE_ARCH, 1, MOE_TRAIN_STEPS, False),
+    (SSM_ARCH, 4, FAMILY_TRAIN_STEPS, True),
+    (HYBRID_ARCH, 6, FAMILY_TRAIN_STEPS, True),
+    (ENCDEC_ARCH, None, FAMILY_TRAIN_STEPS, False),
+    (RING_ARCH, 2, None, False),
+)
+P25_STEPS = 2
+# The ring decode at a batch of 1: positions P25_RING_POS, +1 of a
+# 4,096-token ring whose slots split over (data, model), 1,024 a rank.
+P25_RING_POS, P25_RING_STEPS = 6000, 2
+# A rank's peak against the dry-run's bytes for its cell.
+P25_MEM_RTOL = 0.05
+P25_TIMEOUT_S = 900
+
+
+def p25_config(arch: str, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def p25_fill(torch, cfg, state, rows: int, seq_len: int, mesh, seed: int):
+    """Every decode-state leaf drawn whole, layer by layer, from one seed and
+    cut to this rank's part (the state's ``cache_pspec``): the same numbers
+    on one card and on the mesh."""
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model_zoo as Z
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    specs = Z.decode_state_specs(cfg, mesh, rows, seq_len) if mesh is not None else None
+    whole = Z.decode_state_spec(cfg, rows, seq_len)
+
+    def walk(node, full, spec):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], full[k], spec[k] if spec is not None else None)
+            return
+        for i in range(node.shape[0]):
+            t = torch.randn(tuple(full.shape[1:]), generator=gen, device="cuda",
+                            dtype=torch.float32).to(node.dtype)
+            node[i].copy_(t if spec is None else SH.local_slice(t[None], spec, mesh)[0])
+            del t
+
+    walk(state, whole, specs)
+    return state
+
+
+def p25_inputs(torch, cfg, mesh=None):
+    """The serving inputs of a family (decode tokens at 12 rows, the
+    prefill's tokens, whisper's frames), all from seeds; on a mesh this
+    rank's rows."""
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import score as SC
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {"toks": torch.randint(0, cfg.vocab, (SPMD_ROWS, 1), generator=gen, device="cuda",
+                                 dtype=torch.int32)}
+    if cfg.family == "encdec":
+        out["fwd"] = SC.make_batch(cfg, ENCDEC_TRAIN_BATCH, DEC_CTX, 1, "cuda")[0]
+    elif cfg.swa_window is None:
+        out["fwd"] = {"tokens": torch.randint(0, cfg.vocab, (SPMD_ROWS, SPMD_PREFILL), generator=gen,
+                                              device="cuda", dtype=torch.int32)}
+    else:
+        out["one"] = torch.randint(0, cfg.vocab, (1, P25_RING_STEPS), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+    if cfg.family == "ssm":  # a batch of 1: the state's heads over (data, model)
+        out["one"] = torch.randint(0, cfg.vocab, (1, 1), generator=gen, device="cuda", dtype=torch.int32)
+    if mesh is not None:
+        out["toks"] = SH.local_slice(out["toks"], SH.batch_pspec(mesh, SPMD_ROWS), mesh)
+        if "fwd" in out:
+            b = next(iter(out["fwd"].values())).shape[0]
+            out["fwd"] = {k: SH.local_slice(v, SH.batch_pspec(mesh, b), mesh)
+                          for k, v in out["fwd"].items()}
+    return out
+
+
+def p25_cache(cfg) -> int:
+    """The decode cell's sequence: phase 24's 4,096-token cache (a ring of
+    the window for mixtral, whisper's 448-token decoder context)."""
+
+    if cfg.family == "encdec":
+        return DEC_CTX
+    return P25_RING_POS + P25_RING_STEPS if cfg.swa_window else SPMD_CACHE
+
+
+@contextlib.contextmanager
+def p25_routing(torch, ids=None, mesh=None):
+    """``moe.route`` recording its top-k ids (``ids`` None) or, given a
+    list, taking them in call order, each over the whole batch's routing
+    groups (a rank routing its own groups takes its block): one card's
+    routing forced on the ranks, so that a near tie breaks alike."""
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import moe as M
+
+    real, got, calls = M.route, [], [0]
+
+    def route(p, x, mcfg):
+        gate_w, idx, probs = real(p, x, mcfg)
+        if ids is None:
+            got.append(idx.cpu())
+            return gate_w, idx, probs
+        idx = ids[calls[0]].to(x.device)
+        calls[0] += 1
+        g = x.shape[0]
+        if idx.shape[0] != g:
+            i = mesh.index(SH.dp_axes(mesh))
+            idx = idx[i * g:(i + 1) * g]
+        gw = probs.gather(-1, idx)
+        return gw / torch.clamp(gw.sum(-1, keepdim=True), min=1e-9), idx, probs
+
+    M.route = route
+    try:
+        yield got
+    finally:
+        M.route = real
+
+
+def p25_serve(torch, cfg, params, mesh, ids, counts=None, reset=None):
+    """A family's decode step(s) at 12 rows (mixtral: two ring steps at a
+    batch of 1 past the window, then one at 12 rows) and its prefill
+    (whisper: the encoder + decoder forward), on one card or as a rank's
+    part (``mesh``), the MoE routing forced to ``ids`` when given.  Returns
+    each item's logits (whole on rank 0 of a mesh), launches, collective
+    bytes, wall and peak, and the routing taken."""
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import model_zoo as Z
+
+    inp = p25_inputs(torch, cfg, mesh)
+    seq_len = p25_cache(cfg)
+    items = []
+    if cfg.swa_window:
+        items.append(("ring1", 1, inp["one"], None))
+    elif "one" in inp:
+        items.append(("one", 1, inp["one"], None))
+    items.append(("decode", SPMD_ROWS, inp["toks"], None))
+    if "fwd" in inp:
+        items.append(("prefill", None, None, inp["fwd"]))
+    out, routes, seen = {}, [], {}
+    it = iter(ids or ())
+
+    def note(kind, nbytes):
+        seen[kind] = seen.get(kind, 0) + nbytes
+
+    for name, rows, toks, fwd in items:
+        with p25_routing(torch, next(it, None) if ids else None, mesh) as got:
+            if fwd is not None:
+                serve_fn = Z.make_prefill_fn(cfg, mesh=mesh)
+                args = [(params, fwd)]
+                b = next(iter(fwd.values())).shape[0] * (1 if mesh is None else mesh.size(("data",)))
+            else:
+                state = p25_fill(torch, cfg, Z.init_decode_state(cfg, rows, seq_len, device="cuda",
+                                                                 mesh=mesh),
+                                 rows, seq_len, mesh, seed=3)
+                serve_fn = Z.make_decode_fn(cfg, mesh=mesh, batch=rows, seq_len=seq_len)
+                b = rows
+                # This rank's part of dim 2: a KV cache's slots, an SSM state's heads.
+                dim2 = (state["mamba"]["ssm"] if "mamba" in state else state["k"]).shape[2]
+                if name == "ring1":
+                    args = [(params, {"tokens": toks[:, j:j + 1]}, state,
+                             torch.full((1,), P25_RING_POS + j, dtype=torch.int32, device="cuda"))
+                            for j in range(P25_RING_STEPS)]
+                else:
+                    pos = P25_RING_POS if cfg.swa_window else seq_len - 1
+                    args = [(params, {"tokens": toks}, state,
+                             torch.full((toks.shape[0],), pos, dtype=torch.int32, device="cuda"))]
+            logits, launches, coll, walls, peaks, bases = None, [], [], [], [], []
+            with torch.no_grad():
+                for a in args:
+                    seen.clear()
+                    C.COLLECTIVE_OBSERVERS.append(note)
+                    torch.cuda.synchronize()
+                    if reset is not None:
+                        reset()
+                    torch.cuda.reset_peak_memory_stats()
+                    bases.append((torch.cuda.memory_allocated(),
+                                  torch.cuda.memory_stats().get("requested_bytes.all.current", 0)))
+                    t = time.perf_counter()
+                    res = serve_fn(*a)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t)
+                    peaks.append((torch.cuda.max_memory_allocated(),
+                                  torch.cuda.memory_stats().get("requested_bytes.all.peak", 0)))
+                    C.COLLECTIVE_OBSERVERS.remove(note)
+                    if counts is not None:
+                        c1 = counts()
+                        launches.append({k: c1[k] for k in ("gemm_cuda", "flash_attention_cuda")})
+                    coll.append(dict(seen))
+                    lg = res[0] if isinstance(res, tuple) else res
+                    if fwd is not None:
+                        lg = lg[:, -SPMD_LAST:].contiguous()
+                    logits = lg if logits is None else torch.cat([logits, lg], 1)
+                if mesh is not None:
+                    logits = Z.gather_logits(logits, cfg, mesh, b)
+            if fwd is None:
+                del state
+        routes.append(got)
+        out[name] = {"logits": logits.float().cpu(), "launches": launches, "collective_bytes": coll,
+                     "wall_s": walls, "peak_bytes": peaks, "base_bytes": bases,
+                     "dim2": None if fwd is not None else dim2}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, routes
+
+
+def p25_local_kernels(torch, cfg) -> dict:
+    """Rank 0's ``gemm_cuda`` at one rank-local shape of the family (its
+    attention's q projection, or mamba2's head: this rank's columns of the
+    whole) and ``flash_attention_cuda`` at its prefill's local heads,
+    against their plain versions."""
+
+    from repro_torch.core import execution as X
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+
+    m = SPMD_MESH[1]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n = cfg.n_heads * cfg.head_dim // m if cfg.n_heads else cfg.vocab // m
+    a = torch.randn((TRAIN_BATCH * TRAIN_SEQ // SPMD_MESH[0], cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    b = (torch.randn((cfg.d_model, n), generator=gen, device="cuda") / math.sqrt(cfg.d_model)).bfloat16()
+    blk = X.default_context().block_config(a.shape[0], a.shape[1], b.shape[1], "bfloat16", 2)
+    got, ref = G.gemm_cuda(a, b, blk), G.gemm_plain(a, b, blk)
+    ok, err = within(torch, got, ref, BF16_TOL)
+    out = {"gemm": {"shape": [a.shape[0], a.shape[1], b.shape[1]], "ok": ok, "max_abs_err": err}}
+    if cfg.n_heads and cfg.swa_window is None:
+        rows = (ENCDEC_TRAIN_BATCH if cfg.family == "encdec" else SPMD_ROWS) // SPMD_MESH[0]
+        s = DEC_CTX if cfg.family == "encdec" else SPMD_PREFILL
+        q = torch.randn((rows, s, cfg.n_heads // m, cfg.head_dim), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((rows, s, cfg.n_kv_heads // m, cfg.head_dim), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        got, ref = FA.flash_attention_cuda(q, k, v, causal=True), FA.flash_attention_torch(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ok, err = within(torch, got, ref, BF16_TOL)
+        row = row_rel_err(got, ref)
+        out["flash"] = {"shape": [rows, s, s, q.shape[2], k.shape[2], cfg.head_dim],
+                        "ok": ok and row <= FLASH_ROW_TOL, "max_abs_err": err, "row_err": row}
+    return out
+
+
+def p25_train(torch, cfg, total_steps: int, mesh=None, counts=None, reset=None, state_path=None,
+              save=False) -> list:
+    """``P25_STEPS`` training steps of the family from seed 0, the one-card
+    phase's AdamW schedule (``total_steps``): the trainer of
+    ``launch/train.py`` (8 x 512 tokens), or whisper's gradient step (phase
+    19's batch, ``make_loss_fn`` and AdamW; on a mesh
+    ``trainer.sharded_train_step``).  With ``state_path`` (a trainer's
+    family) one card writes its params and AdamW state after each step
+    but the last there (``save``), and the ranks start each step after the
+    first from it, cut to their shards.  Each step's loss, grad norm,
+    wall, launches, collective bytes and peak bytes."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import spmd
+    from repro_torch.launch import score as SC
+    from repro_torch.launch import train as TL
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw as O
+    from repro_torch.runtime.trainer import sharded_train_step
+
+    seen: dict = {}
+
+    def note(kind, nbytes):
+        seen[kind] = seen.get(kind, 0) + nbytes
+
+    if cfg.family == "encdec":
+        ctx = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        init = lambda g, d: Z.init_params(cfg, g, d, dtype=torch.float32)  # noqa: E731
+        opt_cfg = O.AdamWConfig(total_steps=total_steps)
+        batch, labels = SC.make_batch(cfg, ENCDEC_TRAIN_BATCH, DEC_CTX, 0, "cuda")
+        batch["labels"] = labels
+        if mesh is None:
+            params = O.tree_map(lambda p: p.requires_grad_(True), init(gen, "cuda"))
+            loss_fn = Z.make_loss_fn(cfg)
+        else:
+            loss_fn = Z.make_loss_fn(cfg, mesh=mesh)
+            params = O.tree_map(lambda p: p.requires_grad_(True),
+                                spmd.init_sharded(init, gen, loss_fn.layout.specs, mesh))
+            rows = SH.batch_pspec(mesh, ENCDEC_TRAIN_BATCH)
+            batch = {k: SH.local_slice(v, rows, mesh) for k, v in batch.items()}
+        st = types.SimpleNamespace(params=params, opt=O.init_opt_state(params))
+        del params
+
+        def step(_):
+            with ctx:
+                if mesh is not None:
+                    st.params, st.opt, m = sharded_train_step(loss_fn, st.params, st.opt, batch, opt_cfg,
+                                                              loss_fn.layout)
+                    return m
+                loss, _, grads = O.value_and_grad(loss_fn, st.params, batch)
+                st.params, st.opt, om = O.adamw_update(st.params, grads, st.opt, opt_cfg)
+                return {"loss": loss, "grad_norm": om["grad_norm"]}
+        holder = st
+    else:
+        args = TL.build_parser().parse_args([
+            "--arch", cfg.name, "--steps", str(total_steps), "--global-batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt-every", "100", "--seed", "0"])
+        holder = TL.make_trainer(args, cfg=cfg, mesh=mesh)
+
+        def step(i):
+            m = holder.train_step(holder.next_batch(i)[0])
+            holder.step += 1
+            return m
+
+        def restart(i):
+            """The ranks' state for step ``i``: one card's after step ``i - 1``."""
+
+            with torch.no_grad():
+                st = torch.load(f"{state_path}.{i}.pt", map_location="cpu", mmap=True, weights_only=True)
+                specs = holder.layout.specs
+                holder.params = spmd.shard_tree(st["params"], specs, mesh, device="cuda", requires_grad=True)
+                holder.opt_state = {"m": spmd.shard_tree(st["opt"]["m"], specs, mesh, device="cuda"),
+                                    "v": spmd.shard_tree(st["opt"]["v"], specs, mesh, device="cuda"),
+                                    "step": st["opt"]["step"].to("cuda")}
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        def keep(i):
+            """One card's state after step ``i``, for the ranks' step ``i + 1``."""
+
+            cpu = lambda t: t.detach().cpu()  # noqa: E731
+            torch.save({"params": O.tree_map(cpu, holder.params),
+                        "opt": {"m": O.tree_map(cpu, holder.opt_state["m"]),
+                                "v": O.tree_map(cpu, holder.opt_state["v"]),
+                                "step": cpu(holder.opt_state["step"])}},
+                       f"{state_path}.{i + 1}.pt")
+
+    rec = []
+    for i in range(P25_STEPS):
+        if state_path and mesh is not None and i > 0:
+            restart(i)
+        seen.clear()
+        C.COLLECTIVE_OBSERVERS.append(note)
+        torch.cuda.synchronize()
+        if reset is not None:
+            reset()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        m = step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        C.COLLECTIVE_OBSERVERS.remove(note)
+        r = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "wall_s": wall,
+             "collective_bytes": dict(seen), "peak_bytes": torch.cuda.max_memory_allocated()}
+        if counts is not None:
+            c1 = counts()
+            r["launches"] = {k: c1[k] for k in ("gemm_cuda", "flash_attention_cuda")}
+        rec.append(r)
+        if save and i + 1 < P25_STEPS:
+            keep(i)
+    del holder, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase25_rank(rank: int, plan: dict) -> dict:
+    """One rank of phase 25 (a spawned process, the card shared): each
+    family in turn, its training steps, then its serving steps (the MoE
+    routing forced to one card's), every count read around its own step."""
+
+    import torch
+
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as Z
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def counts():
+        return {**G.LAUNCHES, **FA.LAUNCHES}
+
+    def reset():
+        G.reset_launches()
+        FA.reset_launches()
+
+    mesh = make_host_mesh(data=SPMD_MESH[0], model=SPMD_MESH[1], device="cuda")
+    out = {"rank": rank, "backend": mesh.transport, "families": {}}
+    for arch, layers, total, replay in P25_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = p25_config(arch, layers)
+        fam: dict = {}
+        if total:
+            fam["train"] = p25_train(torch, cfg, total, mesh, counts, reset,
+                                     state_path=plan["states"].get(arch))
+        params = spmd.init_sharded(lambda g, d: Z.init_params(cfg, g, d),
+                                   torch.Generator(device="cuda").manual_seed(0),
+                                   Z.param_specs(cfg, mesh, fsdp=False), mesh)
+        fam["serve"], _ = p25_serve(torch, cfg, params, mesh, plan["routes"].get(arch), counts, reset)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            fam["local"] = p25_local_kernels(torch, cfg)
+        else:
+            for item in fam["serve"].values():
+                item.pop("logits")
+        fam["wall_s"] = time.perf_counter() - t0
+        out["families"][arch] = fam
+    return out
+
+
+def phase25(torch, counts, reset, one_card_train: dict) -> dict:
+    """The other families on the mesh of ranks: one card's references (its
+    training steps at the families' cuts and its serving steps here;
+    ``one_card_train`` gives those an earlier phase ran: whisper's), the
+    dry-run's counts at the same cells, then 4 ranks (``phase25_rank``)
+    and their checks."""
+
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import RankMesh, spawn_ranks
+    from repro_torch.models import model_zoo as Z
+
+    t_phase = time.perf_counter()
+    one: dict = {}
+    routes: dict = {}
+    # One card's state after each step but the last, for the ranks to restart from.
+    state_dir = tempfile.mkdtemp(prefix="repro_torch_p25_")
+    states = {arch: os.path.join(state_dir, arch) for arch, _, total, replay in P25_FAMILIES
+              if total and replay}
+    for arch, layers, total, replay in P25_FAMILIES:
+        cfg = p25_config(arch, layers)
+        # Heads and widths split 2 ways (the prefill's local heads, the SSM heads).
+        m = SPMD_MESH[1]
+        heads = [cfg.n_heads, cfg.n_kv_heads] if cfg.n_heads else []
+        if cfg.ssm is not None:
+            heads.append(cfg.ssm.d_inner // cfg.ssm.headdim)
+        check(all(h % m == 0 for h in heads), f"{arch}'s heads {heads} do not split {m} ways")
+        one[arch] = {"train": one_card_train.get(arch)}
+        if total and one[arch]["train"] is None:
+            one[arch]["train"] = p25_train(torch, cfg, total, None, counts, reset,
+                                           state_path=states.get(arch), save=arch in states)
+        params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        serve, got = p25_serve(torch, cfg, params, None, None, counts, reset)
+        one[arch]["serve"] = serve
+        if cfg.family == "moe":
+            routes[arch] = got
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_one = time.perf_counter() - t_phase
+
+    # The dry-run's counts for the same cells on the abstract (2, 2) mesh.
+    t0 = time.perf_counter()
+    amesh = RankMesh.abstract(("data", "model"), SPMD_MESH)
+    dry: dict = {}
+    for arch, layers, total, _ in P25_FAMILIES:
+        cfg = p25_config(arch, layers)
+        seq_len = p25_cache(cfg)
+        cells = {"decode": (ShapeSpec("p25_decode", seq_len, SPMD_ROWS, "decode"), None)}
+        if cfg.swa_window:
+            cells["ring1"] = (ShapeSpec("p25_ring1", seq_len, 1, "decode"), None)
+        elif cfg.family == "ssm":
+            cells["one"] = (ShapeSpec("p25_one", seq_len, 1, "decode"), None)
+        if cfg.family == "encdec":
+            mt = lambda *s, dt=torch.bfloat16: torch.zeros(s, dtype=dt, device="meta")  # noqa: E731
+            fr = mt(ENCDEC_TRAIN_BATCH, cfg.enc_frames, cfg.d_model)
+            tok = mt(ENCDEC_TRAIN_BATCH, DEC_CTX, dt=torch.int32)
+            cells["train"] = (ShapeSpec("p25_train", DEC_CTX, ENCDEC_TRAIN_BATCH, "train"),
+                              {"frames": fr, "tokens": tok, "labels": tok})
+            cells["prefill"] = (ShapeSpec("p25_prefill", DEC_CTX, ENCDEC_TRAIN_BATCH, "prefill"),
+                                {"frames": fr, "tokens": tok})
+        elif cfg.swa_window is None:
+            cells["prefill"] = (ShapeSpec("p25_prefill", SPMD_PREFILL, SPMD_ROWS, "prefill"), None)
+            if total:
+                cells["train"] = (ShapeSpec("p25_train", TRAIN_SEQ, TRAIN_BATCH, "train"), None)
+        dry[arch] = {}
+        for name, (shape, batch) in cells.items():
+            rec = D.run_cell(cfg, shape, mesh=amesh, seq_shard=False, write=False, batch=batch)
+            check(rec["ok"], f"dry-run {arch} {name}: {rec.get('error')}")
+            dry[arch][name] = rec
+    t_dry = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(phase25_rank, SPMD_MESH[0] * SPMD_MESH[1], {"routes": routes, "states": states},
+                            device="cuda", timeout=P25_TIMEOUT_S)
+    finally:
+        shutil.rmtree(state_dir, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    out: dict = {"mesh": list(SPMD_MESH), "backend": r0["backend"], "families": {}, "one_card_s": t_one,
+                 "dry_run_s": t_dry, "ranks_s": ranks_s,
+                 "launches": {"gemm_cuda": 0, "flash_attention_cuda": 0}}
+    for arch, layers, total, replay in P25_FAMILIES:
+        cfg = p25_config(arch, layers)
+        fams = [r["families"][arch] for r in ranks]
+        f0, ref, drec = fams[0], one[arch], dry[arch]
+        res: dict = {"layers": cfg.n_layers, "wall_s": [f["wall_s"] for f in fams]}
+        if total:
+            for i, (o, st) in enumerate(zip(ref["train"], f0["train"])):
+                check(abs(st["loss"] - o["loss"]) <= SPMD_LOSS_RTOL * abs(o["loss"]),
+                      f"{arch} step {i} loss {st['loss']} vs one card {o['loss']}")
+                check(abs(st["grad_norm"] - o["grad_norm"]) <= SPMD_NORM_RTOL * abs(o["grad_norm"]),
+                      f"{arch} step {i} grad_norm {st['grad_norm']} vs one card {o['grad_norm']}")
+            want = ref["train"][0]["launches"]
+            total_bytes = drec["train"]["memory"]["total_bytes"]
+            for f in fams:
+                for i, st in enumerate(f["train"]):
+                    check(st["launches"]["gemm_cuda"] == want["gemm_cuda"]
+                          and st["launches"]["flash_attention_cuda"] == want.get("flash_attention_cuda", 0),
+                          f"{arch} step {i} launches {st['launches']} vs one card {want}")
+                    check(st["collective_bytes"] == drec["train"]["hlo_cost"]["by_collective"],
+                          f"{arch} step {i} collective bytes {st['collective_bytes']} != dry-run "
+                          f"{drec['train']['hlo_cost']['by_collective']}")
+                    check(abs(st["peak_bytes"] - total_bytes) <= P25_MEM_RTOL * total_bytes,
+                          f"{arch} step {i} peak {st['peak_bytes'] / 1e9:.3f} GB vs dry-run "
+                          f"{total_bytes / 1e9:.3f} GB")
+                    out["launches"]["gemm_cuda"] += st["launches"]["gemm_cuda"]
+            res.update(losses=[st["loss"] for st in f0["train"]], one_losses=[o["loss"] for o in ref["train"]],
+                       grad_norms=[st["grad_norm"] for st in f0["train"]],
+                       one_grad_norms=[o["grad_norm"] for o in ref["train"]],
+                       restarted=replay,
+                       step_wall_s=[[st["wall_s"] for st in f["train"]] for f in fams],
+                       step_peak_gb=[[st["peak_bytes"] / 1e9 for st in f["train"]] for f in fams],
+                       dry_train_gb=total_bytes / 1e9,
+                       train_collective_bytes=f0["train"][0]["collective_bytes"],
+                       train_launches=f0["train"][0]["launches"])
+        for name, item in f0["serve"].items():
+            want = ref["serve"][name]
+            diff = float((item["logits"] - want["logits"]).abs().max())
+            check(tuple(item["logits"].shape) == tuple(want["logits"].shape),
+                  f"{arch} {name} logits {tuple(item['logits'].shape)} vs {tuple(want['logits'].shape)}")
+            check(bool(torch.isfinite(item["logits"]).all()), f"{arch} {name} logits not finite")
+            check(diff <= LOGIT_TOL, f"{arch} {name} logits differ from one card's by {diff} (tol {LOGIT_TOL})")
+            for f in fams:
+                got = f["serve"][name]
+                for j, lc in enumerate(got["launches"]):
+                    one_lc = want["launches"][j]
+                    check(lc == one_lc, f"{arch} {name} launches {lc} vs one card {one_lc}")
+                    check(got["collective_bytes"][j] == drec[name]["hlo_cost"]["by_collective"],
+                          f"{arch} {name} collective bytes {got['collective_bytes'][j]} != dry-run "
+                          f"{drec[name]['hlo_cost']['by_collective']}")
+                    out["launches"]["gemm_cuda"] += lc["gemm_cuda"]
+                    out["launches"]["flash_attention_cuda"] += lc["flash_attention_cuda"]
+            res[name] = {"logit_diff": diff,
+                         "launches": item["launches"][0],
+                         "collective_bytes": item["collective_bytes"][0],
+                         "wall_ms": [[round(w * 1e3, 1) for w in f["serve"][name]["wall_s"]] for f in fams],
+                         "peak_gb": [max(p[0] for p in f["serve"][name]["peak_bytes"]) / 1e9 for f in fams],
+                         "base_gb": [max(p[0] for p in f["serve"][name]["base_bytes"]) / 1e9 for f in fams],
+                         "req_growth_gb": [max(p[1] - b[1] for p, b in zip(f["serve"][name]["peak_bytes"],
+                                                                          f["serve"][name]["base_bytes"])) / 1e9
+                                           for f in fams],
+                         "dry_gb": drec[name]["memory"]["total_bytes"] / 1e9,
+                         "dry_arg_gb": drec[name]["memory"]["argument_bytes"] / 1e9}
+        # A batch of 1 splits mixtral's ring (4,096 slots) and mamba2's 64
+        # SSM heads over (data, model): a quarter a rank.
+        for name in ("ring1", "one"):
+            if name in f0["serve"]:
+                whole = ref["serve"][name]["dim2"]
+                check(all(f["serve"][name]["dim2"] * SPMD_MESH[0] * SPMD_MESH[1] == whole for f in fams),
+                      f"{arch} {name}: a rank holds {f0['serve'][name]['dim2']} of {whole}")
+                res[name + "_per_rank"] = [f0["serve"][name]["dim2"], whole]
+        if not total:  # mixtral: the ring step's peak against its dry-run cell
+            for f in fams:
+                peak = max(p[0] for p in f["serve"]["ring1"]["peak_bytes"])
+                want_b = drec["ring1"]["memory"]["total_bytes"]
+                check(abs(peak - want_b) <= P25_MEM_RTOL * want_b,
+                      f"{arch} ring step peak {peak / 1e9:.3f} GB vs dry-run {want_b / 1e9:.3f} GB")
+        loc = f0["local"]
+        check(loc["gemm"]["ok"], f"{arch}: gemm_cuda at a rank-local shape: {loc['gemm']}")
+        if "flash" in loc:
+            check(loc["flash"]["ok"], f"{arch}: flash_attention_cuda at a rank-local shape: {loc['flash']}")
+        res["local"] = loc
+        out["families"][arch] = res
+        line = f"  {arch} ({cfg.n_layers} layers):"
+        if total:
+            line += (f" losses {[round(x, 5) for x in res['losses']]} vs one card "
+                     f"{[round(x, 5) for x in res['one_losses']]}; grad norms "
+                     f"{[round(x, 4) for x in res['grad_norms']]} vs {[round(x, 4) for x in res['one_grad_norms']]} "
+                     f"(restarted from one card's state: {res['restarted']}); "
+                     f"step ms {[[round(w * 1e3) for w in ws] for ws in res['step_wall_s']]}; peak GB "
+                     f"{[[round(p, 2) for p in ps] for ps in res['step_peak_gb']]} vs dry-run "
+                     f"{res['dry_train_gb']:.3f}; launches a step a rank {res['train_launches']}; "
+                     f"collective bytes {res['train_collective_bytes']} = dry-run;")
+        for name in f0["serve"]:
+            r = res[name]
+            line += (f" {name}: max |logit diff| {r['logit_diff']:.4f} (tol {LOGIT_TOL}), launches "
+                     f"{r['launches']}, bytes {r['collective_bytes']}, ms {r['wall_ms'][0]}, peak GB "
+                     f"{[round(p, 3) for p in r['peak_gb']]} from {[round(p, 3) for p in r['base_gb']]} "
+                     f"(requested growth {[round(p, 4) for p in r['req_growth_gb']]}; dry-run {r['dry_gb']:.4f}, "
+                     f"its arguments {r['dry_arg_gb']:.4f});")
+        line += f" rank 0's kernels at local shapes {loc}; ranks' wall {[round(w, 1) for w in res['wall_s']]} s"
+        print(line, flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 25 took {out['phase_s']:.1f} s (one card {t_one:.1f} s, dry-run {t_dry:.1f} s, "
+          f"the ranks {ranks_s:.1f} s)", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4738,6 +5409,29 @@ def main() -> None:
     card, detail["sass"] = phase0(torch)
     detail["card"] = card
 
+    def counts():
+        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES}
+
+    def reset():
+        G.reset_launches()
+        PA.reset_launches()
+        FA.reset_launches()
+
+    alone = sys.argv[1:]
+    if alone and set(alone) <= {"--phase24", "--phase25"}:  # these phases alone (and phase 0)
+        runs = {}
+        if "--phase24" in alone:
+            print("phase 24 alone: the multi-card half", flush=True)
+            runs["phase24"] = phase24(torch, counts, reset)
+        if "--phase25" in alone:  # whisper's one-card steps run here too
+            print("phase 25 alone: the other families on the mesh of ranks", flush=True)
+            runs["phase25"] = phase25(torch, counts, reset, {})
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_alone.json"), "w") as f:
+            json.dump(runs, f, indent=1, default=str)
+        print(json.dumps({k + "_s": v["phase_s"] for k, v in runs.items()}))
+        return
+
     print("phase 1: kernels vs plain versions (bf16 tol "
           f"{BF16_TOL}, fp32 tol {FP32_TOL})", flush=True)
     records = phase1(torch, detail)
@@ -4747,14 +5441,6 @@ def main() -> None:
     print(f"phase 1: the GEMM autograd Function's backward at the training shapes "
           f"(M = {TRAIN_BATCH} x {TRAIN_SEQ})", flush=True)
     phase1_backward(torch, detail, records)
-
-    def counts():
-        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES}
-
-    def reset():
-        G.reset_launches()
-        PA.reset_launches()
-        FA.reset_launches()
 
     base = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
             "--gen-len", str(GEN_LEN), "--seed", "0"]
@@ -4922,10 +5608,16 @@ def main() -> None:
     detail["verifier_dryrun"] = phase23(torch, fwd, detail["long_cache_step"], train)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase 24: the multi-card half, {ARCH} at full width on a (data={SPMD_MESH[0]}, "
+    print(f"phase 24: the multi-card half, {ARCH} at full width and {SPMD_LAYERS} layers on a (data={SPMD_MESH[0]}, "
           f"model={SPMD_MESH[1]}) mesh of ranks sharing the card", flush=True)
     spmd_run = phase24(torch, counts, reset)
     detail["spmd"] = spmd_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 25: the MoE, Mamba2, hybrid and enc-dec families at full width on a (data="
+          f"{SPMD_MESH[0]}, model={SPMD_MESH[1]}) mesh of ranks sharing the card", flush=True)
+    spmd_families = phase25(torch, counts, reset, {ENCDEC_ARCH: train_encdec["steps"][:P25_STEPS]})
+    detail["spmd_families"] = spmd_families
     for run in (train_moe, *train_ssm.values(), train_encdec, mixed_train):
         for name, err in run["backward_products"]["max_abs_err"].items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -5005,6 +5697,10 @@ def main() -> None:
     moe_launches["gemm_cuda"]["internlm2_spmd_train_4_ranks"] = spmd_run["launches"]["gemm_cuda"]
     moe_launches["flash_attention_cuda"]["internlm2_spmd_prefill_4_ranks"] = \
         spmd_run["launches"]["flash_attention_cuda"]
+    # Phase 25, the other families' steps on the ranks, summed over the ranks.
+    moe_launches["gemm_cuda"]["families_spmd_4_ranks"] = spmd_families["launches"]["gemm_cuda"]
+    moe_launches["flash_attention_cuda"]["families_spmd_prefill_4_ranks"] = \
+        spmd_families["launches"]["flash_attention_cuda"]
     # Phase 22, the fleet: each lane's launches read from its own run.
     for label, run in fleet["lanes"].items():
         for name in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda"):

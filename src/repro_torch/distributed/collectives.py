@@ -15,7 +15,12 @@ group, and their autograd forms:
   * :func:`reduce` — all-reduce (Megatron's ``g``, a row-parallel
     output); its backward is the identity;
   * :func:`enter` — the identity (Megatron's ``f``, a column-parallel
-    input); its backward all-reduces.
+    input); its backward all-reduces;
+  * :func:`total` — all-reduce whose backward all-reduces too: a sum of
+    partial terms (a norm's sum of squares over a split feature axis)
+    that each rank then reads for its own part of the work;
+  * :func:`split` — this rank's block of a replicated tensor; its
+    backward all-gathers (every rank's gradient of the whole).
 
 Each reports through :func:`note_collective` under the reference's HLO
 op name with the operand bytes of one device, in the forward and the
@@ -271,6 +276,30 @@ class _Enter(torch.autograd.Function):
         return all_reduce(g, mesh, axes), None, None
 
 
+class _Total(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return all_reduce(g, mesh, axes), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return local_block(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return all_gather(g, mesh, axes, dim), None, None, None
+
+
 def _differentiable(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -314,6 +343,27 @@ def enter(x, mesh, axes):
     return _Enter.apply(x, mesh, axes)
 
 
+def total(x, mesh, axes):
+    """All-reduce (sum) of partial terms; the backward all-reduces too."""
+
+    if mesh.size(axes) == 1:
+        return x
+    if not _differentiable(x):
+        return all_reduce(x, mesh, axes)
+    return _Total.apply(x, mesh, axes)
+
+
+def split(x, mesh, axes, dim: int):
+    """This rank's block of a tensor replicated over ``axes``; the
+    backward all-gathers."""
+
+    if mesh.size(axes) == 1:
+        return x
+    if not _differentiable(x):
+        return local_block(x, mesh, axes, dim)
+    return _Split.apply(x, mesh, axes, dim)
+
+
 __all__ = [
     "COLLECTIVE_OBSERVERS",
     "all_gather",
@@ -324,6 +374,8 @@ __all__ = [
     "reduce",
     "reduce_scatter",
     "scatter",
+    "split",
+    "total",
     "note_collective",
     "quantize_int8",
     "dequantize_int8",

@@ -18,9 +18,14 @@ themselves.  This module holds what they share:
     spec shards on ``data`` (and on ``model`` where the caller needs the
     whole of that dim); the backward reduce-scatters the gradient;
   * column- and row-parallel application (:func:`column`, :func:`row`)
-    through ``ops.gemm`` at the rank-local shapes, and the region
+    through ``ops.gemm`` at the rank-local shapes, the same as a plain
+    bf16 product outside the funnel (:func:`plain`: Mamba2's projections
+    and the MoE experts, plain products on one card too), and the region
     boundaries (:func:`tp_enter`, :func:`tp_exit`) between the residual
     stream's layout and a tensor-parallel region;
+  * a norm over a feature axis split over ``model`` (:func:`rms_norm_split`)
+    and the test for a dim the reference's ``_drop_indivisible`` left whole
+    (:func:`splits_model`: whisper's 51,865-wide vocab is replicated);
   * the gradient step's reductions: :func:`sync_grads` sums the gradient
     of a leaf replicated over a dp axis over that axis, and
     :func:`global_norm` counts each leaf once.
@@ -51,6 +56,9 @@ class Layout:
     mesh: object
     specs: dict
     seq_shard: bool = False
+    # Are the step's rows split over the dp axes?  A decode batch the dp
+    # axes do not divide (a batch of 1) is replicated there.
+    rows_split: bool = True
 
     @property
     def model(self) -> int:
@@ -65,7 +73,7 @@ class Layout:
         return SH.dp_axes(self.mesh)
 
     def _global_rows(self, b: int) -> int:
-        return b * SH.axes_size(self.mesh, self.dp)
+        return b * SH.axes_size(self.mesh, self.dp) if self.rows_split else b
 
     def seq_sharded(self, shape) -> bool:
         """Is a residual stream of this rank's ``(rows, positions, width)``
@@ -132,11 +140,17 @@ def use(w: torch.Tensor, spec, lay: Layout, *, gather_model: bool = False,
     return w
 
 
+def splits_model(spec, dim: int) -> bool:
+    """Does ``spec`` split ``dim`` over ``model``?"""
+
+    return "model" in SH._axes(_entries(spec, dim + 1)[dim])
+
+
 def require_model(spec, name: str, lay: Layout, dim: int) -> None:
     """The sharded step splits ``name`` over ``model`` on ``dim``; a spec
     that replicates it there (the dim is indivisible) is refused."""
 
-    if lay.model > 1 and "model" not in SH._axes(_entries(spec, dim + 1)[dim]):
+    if lay.model > 1 and not splits_model(spec, dim):
         raise ValueError(f"{name}: dim {dim} is not split over model={lay.model} (its spec "
                          f"{spec!r}); the sharded step needs it divisible")
 
@@ -154,14 +168,37 @@ def column(x, w, spec, lay: Layout, b=None, b_spec=None, *, gather_model=False,
     return ops.linear(x, use(w, spec, lay, **kw), b)
 
 
-def row(x, w, spec, lay: Layout, *, gather_model=False, model_grad="reduce_scatter"):
+def row(x, w, spec, lay: Layout, *, gather_model=False, model_grad="reduce_scatter",
+        out_dtype=None):
     """Row-parallel ``x · W`` through ``ops.gemm`` on this rank's input
     features: a partial sum over ``model`` (the whole product with
-    ``gather_model``)."""
+    ``gather_model``), in ``out_dtype`` (the kernel's fp32 accumulator
+    for a partial that :func:`tp_exit` reduces)."""
 
     from repro_torch.kernels import ops
 
-    return ops.gemm(x, use(w, spec, lay, gather_model=gather_model, model_grad=model_grad))
+    return ops.gemm(x, use(w, spec, lay, gather_model=gather_model, model_grad=model_grad),
+                    out_dtype=out_dtype)
+
+
+def plain(x, w, spec, lay: Layout, *, gather_model=False, model_grad="reduce_scatter"):
+    """:func:`column` / :func:`row` as a plain bf16 product
+    (``torch.matmul``, batched over leading dims), outside the GEMM funnel:
+    the products the port keeps plain on one card."""
+
+    w = use(w.to(torch.bfloat16), spec, lay, gather_model=gather_model, model_grad=model_grad)
+    return torch.matmul(x.to(torch.bfloat16), w)
+
+
+def rms_norm_split(x, w, lay: Layout, eps: float = 1e-5):
+    """:func:`models.layers.rms_norm` over a last dim split over ``model``
+    (this rank's features and their ``w``): the sum of squares is summed
+    over ``model`` before the scale, its backward summed too."""
+
+    xf = x.float()
+    ss = C.total(torch.sum(xf * xf, dim=-1, keepdim=True), lay.mesh, "model")
+    var = ss / (x.shape[-1] * lay.model)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
 def tp_enter(x, lay: Layout, seq: bool):
@@ -176,12 +213,15 @@ def tp_enter(x, lay: Layout, seq: bool):
 
 
 def tp_exit(h, lay: Layout, seq: bool):
-    """A region's partial sums over ``model`` back to the residual layout:
-    reduce-scattered along the sequence (``seq``), else all-reduced."""
+    """A region's partial sums over ``model`` (fp32: ``row(...,
+    out_dtype=torch.float32)``) back to the residual layout, in bf16:
+    reduce-scattered along the sequence (``seq``), else all-reduced, and
+    rounded once, as one card rounds the whole sum (bf16 partials, each
+    rounded on its rank, move the reduced hybrid's gradients by 3%)."""
 
     if seq:
-        return C.scatter(h, lay.mesh, "model", 1)
-    return C.reduce(h, lay.mesh, "model")
+        return C.scatter(h, lay.mesh, "model", 1).to(torch.bfloat16)
+    return C.reduce(h, lay.mesh, "model").to(torch.bfloat16)
 
 
 def norm_weight(w, lay: Layout, seq: bool):
@@ -353,9 +393,12 @@ __all__ = [
     "map_specs",
     "norm_weight",
     "param_specs",
+    "plain",
     "require_model",
+    "rms_norm_split",
     "row",
     "shard_tree",
+    "splits_model",
     "sync_grads",
     "tp_enter",
     "tp_exit",

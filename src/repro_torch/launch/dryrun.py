@@ -24,8 +24,8 @@ AdamW state, batch and caches are rank 0's shards by the reference's
 rules (FSDP unless ``--no-fsdp``, the stream sequence-sharded unless
 ``--no-seq-shard``, as the reference's dry-run), its collectives make
 shapes and report their bytes, and the record is per device (``n_chips``
-the mesh's size).  Only the dense family runs sharded: the other
-families' cells record an error naming slice 14.  ``--little-spec``
+the mesh's size).  Every family runs sharded; a ``long_500k`` cell of a
+full-attention model is skipped for the reference's reason.  ``--little-spec``
 runs the cell class-sharded on one card (``execution.class_sharded``:
 pod 0 under ``--spec``, pod 1 under the little spec, in turn).
 
@@ -120,18 +120,20 @@ def mesh_tag(mesh) -> str:
     return "mesh" + "x".join(map(str, sizes))
 
 
-def _build_sharded(cfg, shape, mesh, *, remat: bool, fsdp: bool, seq_shard: bool):
-    """The cell as rank ``mesh.rank`` runs it on a rank mesh (the dense
-    family; ``transformer.*_sharded``)."""
+def _build_sharded(cfg, shape, mesh, *, remat: bool, fsdp: bool, seq_shard: bool, batch=None):
+    """The cell as rank ``mesh.rank`` runs it on a rank mesh
+    (``transformer.*_sharded``, ``encdec.*_sharded``)."""
 
+    from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import spmd
     from repro_torch.runtime.trainer import sharded_train_step
 
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: the {cfg.family} family on a sharded mesh is slice 14's "
-                         "(only the dense family runs sharded)")
     device = mesh.device
-    batch = Z.batch_spec(cfg, shape, device=device, mesh=mesh)
+    if batch is None:
+        batch = Z.batch_spec(cfg, shape, device=device, mesh=mesh)
+    else:  # the caller's whole batch: this rank's rows
+        rows = SH.batch_pspec(mesh, shape.global_batch)
+        batch = {k: SH.local_slice(v, rows, mesh) for k, v in batch.items()}
     if shape.kind == "train":
         loss = Z.make_loss_fn(cfg, remat=remat, mesh=mesh, fsdp=fsdp, seq_shard=seq_shard)
         lay = loss.layout
@@ -161,7 +163,7 @@ def _build_sharded(cfg, shape, mesh, *, remat: bool, fsdp: bool, seq_shard: bool
 
 
 def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta", mesh=None,
-               fsdp: bool = True, seq_shard: bool = True):
+               fsdp: bool = True, seq_shard: bool = True, batch=None):
     """``(fn, args, alias)``: the cell's step, its inputs on ``device``, and
     the positions of ``args`` the step updates in place (params and
     optimizer state for a train cell, the decode state for a decode cell).
@@ -174,6 +176,9 @@ def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta", mes
     train cell's pods reduced by the trainer's epilogue.  With a rank
     ``mesh`` (abstract, on ``meta``) the step is the rank's part of the
     sharded step (``fsdp``, ``seq_shard`` as the reference's dry-run).
+    ``batch`` (the whole batch, on ``device``) replaces ``batch_spec``'s
+    inputs: an enc-dec's frames longer than its tokens, as
+    ``chip_smoke.py`` trains whisper-small.
     """
 
     from repro_torch.distributed import sharding as SH
@@ -182,8 +187,10 @@ def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta", mes
     cfg = _config(arch)
     shape = _shape(cfg, shape)
     if mesh is not None:
-        return _build_sharded(cfg, shape, mesh, remat=remat, fsdp=fsdp, seq_shard=seq_shard)
-    batch = Z.batch_spec(cfg, shape, device=device)
+        return _build_sharded(cfg, shape, mesh, remat=remat, fsdp=fsdp, seq_shard=seq_shard,
+                              batch=batch)
+    if batch is None:
+        batch = Z.batch_spec(cfg, shape, device=device)
     mixed = asym is not None and len(asym.classes) > 1
     mesh = make_host_mesh(pod=asym.n_pods, device=device) if mixed else None
 
@@ -235,10 +242,11 @@ def _storages(tree) -> set:
 def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
              remat: bool = True, tag: str = "", spec_name: str = "h100",
              little_spec: str = "", backend: str = "matmul", write: bool = True,
-             mesh=None, fsdp: bool = True, seq_shard: bool = True) -> dict:
+             mesh=None, fsdp: bool = True, seq_shard: bool = True, batch=None) -> dict:
     """Dry-run one cell and write its record (``write``); a record already
     on disk is returned unless ``force``.  ``mesh``: an abstract
-    :class:`~repro_torch.launch.mesh.RankMesh` (``None``: one card)."""
+    :class:`~repro_torch.launch.mesh.RankMesh` (``None``: one card);
+    ``batch``: :func:`build_cell`'s."""
 
     cfg = _config(arch)
     shape = _shape(cfg, shape)
@@ -279,7 +287,7 @@ def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
             if mesh is not None and asym is not None:
                 raise ValueError("--little-spec runs on one card, not on a rank mesh")
             fn, args, alias = build_cell(cfg, shape, remat=remat, asym=asym, mesh=mesh,
-                                         fsdp=fsdp, seq_shard=seq_shard)
+                                         fsdp=fsdp, seq_shard=seq_shard, batch=batch)
             with op_analysis.count_ops() as cost:
                 out = fn(*args)
         t_lower = time.time() - t0

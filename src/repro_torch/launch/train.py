@@ -25,8 +25,9 @@ Flags are the reference's (with its defaults), plus ``--device`` and
 ``--seed``.  ``--class-sharded auto`` never takes the mixed step, since
 the port never puts pods on separate cards (``launch.mesh.resolve_pods``);
 ``on`` runs the pods as streams on one card (the summary's ``shard_classes`` lists each pod's class,
-block source and kernel).  ``--mesh 16x16`` / ``2x16x16`` train the dense
-family on the reference's production mesh, FSDP over ``data`` and tensor
+block source and kernel).  ``--mesh 16x16`` / ``2x16x16`` train every family
+the trainer takes (dense, MoE, Mamba2, hybrid) on the reference's
+production mesh, FSDP over ``data`` and tensor
 parallelism over ``model``, one process a rank: they run under a launcher
 with a world of 256 / 512 ranks (``torchrun --nnodes ... --nproc-per-node
 ...``, each rank on ``cuda:LOCAL_RANK``, over ``nccl``) and raise a

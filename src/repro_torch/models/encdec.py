@@ -22,8 +22,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import _remat, _unstack, cross_entropy, layer_params
 
 
@@ -198,11 +202,179 @@ def loss_fn(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto", remat
     return ce + aux, {"ce": ce, "aux": aux}
 
 
+# ---------------------------------------------------------------------------
+# A rank's part on a (data, model) mesh
+# ---------------------------------------------------------------------------
+#
+# The reference's rules: the attention projections (the cross K/V's too)
+# column- / row-parallel with their biases on the rank's features
+# (``b1`` too), ``b2`` and the layer norms replicated, the tied ``embed``
+# vocab-parallel where ``model`` divides the vocab and replicated where
+# not (whisper-small's 51,865).  Each stream (the encoder's, the
+# decoder's) is batch-sharded over the dp axes and, under ``seq_shard``,
+# sequence-sharded over ``model``, as ``constrain_batch`` pins it
+# (``src/repro/models/encdec.py:83, :109, :135``).
+
+
+def _split_pe(pe, lay, seq: bool):
+    return T._seq_local(pe[None], lay, seq)
+
+
+def _norm(x, p, w: str, b: str, lay, seq: bool):
+    return L.layer_norm(x, spmd.norm_weight(p[w], lay, seq), spmd.norm_weight(p[b], lay, seq))
+
+
+def _cross(p, sp):
+    """The cross-attention's params as :func:`layers.apply_attention_tp`
+    takes them: the query's ``xattn`` and the cross ``xkv`` K/V."""
+
+    return ({"wq": p["xattn"]["wq"], "wo": p["xattn"]["wo"], **p["xkv"]},
+            {"wq": sp["xattn"]["wq"], "wo": sp["xattn"]["wo"], **sp["xkv"]})
+
+
+def encode_sharded(params, cfg: ArchConfig, frames, lay, *, attn_backend: str = "auto"):
+    """:func:`encode` as a rank's part: ``(enc_out, seq)``, the encoder's
+    states of this rank's rows in the residual layout (``seq``: its
+    positions split over ``model``).  Always under ``checkpoint``, as the
+    reference's encoder is."""
+
+    b, s = frames.shape[:2]
+    seq = lay.seq_sharded((b, s, cfg.d_model))
+    pe = L.sinusoidal_positions(s, cfg.d_model, device=frames.device).to(L.COMPUTE_DTYPE)
+    x = T._seq_local(frames.to(L.COMPUTE_DTYPE), lay, seq) + _split_pe(pe, lay, seq)
+    acfg = _acfg(cfg, causal=False)
+    specs = spmd.layer_specs(lay.specs["enc_blocks"])
+
+    def body(x, p):
+        h = L.apply_attention_tp(p["attn"], specs["attn"], _norm(x, p, "ln1_w", "ln1_b", lay, seq),
+                                 acfg, lay, positions=None, seq=seq, backend=attn_backend)
+        x = x + h
+        return x + L.apply_mlp_tp(p["mlp"], specs["mlp"], _norm(x, p, "ln2_w", "ln2_b", lay, seq),
+                                  lay, seq=seq)
+
+    body = _remat(body)
+    for p in _unstack(params["enc_blocks"], cfg.enc_layers):
+        x = body(x, p)
+    return _norm(x, params, "enc_ln_w", "enc_ln_b", lay, seq), seq
+
+
+def _head_spec(lay):
+    return SH.P(*reversed(tuple(lay.specs["embed"]) + (None,) * (2 - len(lay.specs["embed"]))))
+
+
+def forward_encdec_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
+                           remat: bool = False):
+    """:func:`forward_encdec` on a mesh: ``(logits, aux 0)``, the logits
+    this rank's rows, their vocab split over ``model`` where the vocab
+    splits, else whole (at this rank's positions under ``seq_shard``)."""
+
+    enc, seq_e = encode_sharded(params, cfg, batch["frames"], lay, attn_backend=attn_backend)
+    kv_in = spmd.tp_enter(enc, lay, seq_e)  # every layer's cross K/V read it whole
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    seq = lay.seq_sharded((b, s, cfg.d_model))
+    pe = L.sinusoidal_positions(s, cfg.d_model, device=tokens.device).to(L.COMPUTE_DTYPE)
+    x = T.embed_tokens_sharded(params, cfg, {"tokens": tokens}, lay, seq=seq)
+    x = x + _split_pe(pe, lay, seq)
+    acfg, xcfg = _acfg(cfg, causal=True), _acfg(cfg, causal=False)
+    specs = spmd.layer_specs(lay.specs["dec_blocks"])
+
+    def body(x, p):
+        h = L.apply_attention_tp(p["attn"], specs["attn"], _norm(x, p, "ln1_w", "ln1_b", lay, seq),
+                                 acfg, lay, positions=None, seq=seq, backend=attn_backend)
+        x = x + h
+        xp, xs = _cross(p, specs)
+        x = x + L.apply_attention_tp(xp, xs, _norm(x, p, "lnx_w", "lnx_b", lay, seq), xcfg, lay,
+                                     positions=None, seq=seq, backend=attn_backend, kv_in=kv_in)
+        return x + L.apply_mlp_tp(p["mlp"], specs["mlp"], _norm(x, p, "ln2_w", "ln2_b", lay, seq),
+                                  lay, seq=seq)
+
+    if remat:
+        body = _remat(body)
+    for p in _unstack(params["dec_blocks"], cfg.n_layers):
+        x = body(x, p)
+    x = _norm(x, params, "dec_ln_w", "dec_ln_b", lay, seq)
+    logits = T.lm_head_sharded(x, params["embed"].T.to(L.COMPUTE_DTYPE), _head_spec(lay), lay, seq)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
+                    remat: bool = False):
+    """``(loss, {"ce", "aux"})`` of this rank's rows: its term of the
+    global mean (``spmd.dp_sum`` over the dp ranks gives the reference's)."""
+
+    logits, aux = forward_encdec_sharded(params, cfg, batch, lay, attn_backend=attn_backend,
+                                         remat=remat)
+    b, s = batch["tokens"].shape
+    ce = T.sharded_ce(logits, batch, lay, _head_spec(lay), lay.seq_sharded((b, s, cfg.d_model)))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def fill_cross_kv_sharded(params, cfg: ArchConfig, frames, state, lay, cache_specs, *,
+                          attn_backend: str = "auto"):
+    """Write every decoder layer's cross K/V of ``frames`` (this rank's
+    rows) into ``state["cross_k"]`` / ``["cross_v"]``: the encoder's
+    states, each layer's K/V over every head, and this rank's slice of the
+    encoder positions (``cache_specs``)."""
+
+    enc, seq = encode_sharded(params, cfg, frames, lay, attn_backend=attn_backend)
+    enc = spmd.tp_enter(enc, lay, seq)
+    b, s = enc.shape[:2]
+    axes = SH._axes(cache_specs["cross_k"][2])
+    specs = spmd.layer_specs(lay.specs["dec_blocks"])
+    for i in range(cfg.n_layers):
+        p = layer_params(params["dec_blocks"], i)["xkv"]
+        for name, key in (("wk", "cross_k"), ("wv", "cross_v")):
+            y = spmd.column(enc, p[name].to(L.COMPUTE_DTYPE), specs["xkv"][name], lay)
+            if spmd.splits_model(specs["xkv"][name], 1):
+                y = C.all_gather(y, lay.mesh, "model", 2)
+            y = y.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+            state[key][i].copy_(C.local_block(y, lay.mesh, axes, 1))
+    return state
+
+
+def decode_step_sharded(params, cfg: ArchConfig, batch, state, pos, lay, cache_specs):
+    """:func:`decode_step` on a mesh: this rank's rows, its slice of the
+    self-attention cache's length and of the cross K/V's encoder positions
+    (``cache_specs``, the state's ``sharding.cache_pspec`` tree), the
+    logits as the tied head's vocab lies."""
+
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    x = T.embed_tokens_sharded(params, cfg, batch, lay, seq=False)
+    x = x + _positions_at(pos, b, cfg.d_model, x.device).to(L.COMPUTE_DTYPE)
+    acfg, xcfg = _acfg(cfg, causal=True), _acfg(cfg, causal=False)
+    kv = T.cache_plan(state["k"], cache_specs["k"], lay, acfg, pos, b)
+    cross_axes = SH._axes(cache_specs["cross_k"][2])
+    specs = spmd.layer_specs(lay.specs["dec_blocks"])
+    live = batch.get("live")
+    for i in range(cfg.n_layers):
+        p = layer_params(params["dec_blocks"], i)
+        h = L.decode_attention_tp(p["attn"], specs["attn"], L.layer_norm(x, p["ln1_w"], p["ln1_b"]),
+                                  acfg, lay, state["k"][i], state["v"][i], pos, plan=kv["plan"],
+                                  s_total=kv["s_total"], len_axes=kv["len_axes"], live=live)
+        x = x + h
+        x = x + L.cross_attention_decode_tp(p["xattn"], specs["xattn"],
+                                            L.layer_norm(x, p["lnx_w"], p["lnx_b"]), xcfg, lay,
+                                            state["cross_k"][i], state["cross_v"][i], cross_axes)
+        x = x + L.apply_mlp_tp(p["mlp"], specs["mlp"], L.layer_norm(x, p["ln2_w"], p["ln2_b"]), lay,
+                               seq=False)
+    x = L.layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
+    logits = T.lm_head_sharded(x, params["embed"].T.to(L.COMPUTE_DTYPE), _head_spec(lay), lay,
+                               False)
+    return logits, state
+
+
 __all__ = [
     "decode_step",
+    "decode_step_sharded",
     "encode",
+    "encode_sharded",
+    "fill_cross_kv_sharded",
     "forward_encdec",
+    "forward_encdec_sharded",
     "init_decode_state",
     "init_encdec",
     "loss_fn",
+    "loss_fn_sharded",
 ]

@@ -473,7 +473,7 @@ def _local_kv(k, v, r: int, hl: int, group: int):
 
 
 def apply_attention_tp(p, sp, xn, cfg: AttnConfig, lay, *, positions, seq: bool,
-                       backend: str = "auto"):
+                       backend: str = "auto", kv_in=None):
     """Full-sequence attention, a rank's part; returns the block's output in
     the residual layout.
 
@@ -485,10 +485,16 @@ def apply_attention_tp(p, sp, xn, cfg: AttnConfig, lay, *, positions, seq: bool,
     * otherwise the context-parallel split of
       ``sharding.constrain_qkv_context_parallel``: every weight gathered
       whole, this rank's query rows ``[r·S/m, (r+1)·S/m)`` against the K/V
-      of every position up to its last row (causal), its rows of the output
-      joined over ``model`` (or left sequence-sharded under ``seq``); with a
-      sequence ``model`` does not divide, every rank computes the whole
-      (the weights' gradients then kept, not summed, over ``model``).
+      of every position up to its last row (causal; every position when not
+      causal), its rows of the output joined over ``model`` (or left
+      sequence-sharded under ``seq``); with a sequence ``model`` does not
+      divide, every rank computes the whole (the weights' gradients then
+      kept, not summed, over ``model``).
+
+    ``kv_in`` (cross-attention): the K/V come from this tensor, whole over
+    ``model`` (the encoder's output after ``spmd.tp_enter``), not from
+    ``xn``; ``p`` then holds the query's ``wq`` / ``wo`` beside the cross
+    ``wk`` / ``wv``.
     """
 
     from repro_torch.core.execution import dispatch_flash_attention
@@ -498,37 +504,42 @@ def apply_attention_tp(p, sp, xn, cfg: AttnConfig, lay, *, positions, seq: bool,
     dh = cfg.d_head
     if cfg.n_heads % m == 0:
         x = spmd.tp_enter(xn, lay, seq)
-        s = x.shape[1]
+        xk = x if kv_in is None else kv_in
+        s, sk = x.shape[1], xk.shape[1]
         hl = cfg.n_heads // m
         spmd.require_model(sp["wq"], "wq", lay, 1)
         q = spmd.column(x, _w(p["wq"]), sp["wq"], lay, p.get("bq"), sp.get("bq"))
         kv_split = cfg.n_kv_heads % m == 0
         hkv = cfg.n_kv_heads // m if kv_split else cfg.n_kv_heads
-        k = spmd.column(x, _w(p["wk"]), sp["wk"], lay, p.get("bk"), sp.get("bk"),
+        k = spmd.column(xk, _w(p["wk"]), sp["wk"], lay, p.get("bk"), sp.get("bk"),
                         gather_model=not kv_split)
-        v = spmd.column(x, _w(p["wv"]), sp["wv"], lay, p.get("bv"), sp.get("bv"),
+        v = spmd.column(xk, _w(p["wv"]), sp["wv"], lay, p.get("bv"), sp.get("bv"),
                         gather_model=not kv_split)
         q = q.reshape(b, s, hl, dh)
-        k, v = k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
+        k, v = k.reshape(b, sk, hkv, dh), v.reshape(b, sk, hkv, dh)
         if cfg.use_rope:
             q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
         if not kv_split:
             k, v = _local_kv(k, v, r, hl, cfg.n_heads // cfg.n_kv_heads)
         o = dispatch_flash_attention(q, k, v, causal=cfg.causal, window=cfg.window, backend=backend)
         spmd.require_model(sp["wo"], "wo", lay, 0)
-        h = spmd.row(o.reshape(b, s, hl * dh), _w(p["wo"]), sp["wo"], lay)
+        h = spmd.row(o.reshape(b, s, hl * dh), _w(p["wo"]), sp["wo"], lay,
+                     out_dtype=torch.float32)
         return spmd.tp_exit(h, lay, seq)
 
     s_full = xn.shape[1] * (m if seq else 1)
-    if not cfg.causal:
-        raise ValueError("the context-parallel split is causal (the dense family)")
     cp = lay.context_parallel(b, s_full, cfg)
+    if kv_in is not None and not cp:
+        raise ValueError(f"cross-attention with {cfg.n_heads} heads over model={m} needs a "
+                         f"query sequence model divides (not {s_full})")
     x = spmd.tp_enter(xn, lay, seq) if cp else xn
+    xk = x if kv_in is None else kv_in
+    sk = xk.shape[1]
     kw = dict(gather_model=True, model_grad="reduce_scatter" if cp else "slice")
-    k = spmd.column(x, _w(p["wk"]), sp["wk"], lay, p.get("bk"), sp.get("bk"), **kw)
-    v = spmd.column(x, _w(p["wv"]), sp["wv"], lay, p.get("bv"), sp.get("bv"), **kw)
-    k = k.reshape(b, s_full, cfg.n_kv_heads, dh)
-    v = v.reshape(b, s_full, cfg.n_kv_heads, dh)
+    k = spmd.column(xk, _w(p["wk"]), sp["wk"], lay, p.get("bk"), sp.get("bk"), **kw)
+    v = spmd.column(xk, _w(p["wv"]), sp["wv"], lay, p.get("bv"), sp.get("bv"), **kw)
+    k = k.reshape(b, sk, cfg.n_kv_heads, dh)
+    v = v.reshape(b, sk, cfg.n_kv_heads, dh)
     if cfg.use_rope:
         k = rope(k, positions, cfg.rope_theta)
     lo, c = (r * (s_full // m), s_full // m) if cp else (0, s_full)
@@ -536,8 +547,9 @@ def apply_attention_tp(p, sp, xn, cfg: AttnConfig, lay, *, positions, seq: bool,
     q = q.reshape(b, c, cfg.n_heads, dh)
     if cfg.use_rope:
         q = rope(q, positions[..., lo:lo + c], cfg.rope_theta)
-    o = dispatch_flash_attention(q, k[:, :lo + c], v[:, :lo + c], causal=True, window=cfg.window,
-                                 backend=backend)
+    if cfg.causal:  # the queries are the suffix of the keys they see
+        k, v = k[:, :lo + c], v[:, :lo + c]
+    o = dispatch_flash_attention(q, k, v, causal=cfg.causal, window=cfg.window, backend=backend)
     h = spmd.row(o.reshape(b, c, cfg.n_heads * dh), _w(p["wo"]), sp["wo"], lay, **kw)
     if cp and not seq:
         return C.gather(h, lay.mesh, "model", 1, grad="slice")
@@ -553,7 +565,22 @@ def apply_glu_tp(p, sp, xn, lay, *, seq: bool):
     x = spmd.tp_enter(xn, lay, seq)
     h = F.silu(spmd.row(x, _w(p["w1"]), sp["w1"], lay).float()).to(COMPUTE_DTYPE)
     h = h * spmd.row(x, _w(p["w3"]), sp["w3"], lay)
-    return spmd.tp_exit(spmd.row(h, _w(p["w2"]), sp["w2"], lay), lay, seq)
+    h = spmd.row(h, _w(p["w2"]), sp["w2"], lay, out_dtype=torch.float32)
+    return spmd.tp_exit(h, lay, seq)
+
+
+def apply_mlp_tp(p, sp, xn, lay, *, seq: bool):
+    """The enc-dec's GELU MLP, a rank's part: w1 and its bias ``b1``
+    column-parallel, w2 row-parallel, its partial sums reduced before the
+    replicated ``b2`` is added."""
+
+    for name, dim in (("w1", 1), ("w2", 0)):
+        spmd.require_model(sp[name], name, lay, dim)
+    x = spmd.tp_enter(xn, lay, seq)
+    h = spmd.column(x, _w(p["w1"]), sp["w1"], lay, p["b1"], sp["b1"])
+    h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
+    h = spmd.tp_exit(spmd.row(h, _w(p["w2"]), sp["w2"], lay, out_dtype=torch.float32), lay, seq)
+    return (h.float() + spmd.norm_weight(p["b2"], lay, seq).float()).to(h.dtype)
 
 
 def _whole_features(x, p, sp, name: str, bias: str, lay):
@@ -566,34 +593,56 @@ def _whole_features(x, p, sp, name: str, bias: str, lay):
     return y
 
 
-def cache_split_plan(pos, b: int, s_local: int, lay, split: bool, device) -> tuple:
+def cache_split_plan(pos, b: int, s_local: int, s_total: int, lay, len_axes, window,
+                     device) -> tuple:
     """``(rows, slot, ok, offset)``: where each row's new K/V land in this
-    rank's slice of a linear cache whose length is split over ``model``
-    (``split``; slice ``r`` holds positions ``[r·s_local, (r+1)·s_local)``).
-    Only the rank whose slice holds ``pos`` writes (``ok``); the others
-    write a slot's own value back, as :func:`dense_write_plan` does."""
+    rank's slice of a cache of ``s_total`` slots whose length is split over
+    ``len_axes`` (slice ``i``, this rank's index over those axes, holds
+    slots ``[i·s_local, (i+1)·s_local)``).  The slot is ``pos % s_total``
+    in a ring (``window``), else ``pos``.  Only the rank whose slice holds
+    the slot writes (``ok``); the others write a slot's own value back, as
+    :func:`dense_write_plan` does."""
 
     pos = _per_row(pos, b, device).long()
-    off = lay.model_index * s_local if split else 0
-    local = pos - off
+    slot = pos % s_total if window is not None else pos
+    off = lay.mesh.index(len_axes) * s_local
+    local = slot - off
     ok = ((local >= 0) & (local < s_local))[:, None, None]
     return torch.arange(b, device=device), torch.clamp(local, 0, s_local - 1), ok, off
 
 
-def decode_attention_tp(p, sp, xn, cfg: AttnConfig, lay, cache_k, cache_v, pos, *, plan,
-                        s_total: int, split: bool, live=None):
-    """Single-token decode, a rank's part, over its rows and its slice of
-    the cache length (``split``: sharded over ``model`` by
-    ``sharding.cache_pspec``).  q, k and v are computed column-parallel and
-    all-gathered whole (every query head), the new K/V written by the rank
-    whose slice holds ``pos``; each rank attends over its slice for all
-    query heads and the partial (max, sum, output) merge across ``model``
-    in log-sum-exp form (:func:`grouped_attention_split`); ``wo``
-    row-parallel, its partial sums reduced.
-    ``xn`` (B, 1, D) is replicated over ``model``."""
+def _heads_out(o, p, sp, lay):
+    """Every query head's output (B, 1, Hq·Dh), replicated over ``model``,
+    through ``wo``: row-parallel on this rank's heads and reduced, or the
+    whole product where ``wo`` is not split."""
 
-    if cfg.window is not None:
-        raise ValueError("a ring cache (sliding window) on a sharded mesh is slice 14's")
+    if spmd.splits_model(sp["wo"], 0):
+        o = C.local_block(o, lay.mesh, "model", 2)
+        h = spmd.row(o, _w(p["wo"]), sp["wo"], lay, out_dtype=torch.float32)
+        return spmd.tp_exit(h, lay, False)
+    return spmd.row(o, _w(p["wo"]), sp["wo"], lay)
+
+
+def _attend_split(q, cache_k, cache_v, valid, lay, len_axes):
+    if lay.mesh.size(len_axes) > 1:
+        return grouped_attention_split(q, cache_k, cache_v, valid, lay.mesh, len_axes)
+    return grouped_attention(q, cache_k, cache_v, valid)
+
+
+def decode_attention_tp(p, sp, xn, cfg: AttnConfig, lay, cache_k, cache_v, pos, *, plan,
+                        s_total: int, len_axes=(), live=None):
+    """Single-token decode, a rank's part, over its rows and its slice of
+    the cache length (``len_axes``: the axes ``sharding.cache_pspec``
+    splits it over — ``model``, or with a batch of 1 the dp axes and
+    ``model``).  q, k and v are computed column-parallel and all-gathered
+    whole (every query head), the new K/V written by the rank whose slice
+    holds the slot (``plan``, :func:`cache_split_plan`: ``pos`` in a linear
+    cache, ``pos % s_total`` in a ring); each rank attends over its slice
+    for all query heads and the partial (max, sum, output) merge across
+    ``len_axes`` in log-sum-exp form (:func:`grouped_attention_split`);
+    ``wo`` row-parallel, its partial sums reduced.  ``xn`` (B, 1, D) is
+    replicated over ``model``."""
+
     b = xn.shape[0]
     pos = _per_row(pos, b, xn.device)
     q = _whole_features(xn, p, sp, "wq", "bq", lay).reshape(b, 1, cfg.n_heads, cfg.d_head)
@@ -609,26 +658,47 @@ def decode_attention_tp(p, sp, xn, cfg: AttnConfig, lay, cache_k, cache_v, pos, 
     s_local = cache_k.shape[1]
     k_idx = off + torch.arange(s_local, device=xn.device)
     valid = k_idx[None, :] < torch.clamp(pos.long()[:, None] + 1, max=s_total)
-    if split and lay.model > 1:
-        o = grouped_attention_split(q[:, 0], cache_k, cache_v, valid, lay.mesh).to(q.dtype)
-    else:
-        o = grouped_attention(q[:, 0], cache_k, cache_v, valid).to(q.dtype)
+    o = _attend_split(q[:, 0], cache_k, cache_v, valid, lay, len_axes).to(q.dtype)
     if live is not None:
         o = torch.where(live[:, None, None], o, torch.zeros((), dtype=o.dtype, device=o.device))
-    o = o.to(xn.dtype).reshape(b, 1, cfg.n_heads * cfg.d_head)
-    if len(sp["wo"]) > 1 and sp["wo"][0] == "model":
-        o = C.local_block(o, lay.mesh, "model", 2)
-        return C.all_reduce(spmd.row(o, _w(p["wo"]), sp["wo"], lay), lay.mesh, "model")
-    return spmd.row(o, _w(p["wo"]), sp["wo"], lay)
+    return _heads_out(o.to(xn.dtype).reshape(b, 1, cfg.n_heads * cfg.d_head), p, sp, lay)
 
 
-def grouped_attention_split(q, view_k, view_v, valid, mesh):
-    """:func:`grouped_attention` over keys split across ``mesh``'s
-    ``model`` ranks, this rank holding one slice: the row max and the sum
-    of exponentials are all-reduced first, so each rank's probabilities
-    are the whole softmax's, rounded to the cache dtype as the one-card
-    step rounds them, and the partial ``p · V`` sums are all-reduced in
-    fp32 (the log-sum-exp merge, in two passes)."""
+def cross_attention_decode_tp(p, sp, xn, cfg: AttnConfig, lay, cross_k, cross_v, len_axes=()):
+    """The decoder's cross-attention at decode, a rank's part: this rank's
+    slice of the encoder positions all-gathered whole over ``len_axes``,
+    then ``execution.dispatch_flash_attention`` (every position visible)
+    on this rank's query heads and their KV heads, as one card attends;
+    ``wo`` row-parallel, its partial sums reduced.  Where the heads do not
+    split over ``model`` (or ``wo`` is whole), every head, and ``wo`` as in
+    :func:`decode_attention_tp`."""
+
+    from repro_torch.core.execution import dispatch_flash_attention
+
+    b, dh = xn.shape[0], cfg.d_head
+    if lay.mesh.size(len_axes) > 1:
+        cross_k, cross_v = (C.all_gather(t, lay.mesh, len_axes, 1) for t in (cross_k, cross_v))
+    cross_k, cross_v = cross_k.to(COMPUTE_DTYPE), cross_v.to(COMPUTE_DTYPE)
+    if cfg.n_heads % lay.model or not spmd.splits_model(sp["wo"], 0):
+        q = _whole_features(xn, p, sp, "wq", "bq", lay).reshape(b, 1, cfg.n_heads, dh)
+        o = dispatch_flash_attention(q, cross_k, cross_v, causal=False)
+        return _heads_out(o.reshape(b, 1, cfg.n_heads * dh), p, sp, lay)
+    spmd.require_model(sp["wq"], "wq", lay, 1)
+    hl = cfg.n_heads // lay.model
+    q = spmd.column(xn, _w(p["wq"]), sp["wq"], lay, p.get("bq"), sp.get("bq")).reshape(b, 1, hl, dh)
+    k, v = _local_kv(cross_k, cross_v, lay.model_index, hl, cfg.n_heads // cfg.n_kv_heads)
+    o = dispatch_flash_attention(q, k, v, causal=False)
+    h = spmd.row(o.reshape(b, 1, hl * dh), _w(p["wo"]), sp["wo"], lay, out_dtype=torch.float32)
+    return spmd.tp_exit(h, lay, False)
+
+
+def grouped_attention_split(q, view_k, view_v, valid, mesh, axes="model"):
+    """:func:`grouped_attention` over keys split across ``mesh``'s ranks on
+    ``axes``, this rank holding one slice: the row max and the sum of
+    exponentials are all-reduced first, so each rank's probabilities are
+    the whole softmax's, rounded to the cache dtype as the one-card step
+    rounds them, and the partial ``p · V`` sums are all-reduced in fp32
+    (the log-sum-exp merge, in two passes)."""
 
     b, hq, d = q.shape
     hkv = view_k.shape[2]
@@ -637,11 +707,12 @@ def grouped_attention_split(q, view_k, view_v, valid, mesh):
     qg = q.reshape(b, hkv, g, d).to(ct).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, view_k.float()) / math.sqrt(d)
     s = torch.where(valid[:, None, None, :], s, torch.full((), -1e30, dtype=s.dtype, device=s.device))
-    mx = C.all_reduce(s.amax(-1, keepdim=True), mesh, "model", op="max")
+    mx = C.all_reduce(s.amax(-1, keepdim=True), mesh, axes, op="max")
     e = torch.exp(s - mx)
-    p_attn = (e / C.all_reduce(e.sum(-1, keepdim=True), mesh, "model")).to(ct)
+    p_attn = (e / C.all_reduce(e.sum(-1, keepdim=True), mesh, axes)).to(ct)
     o = torch.einsum("bhgs,bshd->bhgd", p_attn.float(), view_v.float())
-    return C.all_reduce(o, mesh, "model").reshape(b, hq, d)
+    return C.all_reduce(o, mesh, axes).reshape(b, hq, d)
+
 
 __all__ = [
     "COMPUTE_DTYPE",
@@ -650,7 +721,9 @@ __all__ = [
     "apply_attention",
     "apply_attention_tp",
     "apply_glu_tp",
+    "apply_mlp_tp",
     "cache_split_plan",
+    "cross_attention_decode_tp",
     "decode_attention_tp",
     "grouped_attention_split",
     "init_placement",

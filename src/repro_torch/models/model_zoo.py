@@ -21,16 +21,22 @@ families (token or embedding inputs) run through
 for tensors on the CPU).
 
 Under a :class:`~repro_torch.launch.mesh.RankMesh` (``mesh=``) the same
-entry points run a rank's part of the dense family's step
-(``transformer.*_sharded``): the params are its shards by the reference's
-rules (``distributed/sharding.py``; :func:`param_specs`), the batch its
-rows over the dp axes, the decode state its rows and its slice of the
-cache length, the logits its rows and its vocab slice.  ``batch_spec``,
-``decode_state_spec`` and ``init_decode_state`` give the rank-local
-shapes.  The other families raise (slice 14).
+entry points run a rank's part of every family's step
+(``transformer.*_sharded``, ``encdec.*_sharded``): the params are its
+shards by the reference's rules (``distributed/sharding.py``;
+:func:`param_specs`), the batch its rows over the dp axes (all of them
+when the dp axes do not divide it), the decode state its part by
+``sharding.cache_pspec`` (:func:`decode_state_specs`: a KV cache's rows
+and its slice of the length, over the dp axes too for a batch of 1; an
+SSM state's heads), the logits its rows and its vocab slice (the whole
+vocab where ``model`` does not divide it; :func:`gather_logits` joins
+them).  ``batch_spec``, ``decode_state_spec`` and ``init_decode_state``
+give the rank-local shapes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -39,6 +45,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import spmd
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
+from repro_torch.optim import adamw as O
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda", *,
@@ -98,8 +105,39 @@ def _layout(cfg, mesh, *, fsdp: bool, seq_shard: bool = False) -> spmd.Layout:
     return spmd.Layout(mesh, param_specs(cfg, mesh, fsdp=fsdp), seq_shard)
 
 
-def _state_shape(cfg: ArchConfig, batch: int, seq_len: int) -> tuple:
-    return (cfg.n_layers, batch, T.cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
+def _global_state(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The whole decode state on ``meta`` (shapes and dtypes)."""
+
+    init = E.init_decode_state if cfg.family == "encdec" else T.init_decode_state
+    return init(cfg, batch, seq_len, device="meta")
+
+
+def decode_state_specs(cfg: ArchConfig, mesh, batch: int, seq_len: int) -> dict:
+    """The spec tree of the decode state of ``batch`` rows and ``seq_len``
+    positions on ``mesh`` (the reference's ``cache_pspec`` of each leaf)."""
+
+    return O.tree_map(lambda t: SH.cache_pspec(mesh, tuple(t.shape)),
+                      _global_state(cfg, batch, seq_len))
+
+
+def gather_logits(logits, cfg: ArchConfig, mesh, batch: int):
+    """A sharded step's logits of ``batch`` rows, whole on every rank: the
+    vocab joined over ``model`` where the head splits it, the rows over
+    the dp axes where the batch splits there (no autograd)."""
+
+    from repro_torch.distributed import collectives as C
+
+    specs = param_specs(cfg, mesh, fsdp=False)
+    head = SH.P(*reversed(specs["embed"])) if cfg.family == "encdec" else specs["lm_head"]
+    if spmd.splits_model(head, 1):
+        logits = C.all_gather(logits, mesh, "model", logits.ndim - 1)
+    rows = SH.batch_pspec(mesh, batch)
+    return C.all_gather(logits, mesh, rows[0], 0) if rows[0] is not None else logits
+
+
+def _decode_layout(cfg, mesh, batch: int) -> spmd.Layout:
+    lay = _layout(cfg, mesh, fsdp=False)
+    return dataclasses.replace(lay, rows_split=SH.batch_pspec(mesh, batch)[0] is not None)
 
 
 def make_decode_fn(cfg: ArchConfig, *, mesh=None, batch: int = 0, seq_len: int = 0):
@@ -108,12 +146,14 @@ def make_decode_fn(cfg: ArchConfig, *, mesh=None, batch: int = 0, seq_len: int =
     ``seq_len`` positions (their global shape, which their spec reads)."""
 
     if spmd.is_sharded(mesh):
-        lay = _layout(cfg, mesh, fsdp=False)
-        cspec = SH.cache_pspec(mesh, _state_shape(cfg, batch, seq_len))
+        lay = _decode_layout(cfg, mesh, batch)
+        cspecs = decode_state_specs(cfg, mesh, batch, seq_len)
+        sharded = E.decode_step_sharded if cfg.family == "encdec" else T.decode_step_sharded
 
         def f(params, batch_, state, pos):
-            return T.decode_step_sharded(params, cfg, batch_, state, pos, lay, cspec)
+            return sharded(params, cfg, batch_, state, pos, lay, cspecs)
 
+        f.layout, f.cache_specs = lay, cspecs
         return f
     step = E.decode_step if cfg.family == "encdec" else T.decode_step
 
@@ -148,12 +188,13 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True, mesh=None, fsdp: bool =
 
     if spmd.is_sharded(mesh):
         lay = _layout(cfg, mesh, fsdp=fsdp, seq_shard=seq_shard)
+        sharded = E.loss_fn_sharded if cfg.family == "encdec" else T.loss_fn_sharded
 
         def f(params, batch):
             if torch.is_grad_enabled() and _requires_grad(params):
-                return T.loss_fn_sharded(params, cfg, batch, lay,
-                                         attn_backend="flash_attn_torch", remat=remat)
-            return T.loss_fn_sharded(params, cfg, batch, lay)
+                return sharded(params, cfg, batch, lay, attn_backend="flash_attn_torch",
+                               remat=remat)
+            return sharded(params, cfg, batch, lay)
 
         f.layout = lay
         return f
@@ -188,10 +229,11 @@ def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: 
                                                        seq_len=seq_len))
     if spmd.is_sharded(mesh):
         lay = _layout(cfg, mesh, fsdp=False, seq_shard=seq_shard)
+        fwd = E.forward_encdec_sharded if cfg.family == "encdec" else T.forward_lm_sharded
 
         def f(params, batch_):
             with torch.inference_mode():
-                return T.forward_lm_sharded(params, cfg, batch_, lay, attn_backend=attn_backend)[0]
+                return fwd(params, cfg, batch_, lay, attn_backend=attn_backend)[0]
 
         return f
 
@@ -209,12 +251,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda
     rank mesh this rank's part of it (``sharding.cache_pspec``)."""
 
     if spmd.is_sharded(mesh):
-        T._require_dense(cfg)
-        shape = _state_shape(cfg, batch, seq_len)
-        local = SH.local_shape(shape, SH.cache_pspec(mesh, shape), mesh)
-        from repro_torch.models.layers import COMPUTE_DTYPE
-
-        return {k: torch.zeros(local, dtype=COMPUTE_DTYPE, device=device) for k in ("k", "v")}
+        return spmd.map_specs(
+            lambda t, spec: torch.zeros(SH.local_shape(tuple(t.shape), spec, mesh), dtype=t.dtype,
+                                        device=device),
+            _global_state(cfg, batch, seq_len), decode_state_specs(cfg, mesh, batch, seq_len))
     if cfg.family == "encdec":
         return E.init_decode_state(cfg, batch, seq_len, device=device)
     return T.init_decode_state(cfg, batch, seq_len, device=device)
@@ -269,6 +309,8 @@ __all__ = [
     "batch_spec",
     "bulk_prefill_from_decode",
     "decode_state_spec",
+    "decode_state_specs",
+    "gather_logits",
     "init_decode_state",
     "init_decode_state_paged",
     "init_params",

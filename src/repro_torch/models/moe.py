@@ -129,10 +129,10 @@ def positions(expert_idx: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     return pos.gather(-1, flat_e[..., None])[..., 0]
 
 
-def combine(p, x: torch.Tensor, cfg: MoEConfig, gate_w: torch.Tensor,
-            expert_idx: torch.Tensor) -> torch.Tensor:
-    """Dispatch ``x`` (G, S, D) by the given routing, run the experts and
-    the shared expert, and gather: returns (G, S, D) in ``x``'s dtype."""
+def dispatch(x: torch.Tensor, cfg: MoEConfig, gate_w: torch.Tensor, expert_idx: torch.Tensor):
+    """Scatter ``x`` (G, S, D) into expert-major capacity buffers by the
+    given routing: ``(buf (E, G*cap, D), (flat_e, rows, keep))``, the
+    second part what :func:`gather_out` reads back."""
 
     g, s, d = x.shape
     k, e = cfg.top_k, cfg.n_experts
@@ -151,16 +151,35 @@ def combine(p, x: torch.Tensor, cfg: MoEConfig, gate_w: torch.Tensor,
     # Each kept decision owns its (expert, slot); a dropped one adds zeros
     # to a clipped slot, so the sum is exact in any order.
     buf.index_put_((flat_e.reshape(-1), rows.reshape(-1)), xr.reshape(-1, d), accumulate=True)
+    return buf, (flat_e, rows, keep)
 
+
+def experts(buf: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """The experts' GLU over their buffers (bf16 weights, batched over E)."""
+
+    h = F.silu(torch.bmm(buf, w1).float()).to(L.COMPUTE_DTYPE) * torch.bmm(buf, w3)
+    return torch.bmm(h, w2)
+
+
+def gather_out(out_buf: torch.Tensor, route_rows, g: int, s: int, k: int) -> torch.Tensor:
+    """Each token's kept experts' outputs, weighted and summed: (G, S, D')."""
+
+    flat_e, rows, keep = route_rows
+    y = out_buf[flat_e, rows] * keep[..., None].to(L.COMPUTE_DTYPE)    # (G, S*k, D')
+    return y.reshape(g, s, k, out_buf.shape[-1]).sum(dim=2)
+
+
+def combine(p, x: torch.Tensor, cfg: MoEConfig, gate_w: torch.Tensor,
+            expert_idx: torch.Tensor) -> torch.Tensor:
+    """Dispatch ``x`` (G, S, D) by the given routing, run the experts and
+    the shared expert, and gather: returns (G, S, D) in ``x``'s dtype."""
+
+    g, s, _ = x.shape
+    buf, route_rows = dispatch(x, cfg, gate_w, expert_idx)
     w = lambda name: p[name].to(L.COMPUTE_DTYPE)  # noqa: E731
-    h1 = torch.bmm(buf, w("w1"))
-    h3 = torch.bmm(buf, w("w3"))
-    h = F.silu(h1.float()).to(L.COMPUTE_DTYPE) * h3
-    out_buf = torch.bmm(h, w("w2"))                                     # (E, G*cap, D)
-
-    y = out_buf[flat_e, rows] * keep[..., None].to(L.COMPUTE_DTYPE)    # (G, S*k, D)
-    y = y.reshape(g, s, k, d).sum(dim=2)
+    y = gather_out(experts(buf, w("w1"), w("w3"), w("w2")), route_rows, g, s, cfg.top_k)
     if cfg.d_ff_shared:
+        xc = x.to(L.COMPUTE_DTYPE)
         gate = torch.sigmoid(_f32_product(xc, p["shared_gate"])).to(L.COMPUTE_DTYPE)
         y = y + gate * L.apply_glu(p["shared"], xc)
     return y.to(x.dtype)
@@ -179,6 +198,79 @@ def apply_moe(p, x: torch.Tensor, cfg: MoEConfig):
     return combine(p, x, cfg, gate_w, expert_idx), aux_loss(probs, expert_idx, cfg)
 
 
+# ---------------------------------------------------------------------------
+# A rank's part on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+def apply_moe_tp(p, sp, xn, cfg: MoEConfig, lay, *, seq: bool):
+    """:func:`apply_moe` as a rank's part, by the reference's rules:
+    ``router`` and ``shared_gate`` FSDP-only (gathered whole), the experts'
+    ``w1`` / ``w3`` column-parallel on ``d_ff_expert`` and ``w2``
+    row-parallel, their partial sums reduced over ``model`` (all-reduced,
+    or under ``cfg.rs_output`` reduce-scattered over D, as the reference's
+    ``constrain(out_buf, (None, None, None, "model"))`` pins it), the
+    shared expert through :func:`layers.apply_glu_tp`.
+
+    ``xn`` and the result are in the residual layout (``seq``: the
+    sequence split over ``model``).  Routing groups are formed on the
+    global batch: when a group of :func:`_merge` spans the dp ranks
+    (decode, short sequences), the rows are all-gathered over the dp axes
+    and every dp rank routes the whole batch, as GSPMD replicates a group
+    dim the dp axes cannot split, and keeps its rows.  Returns ``(y,
+    aux)``: ``aux`` this rank's term of the reference's mean over groups
+    (the dp ranks' terms add up to it, ``spmd.dp_sum``)."""
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import spmd
+
+    mesh, dp = lay.mesh, lay.dp
+    n_dp = mesh.size(dp) if lay.rows_split else 1
+    b, s_loc = xn.shape[:2]
+    s = s_loc * (lay.model if seq else 1)
+    merge = _merge(b * n_dp, s)
+    gather_rows = n_dp > 1 and b % merge != 0
+    x_rows = C.gather(xn, mesh, dp, 0) if gather_rows else xn
+    # The router reads the stream whole over model, each model rank the
+    # same: its gradient is whole on each (sliced back, not summed).
+    x_route = C.gather(x_rows, mesh, "model", 1, grad="slice") if seq else x_rows
+    x_exp = spmd.tp_enter(x_rows, lay, seq)
+    bb, d = x_route.shape[0], x_route.shape[2]
+    groups = bb // merge
+    xg_route = x_route.reshape(groups, merge * s, d)
+    xg = x_exp.reshape(groups, merge * s, d)
+
+    router = spmd.use(p["router"].to(L.COMPUTE_DTYPE), sp["router"], lay)
+    gate_w, expert_idx, probs = route({"router": router}, xg_route, cfg)
+    aux = aux_loss(probs, expert_idx, cfg) / n_dp
+
+    buf, route_rows = dispatch(xg, cfg, gate_w, expert_idx)
+    w = {n: spmd.use(p[n].to(L.COMPUTE_DTYPE), sp[n], lay) for n in ("w1", "w3", "w2")}
+    out_buf = experts(buf, w["w1"], w["w3"], w["w2"])            # partial over model
+    flat_e, rows, keep = route_rows
+    if cfg.rs_output and lay.model > 1:
+        out_buf = C.scatter(out_buf, mesh, "model", 2)
+        # The combine reads this rank's features: its gate gradients are
+        # partial and summed over model.
+        keep = C.enter(keep, mesh, "model")
+        y = gather_out(out_buf, (flat_e, rows, keep), groups, merge * s, cfg.top_k)
+        y = C.gather(y, mesh, "model", 2, grad="slice")
+    else:
+        y = gather_out(C.reduce(out_buf, mesh, "model"), route_rows, groups, merge * s,
+                       cfg.top_k)
+    y = y.reshape(bb, s, d)
+    if seq:
+        y = C.split(y, mesh, "model", 1)
+    if gather_rows:
+        y = C.local_block(y, mesh, dp, 0)
+    if cfg.d_ff_shared:
+        gw = spmd.use(p["shared_gate"].to(L.COMPUTE_DTYPE), sp["shared_gate"], lay)
+        gw = spmd.norm_weight(gw, lay, seq)
+        gate = torch.sigmoid(_f32_product(xn, gw)).to(L.COMPUTE_DTYPE)
+        y = y + gate * L.apply_glu_tp(p["shared"], sp["shared"], xn, lay, seq=seq)
+    return y.to(xn.dtype), aux
+
+
 def moe_active_params(cfg: MoEConfig) -> int:
     """Per-token active parameter count (routed top-k, router, shared)."""
 
@@ -194,7 +286,11 @@ __all__ = [
     "MoEConfig",
     "aux_loss",
     "apply_moe",
+    "apply_moe_tp",
     "combine",
+    "dispatch",
+    "experts",
+    "gather_out",
     "init_moe",
     "moe_active_params",
     "positions",

@@ -217,10 +217,136 @@ def decode_mamba2(p, xin, cfg: SSMConfig, state):
     return out, state
 
 
+# ---------------------------------------------------------------------------
+# A rank's part on a (data, model) mesh
+# ---------------------------------------------------------------------------
+#
+# The reference's rules: ``wz`` / ``wx`` / ``wdt`` column-parallel (the
+# heads split over ``model``), ``wbc`` and ``conv_w_bc`` / ``conv_b_bc``
+# whole (B and C computed alike on every model rank), ``conv_w_x`` and the
+# ``_VEC_MODEL`` leaves (``conv_b_x``, ``dt_bias``, ``A_log``, ``D``,
+# ``norm_w``) on the rank's channels or heads, ``out_proj`` row-parallel.
+# The stream is whole over ``model`` (the reference never
+# sequence-shards a Mamba layer: ``constrain_batch(x, allow_seq=False)``).
+
+
+def _check_groups(cfg: SSMConfig, lay) -> None:
+    if lay.model > 1 and cfg.n_groups != 1:
+        raise ValueError(f"the sharded Mamba2 block reads one B/C group, not {cfg.n_groups}")
+
+
+def _finalize_tp(p, sp, y, z, xin, lay):
+    """:func:`_finalize` on this rank's channels: the gated RMSNorm's mean
+    over the whole ``d_inner`` (``spmd.rms_norm_split``), ``out_proj``
+    row-parallel, its partial sums reduced in fp32 and rounded once, as
+    one card rounds the whole sum (bf16 partials rounded on each rank move
+    the reduced model's gradients by 3-4% through the Mamba2 layers)."""
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import spmd
+
+    b, s = xin.shape[0], xin.shape[1]
+    y = y.reshape(b, s, z.shape[-1]).to(L.COMPUTE_DTYPE)
+    y = y * F.silu(z.float()).to(L.COMPUTE_DTYPE)
+    y = spmd.rms_norm_split(y, p["norm_w"], lay)
+    w = spmd.use(p["out_proj"].to(L.COMPUTE_DTYPE), sp["out_proj"], lay)
+    out = torch.matmul(y.float(), w.float())
+    return C.reduce(out, lay.mesh, "model").to(xin.dtype)
+
+
+def apply_mamba2_tp(p, sp, xin, cfg: SSMConfig, lay):
+    """:func:`apply_mamba2` as a rank's part: ``xin`` (B, S, D) this rank's
+    rows, whole over ``model``; the scan runs on this rank's heads.
+    Returns the block's output (B, S, D), whole over ``model``."""
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import spmd
+
+    _check_groups(cfg, lay)
+    mesh = lay.mesh
+    xe = C.enter(xin, mesh, "model")
+    z = spmd.plain(xe, p["wz"], sp["wz"], lay)
+    xu = spmd.plain(xe, p["wx"], sp["wx"], lay)
+    dt = spmd.plain(xe, p["wdt"], sp["wdt"], lay)
+    bc = spmd.plain(xin, p["wbc"], sp["wbc"], lay)
+    xu, _ = _causal_conv(xu, p["conv_w_x"], p["conv_b_x"], cfg.d_conv)
+    bc, _ = _causal_conv(bc, p["conv_w_bc"], p["conv_b_bc"], cfg.d_conv)
+    b, s, di = xu.shape
+    gn = cfg.n_groups * cfg.d_state
+    x = xu.reshape(b, s, di // cfg.headdim, cfg.headdim)
+    # Each rank's heads read all of B and C: their gradients are partial,
+    # summed over model in fp32 (the scan reads them in fp32).
+    bc = C.enter(bc.float(), mesh, "model")
+    Bm = bc[..., :gn].reshape(b, s, cfg.n_groups, cfg.d_state)
+    Cm = bc[..., gn:].reshape(b, s, cfg.n_groups, cfg.d_state)
+    dtv, A = _rates(p, dt)
+    y, _ = _ssd_chunked(x, dtv, A, Bm, Cm, cfg)
+    y = y + p["D"].float()[None, None, :, None] * x.float()
+    return _finalize_tp(p, sp, y, z, xin, lay)
+
+
+def decode_mamba2_tp(p, sp, xin, cfg: SSMConfig, lay, state, head_axes=("model",)):
+    """:func:`decode_mamba2` as a rank's part; ``state`` holds this rank's
+    leaves, written in place: ``ssm`` (B, H_s, N, P) its heads over
+    ``head_axes`` (``sharding.cache_pspec``: ``model``, with a batch of 1
+    the dp axes and ``model``), ``conv_x`` and ``conv_bc`` whole over
+    ``model`` (``d_conv - 1`` does not split).  The rank convolves its
+    channels, and the new ``conv_x`` window is all-gathered whole before
+    it is written.  Where the state's heads are not the rank's model
+    heads (a batch of 1), the step's per-head inputs are gathered whole
+    over ``model``, the recurrence runs on the state's heads, and its
+    outputs are gathered back over ``head_axes``."""
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import spmd
+
+    _check_groups(cfg, lay)
+    mesh, r = lay.mesh, lay.model_index
+    z = spmd.plain(xin, p["wz"], sp["wz"], lay)
+    xu = spmd.plain(xin, p["wx"], sp["wx"], lay)
+    dt = spmd.plain(xin, p["wdt"], sp["wdt"], lay)
+    bc = spmd.plain(xin, p["wbc"], sp["wbc"], lay)
+    di = xu.shape[-1]
+    cx = state["conv_x"]
+    xu, win = _causal_conv(xu, p["conv_w_x"], p["conv_b_x"], cfg.d_conv,
+                           conv_state=cx.narrow(-1, r * di, di))
+    win = C.all_gather(win, mesh, "model", 2)
+    bc, conv_bc = _causal_conv(bc, p["conv_w_bc"], p["conv_b_bc"], cfg.d_conv,
+                               conv_state=state["conv_bc"])
+    b = xin.shape[0]
+    gn = cfg.n_groups * cfg.d_state
+    hm = di // cfg.headdim
+    x = xu[:, 0].reshape(b, hm, cfg.headdim).float()
+    dtv, A = _rates(p, dt[:, 0])
+    dv = p["D"].float()
+    hs = state["ssm"].shape[1]
+    h0 = mesh.index(head_axes) * hs
+    same = hs == hm and h0 == r * hm
+    if not same:  # whole over model, then the state's heads
+        x, dtv = (C.all_gather(t, mesh, "model", 1)[:, h0:h0 + hs] for t in (x, dtv))
+        A, dv = (C.all_gather(t, mesh, "model", 0)[h0:h0 + hs] for t in (A, dv))
+    Bh = bc[:, :, :gn].float().expand(b, hs, gn)                   # (B, H_s, N): one group
+    Ch = bc[:, :, gn:].float().expand(b, hs, gn)
+    decay = torch.exp(A[None] * dtv)
+    h = state["ssm"] * decay[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", Bh * dtv[..., None], x)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h)
+    y = y + dv[None, :, None] * x
+    if not same:  # back to the rank's model heads
+        y = C.all_gather(y, mesh, head_axes, 1)[:, r * hm:(r + 1) * hm]
+    out = _finalize_tp(p, sp, y[:, None], z, xin, lay)
+    state["ssm"].copy_(h)
+    state["conv_x"].copy_(win)
+    state["conv_bc"].copy_(conv_bc)
+    return out, state
+
+
 __all__ = [
     "SSMConfig",
     "apply_mamba2",
+    "apply_mamba2_tp",
     "decode_mamba2",
+    "decode_mamba2_tp",
     "init_mamba2",
     "init_mamba2_state",
 ]

@@ -34,6 +34,7 @@ import torch.utils.checkpoint
 from repro_torch.configs import ArchConfig
 from repro_torch.core import execution as X
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -447,7 +448,7 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
 
 
 # ---------------------------------------------------------------------------
-# The dense family on a (data, model) mesh: a rank's part
+# Every family on a (data, model) mesh: a rank's part
 # ---------------------------------------------------------------------------
 #
 # ``lay`` (``distributed.spmd.Layout``) holds the mesh, the params' spec
@@ -456,14 +457,11 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
 # output, each sub-block's output, the residual carry at each layer, the
 # logits), the residual stream here *is* in that layout: its rows this
 # rank's share of the batch over the dp axes, its sequence split over
-# ``model`` under ``seq_shard`` (else whole), the logits' vocab over
-# ``model``.
-
-
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: the {cfg.family} family on a sharded mesh is slice 14's "
-                         "(only the dense family runs sharded)")
+# ``model`` under ``seq_shard`` (else whole; a Mamba2 family's always
+# whole, as the reference's ``allow_seq=(kind != "mamba")`` keeps it),
+# the logits' vocab over ``model`` where the vocab splits (whisper's
+# 51,865 does not: its logits are whole, as its ``constrain_batch`` drops
+# the indivisible axis).
 
 
 def _seq_local(x, lay, seq: bool):
@@ -475,19 +473,35 @@ def _seq_local(x, lay, seq: bool):
     return x.narrow(1, lay.model_index * c, c)
 
 
+def stream_seq(cfg: ArchConfig, lay, b: int, s: int) -> bool:
+    """Is the residual stream of ``b`` rows of ``s`` positions
+    sequence-sharded over ``model``?"""
+
+    return block_kind(cfg) != "mamba" and lay.seq_sharded((b, s, cfg.d_model))
+
+
+def vocab_split(lay, spec, dim: int) -> bool:
+    """Does the vocab dim ``dim`` of ``spec`` split over ``model``?"""
+
+    return lay.model > 1 and spmd.splits_model(spec, dim)
+
+
 def embed_tokens_sharded(params, cfg: ArchConfig, batch, lay, *, seq: bool):
     """The vocab-parallel embedding: each rank looks up the token ids in
     its rows of ``embed`` (``P("model", None)``), the others give zeros,
     and the partial rows are all-reduced over ``model`` (reduce-scattered
-    along the sequence under ``seq``).  Embedding inputs are sliced."""
+    along the sequence under ``seq``).  A vocab ``model`` does not divide
+    is replicated: each rank looks up its own positions.  Embedding inputs
+    are sliced."""
 
     if cfg.embed_inputs:
         return _seq_local(batch["embeds"].to(L.COMPUTE_DTYPE), lay, seq)
     emb, spec = params["embed"], lay.specs["embed"]
-    spmd.require_model(spec, "embed", lay, 0)
     ids = batch["tokens"].long()
-    if lay.model == 1:
-        return _seq_local(emb[ids].to(L.COMPUTE_DTYPE), lay, seq)
+    if not vocab_split(lay, spec, 0):
+        # Under seq each model rank reads its positions: the gradient is partial.
+        emb = spmd.norm_weight(emb, lay, seq)
+        return emb[_seq_local(ids, lay, seq)].to(L.COMPUTE_DTYPE)
     v_loc = emb.shape[0]
     local = ids - lay.model_index * v_loc
     ok = (local >= 0) & (local < v_loc)
@@ -498,16 +512,31 @@ def embed_tokens_sharded(params, cfg: ArchConfig, batch, lay, *, seq: bool):
     return C.reduce(x, lay.mesh, "model")
 
 
+def lm_head_sharded(x, w, spec, lay, seq: bool):
+    """The LM head on the residual stream: vocab-parallel (every position,
+    this rank's vocab) where ``spec`` splits the vocab over ``model``, else
+    the whole vocab at this rank's positions (their gradient partial under
+    ``seq``)."""
+
+    if vocab_split(lay, spec, 1):
+        return spmd.row(spmd.tp_enter(x, lay, seq), w, spec, lay)
+    return ops.gemm(x, spmd.norm_weight(spmd.use(w, spec, lay), lay, seq))
+
+
 def _attn_block_sharded(p, sp, x, cfg: ArchConfig, lay, positions, seq: bool, attn_backend):
+    """An attention block and its GLU or MoE, a rank's part: ``(x, aux)``."""
+
     acfg = attn_config(cfg)
     h = L.apply_attention_tp(p["attn"], sp["attn"],
                              L.rms_norm(x, spmd.norm_weight(p["ln1"], lay, seq), cfg.norm_eps),
                              acfg, lay, positions=positions, seq=seq, backend=attn_backend)
     x = x + h
-    h = L.apply_glu_tp(p["mlp"], sp["mlp"],
-                       L.rms_norm(x, spmd.norm_weight(p["ln2"], lay, seq), cfg.norm_eps),
-                       lay, seq=seq)
-    return x + h
+    xn = L.rms_norm(x, spmd.norm_weight(p["ln2"], lay, seq), cfg.norm_eps)
+    if "moe" in p:
+        h, aux = M.apply_moe_tp(p["moe"], sp["moe"], xn, cfg.moe, lay, seq=seq)
+    else:
+        h, aux = L.apply_glu_tp(p["mlp"], sp["mlp"], xn, lay, seq=seq), 0.0
+    return x + h, aux
 
 
 def forward_lm_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
@@ -515,55 +544,103 @@ def forward_lm_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str
     """:func:`forward_lm` on a mesh: returns ``(logits, aux)``, the logits
     this rank's rows (B_local, S, V / model), their vocab split over
     ``model`` as the reference's ``constrain_batch(logits, extra=("model",))``
-    pins them; ``aux`` 0 (the dense family).  Each layer's FSDP gathers run
-    inside its body, so ``remat`` gathers again in the backward."""
+    pins them; ``aux`` this rank's term of the MoE router loss (the dp
+    ranks' terms add up to the reference's; 0 for the other families).
+    Each layer's FSDP gathers run inside its body, so ``remat`` gathers
+    again in the backward.  The hybrid's shared block runs after each
+    group of Mamba2 layers on the stream whole over ``model``."""
 
-    _require_dense(cfg)
     b, s = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[:2]
-    seq = lay.seq_sharded((b, s, cfg.d_model))
+    kind = block_kind(cfg)
+    seq = stream_seq(cfg, lay, b, s)
     x = embed_tokens_sharded(params, cfg, batch, lay, seq=seq)
     positions = torch.arange(s, device=x.device)[None, :]
     specs = spmd.layer_specs(lay.specs["blocks"])
 
-    def body(x, p):
-        return _attn_block_sharded(p, specs, x, cfg, lay, positions, seq, attn_backend)
+    if kind == "mamba":
+        def body(x, p):
+            h = S.apply_mamba2_tp(p["mamba"], specs["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps),
+                                  cfg.ssm, lay)
+            return x + h, 0.0
+    else:
+        def body(x, p):
+            return _attn_block_sharded(p, specs, x, cfg, lay, positions, seq, attn_backend)
 
-    if remat:
-        body = _remat(body)
     layers = _unstack(_cast_params(params["blocks"]), cfg.n_layers)
-    for i in range(cfg.n_layers):
-        x = body(x, layers[i])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    every = cfg.shared_attn_every
+    if every:
+        shared, shared_specs = _cast_params(params["shared"]), lay.specs["shared"]
+        shared_fn = lambda xx: _attn_block_sharded(shared, shared_specs, xx, cfg, lay,  # noqa: E731
+                                                   positions, False, attn_backend)[0]
+        if remat:
+            body, shared_fn = _remat(body), _remat(shared_fn)
+        for g in range(n_groups(cfg)):
+            for i in range(g * every, (g + 1) * every):
+                x, _ = body(x, layers[i])
+            x = shared_fn(x)
+    else:
+        if remat:
+            body = _remat(body)
+        for i in range(cfg.n_layers):
+            x, aux_i = body(x, layers[i])
+            aux = aux + aux_i
     x = L.rms_norm(x, spmd.norm_weight(params["final_norm"], lay, seq), cfg.norm_eps)
-    x = spmd.tp_enter(x, lay, seq)
-    spmd.require_model(lay.specs["lm_head"], "lm_head", lay, 1)
-    logits = spmd.row(x, params["lm_head"].to(L.COMPUTE_DTYPE), lay.specs["lm_head"], lay)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    logits = lm_head_sharded(x, params["lm_head"].to(L.COMPUTE_DTYPE), lay.specs["lm_head"], lay,
+                             seq)
+    return logits, aux
 
 
-def cross_entropy_sharded(logits, labels, lay, mask=None):
-    """The vocab-parallel cross-entropy of this rank's rows: the row max,
+def cross_entropy_sharded(logits, labels, lay, mask=None, *, vocab_split: bool = True,
+                          seq: bool = False):
+    """The cross-entropy of this rank's rows: vocab-parallel (the row max,
     the sum of exponentials and the target's logit each reduced over
-    ``model``; the sum over this rank's tokens divided by the *global*
-    token count (the dp ranks' counts all-reduced), so that the dp ranks'
-    terms add up to the reference's mean (``spmd.dp_sum``)."""
+    ``model``), or over a whole vocab at this rank's positions (``seq``:
+    split over ``model``, their sums reduced there); the sum over this
+    rank's tokens divided by the *global* token count (the dp ranks'
+    counts all-reduced), so that the dp ranks' terms add up to the
+    reference's mean (``spmd.dp_sum``)."""
 
     lf = logits.float()
-    mx = C.all_reduce(lf.amax(dim=-1).detach(), lay.mesh, "model", op="max")
-    shifted = lf - mx[..., None]
-    lse = torch.log(C.reduce(torch.exp(shifted).sum(dim=-1), lay.mesh, "model"))
-    v_loc = lf.shape[-1]
-    local = labels.long() - lay.model_index * v_loc
-    ok = (local >= 0) & (local < v_loc)
-    tgt = shifted.gather(-1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
-    tgt = C.reduce(torch.where(ok, tgt, torch.zeros((), device=tgt.device)), lay.mesh, "model")
+    if vocab_split:
+        mx = C.all_reduce(lf.amax(dim=-1).detach(), lay.mesh, "model", op="max")
+        shifted = lf - mx[..., None]
+        lse = torch.log(C.reduce(torch.exp(shifted).sum(dim=-1), lay.mesh, "model"))
+        v_loc = lf.shape[-1]
+        local = labels.long() - lay.model_index * v_loc
+        ok = (local >= 0) & (local < v_loc)
+        tgt = shifted.gather(-1, torch.clamp(local, 0, v_loc - 1)[..., None])[..., 0]
+        tgt = C.reduce(torch.where(ok, tgt, torch.zeros((), device=tgt.device)), lay.mesh, "model")
+    else:
+        shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(shifted).sum(dim=-1))
+        tgt = shifted.gather(-1, labels.long()[..., None])[..., 0]
     ll = tgt - lse
     if mask is None:
         num, count = ll.sum(), torch.tensor(float(ll.numel()), device=ll.device)
     else:
         mask = mask.float()
         num, count = (ll * mask).sum(), mask.sum()
-    count = C.all_reduce(count.detach(), lay.mesh, lay.dp)
+    axes = tuple(lay.dp or ())
+    if seq:
+        num = C.reduce(num, lay.mesh, "model")
+        axes += ("model",)
+    count = C.all_reduce(count.detach(), lay.mesh, axes)
     return -num / torch.clamp(count, min=1.0)
+
+
+def sharded_ce(logits, batch, lay, spec, seq: bool):
+    """:func:`cross_entropy_sharded` of a forward's logits against the
+    batch's labels (and mask), the head's ``spec`` saying how the vocab
+    lies: whole at this rank's positions under ``seq``, else split."""
+
+    split = vocab_split(lay, spec, 1)
+    local = not split and seq
+    labels, mask = batch["labels"], batch.get("mask")
+    if local:
+        labels = _seq_local(labels, lay, True)
+        mask = _seq_local(mask, lay, True) if mask is not None else None
+    return cross_entropy_sharded(logits, labels, lay, mask, vocab_split=split, seq=local)
 
 
 def loss_fn_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
@@ -573,41 +650,89 @@ def loss_fn_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = 
 
     logits, aux = forward_lm_sharded(params, cfg, batch, lay, attn_backend=attn_backend,
                                      remat=remat)
-    ce = cross_entropy_sharded(logits, batch["labels"], lay, batch.get("mask"))
+    b, s = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[:2]
+    ce = sharded_ce(logits, batch, lay, lay.specs["lm_head"], stream_seq(cfg, lay, b, s))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def decode_step_sharded(params, cfg: ArchConfig, batch, state, pos, lay, cache_spec):
-    """:func:`decode_step` on a mesh: this rank's rows, its slice of each
-    cache's length (``cache_spec``, the caches' ``sharding.cache_pspec``),
-    the logits' vocab over ``model``; dense caches only (the reference
-    never runs the paged engine on a data/model mesh)."""
+def cache_plan(cache_k, spec, lay, acfg: L.AttnConfig, pos, b: int) -> dict:
+    """How one KV cache of the step lies: its length's axes (``spec``, the
+    cache's ``sharding.cache_pspec``; dim 2), its global length and the
+    step's write plan (``layers.cache_split_plan``), one for every layer."""
 
-    _require_dense(cfg)
+    axes = SH._axes(spec[2])
+    s_local = cache_k.shape[2]
+    s_total = s_local * lay.mesh.size(axes)
+    plan = L.cache_split_plan(pos, b, s_local, s_total, lay, axes, acfg.window, cache_k.device)
+    return {"len_axes": axes, "s_total": s_total, "plan": plan}
+
+
+def _decode_attn_block_sharded(p, sp, x, cfg: ArchConfig, acfg: L.AttnConfig, lay, k, v, kv,
+                               pos, live):
+    h = L.decode_attention_tp(p["attn"], sp["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps), acfg,
+                              lay, k, v, pos, plan=kv["plan"], s_total=kv["s_total"],
+                              len_axes=kv["len_axes"], live=live)
+    x = x + h
+    xn = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + M.apply_moe_tp(p["moe"], sp["moe"], xn, cfg.moe, lay, seq=False)[0]
+    return x + L.apply_glu_tp(p["mlp"], sp["mlp"], xn, lay, seq=False)
+
+
+def _decode_mamba_sharded(params, cfg: ArchConfig, x, state, pos, lay, cache_specs):
+    """:func:`_decode_mamba` as a rank's part: the SSM states on their heads
+    (``cache_specs``), the hybrid's shared block over its ring, split as
+    its ``shared_k`` spec says."""
+
+    every = cfg.shared_attn_every
+    n_run = n_groups(cfg) * every if every else cfg.n_layers
+    specs = spmd.layer_specs(lay.specs["blocks"])
+    head_axes = SH._axes(cache_specs["mamba"]["ssm"][2])
+    if every:
+        axes = SH._axes(cache_specs["shared_k"][2])
+        sc = state["shared_k"].shape[2] * lay.mesh.size(axes)
+        shared_cfg = dataclasses.replace(attn_config(cfg), window=sc if sc < 524288 else None)
+        kv = cache_plan(state["shared_k"], cache_specs["shared_k"], lay, shared_cfg, pos,
+                        x.shape[0])
+    for i in range(n_run):
+        p = layer_params(params["blocks"], i)
+        h, _ = S.decode_mamba2_tp(p["mamba"], specs["mamba"], L.rms_norm(x, p["ln"], cfg.norm_eps),
+                                  cfg.ssm, lay, layer_params(state["mamba"], i), head_axes)
+        x = x + h
+        if every and (i + 1) % every == 0:
+            g = i // every
+            x = _decode_attn_block_sharded(params["shared"], lay.specs["shared"], x, cfg,
+                                           shared_cfg, lay, state["shared_k"][g],
+                                           state["shared_v"][g], kv, pos, None)
+    return x
+
+
+def decode_step_sharded(params, cfg: ArchConfig, batch, state, pos, lay, cache_specs):
+    """:func:`decode_step` on a mesh: this rank's rows (every row when the
+    dp axes do not divide the batch: ``lay.rows_split`` false), its part of
+    each cache (``cache_specs``, the state's ``sharding.cache_pspec`` tree:
+    a KV cache's length split over ``model``, or over the dp axes and
+    ``model`` for a batch of 1; an SSM state's heads likewise), the
+    logits' vocab over ``model``; dense caches only (the reference never
+    runs the paged engine on a data/model mesh)."""
+
     if "pages_k" in state:
         raise ValueError("the paged arena is not sharded over a data/model mesh")
     x = embed_tokens_sharded(params, cfg, batch, lay, seq=False)
     b = x.shape[0]
-    acfg = attn_config(cfg)
-    if cache_spec[2] is not None and cache_spec[2] != ("model",):
-        raise ValueError(f"a cache length split over {cache_spec[2]!r} (a batch the dp axes "
-                         "cannot split) is slice 14's")
-    split = cache_spec[2] == ("model",)
-    s_local = state["k"].shape[2]
-    s_total = s_local * (lay.model if split else 1)
-    plan = L.cache_split_plan(pos, b, s_local, lay, split, x.device)
-    specs = spmd.layer_specs(lay.specs["blocks"])
-    live = batch.get("live")
-    for i in range(cfg.n_layers):
-        p = layer_params(params["blocks"], i)
-        h = L.decode_attention_tp(p["attn"], specs["attn"], L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                                  acfg, lay, state["k"][i], state["v"][i], pos, plan=plan,
-                                  s_total=s_total, split=split, live=live)
-        x = x + h
-        x = x + L.apply_glu_tp(p["mlp"], specs["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps),
-                               lay, seq=False)
+    if block_kind(cfg) == "mamba":
+        x = _decode_mamba_sharded(params, cfg, x, state, pos, lay, cache_specs)
+    else:
+        acfg = attn_config(cfg)
+        kv = cache_plan(state["k"], cache_specs["k"], lay, acfg, pos, b)
+        specs = spmd.layer_specs(lay.specs["blocks"])
+        live = batch.get("live")
+        for i in range(cfg.n_layers):
+            x = _decode_attn_block_sharded(layer_params(params["blocks"], i), specs, x, cfg, acfg,
+                                           lay, state["k"][i], state["v"][i], kv, pos, live)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = spmd.row(x, params["lm_head"].to(L.COMPUTE_DTYPE), lay.specs["lm_head"], lay)
+    logits = lm_head_sharded(x, params["lm_head"].to(L.COMPUTE_DTYPE), lay.specs["lm_head"], lay,
+                             False)
     return logits, state
 
 
@@ -615,6 +740,7 @@ __all__ = [
     "attn_config",
     "block_kind",
     "cache_len",
+    "cache_plan",
     "cross_entropy",
     "cross_entropy_sharded",
     "decode_step_sharded",
@@ -629,7 +755,11 @@ __all__ = [
     "init_decode_state_paged",
     "init_lm",
     "layer_params",
+    "lm_head_sharded",
     "loss_fn",
     "n_groups",
     "prefill",
+    "sharded_ce",
+    "stream_seq",
+    "vocab_split",
 ]

@@ -29,8 +29,8 @@ Composes:
 
 On a :class:`~repro_torch.launch.mesh.RankMesh` (``mesh=``) each process
 is one rank of the ``(data, model)`` / ``(pod, data, model)`` mesh and
-the trainer runs the dense family's sharded step
-(:func:`sharded_train_step`): the params and the AdamW state are this
+the trainer runs the sharded step (:func:`sharded_train_step`; every
+family it trains): the params and the AdamW state are this
 rank's shards by the reference's rules (FSDP over ``data`` when
 ``TrainerConfig.fsdp``, tensor-parallel over ``model``), built one leaf at
 a time from the seeded generator (the same numbers as the one-card
@@ -42,9 +42,11 @@ world.
 
 It trains the families whose batches ``SyntheticLM`` gives (tokens and
 labels): dense, MoE (the router's auxiliary loss in the gradient), Mamba2
-and hybrid.  The enc-dec family (``frames``) and embedding inputs
-(``embeds``) raise at construction, where the reference's trainer fails
-at its first step.
+and hybrid, on one card or on a mesh.  The enc-dec family (``frames``)
+and embedding inputs (``embeds``) raise at construction, where the
+reference's trainer fails at its first step; the enc-dec's sharded
+gradient step is :func:`sharded_train_step` on
+``model_zoo.make_loss_fn(cfg, mesh=)`` directly.
 """
 
 from __future__ import annotations

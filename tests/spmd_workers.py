@@ -1,10 +1,12 @@
-"""Rank functions for ``tests/test_torch_spmd.py``, run in spawned
+"""Rank functions for ``tests/test_torch_spmd*.py``, run in spawned
 ``torch.distributed`` processes (``launch.mesh.spawn_ranks``): this module
 is imported there by its path, so it imports the port only.
 
 :func:`mesh_run` builds the reduced internlm2-1.8b trainer on one mesh
 from the reference's parameters and reports, on rank 0, what the test
-holds against the reference and the one-process port.
+holds against the reference and the one-process port; :func:`family_run`
+runs the other families' cases (the trainer, gradients, prefill and
+decode steps, the MoE routing optionally forced).
 """
 
 import contextlib
@@ -27,26 +29,46 @@ ARCH = "internlm2-1.8b"
 
 @contextlib.contextmanager
 def counting():
-    """``{"gemm": calls through the GEMM funnel, "bytes": {kind: bytes}}``
-    of what runs inside."""
+    """``{"gemm": calls through the GEMM funnel, "flash": full-sequence
+    attention calls, "bytes": {kind: bytes}}`` of what runs inside."""
 
-    seen = {"gemm": 0, "bytes": {}}
-    orig = X.dispatch_gemm
+    seen = {"gemm": 0, "flash": 0, "bytes": {}}
+    orig, orig_flash = X.dispatch_gemm, X.dispatch_flash_attention
 
     def gemm(*a, **k):
         seen["gemm"] += 1
         return orig(*a, **k)
 
+    def flash(*a, **k):
+        seen["flash"] += 1
+        return orig_flash(*a, **k)
+
     def coll(kind, nbytes):
         seen["bytes"][kind] = seen["bytes"].get(kind, 0) + nbytes
 
-    X.dispatch_gemm = gemm
+    X.dispatch_gemm, X.dispatch_flash_attention = gemm, flash
     C.COLLECTIVE_OBSERVERS.append(coll)
     try:
         yield seen
     finally:
         C.COLLECTIVE_OBSERVERS.remove(coll)
-        X.dispatch_gemm = orig
+        X.dispatch_gemm, X.dispatch_flash_attention = orig, orig_flash
+
+
+@contextlib.contextmanager
+def local_mean_norm():
+    """A planted sharding fault: ``spmd.rms_norm_split`` taking its mean
+    over this rank's features alone, as a rank-local norm would."""
+
+    from repro_torch.distributed import spmd
+    from repro_torch.models import layers as L
+
+    real = spmd.rms_norm_split
+    spmd.rms_norm_split = lambda x, w, lay, eps=1e-5: L.rms_norm(x, w, eps)
+    try:
+        yield
+    finally:
+        spmd.rms_norm_split = real
 
 
 def _gathered_logits(logits, mesh):
@@ -175,3 +197,178 @@ def card_run(rank, plan):
     out["scattered"] = C.reduce_scatter(torch.arange(8.0, device=mesh.device).reshape(4, 2), mesh,
                                         "data", 0).cpu()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The other families (tests/test_torch_spmd_{moe,ssm,encdec}.py)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def forced_routing(ids, mesh):
+    """``moe.route`` patched to take the given top-k ids, one (G, S, k)
+    array a call in call order, each over the whole batch's routing
+    groups: a rank routing only its own groups takes its block of them
+    (its dp index).  The gate weights stay the port's probabilities at
+    those ids, renormalised."""
+
+    from repro_torch.models import moe as M
+
+    real = M.route
+    calls = [0]
+
+    def route(p, x, cfg):
+        _, _, probs = real(p, x, cfg)
+        idx = torch.from_numpy(ids[calls[0]]).long()
+        calls[0] += 1
+        g = x.shape[0]
+        if idx.shape[0] != g:
+            i = mesh.index(SH.dp_axes(mesh))
+            idx = idx[i * g:(i + 1) * g]
+        assert tuple(idx.shape[:2]) == tuple(x.shape[:2]), (idx.shape, x.shape)
+        gate_w = probs.gather(-1, idx)
+        return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), idx, probs
+
+    M.route = route
+    try:
+        yield calls
+    finally:
+        M.route = real
+
+
+def _maybe_forced(ids, mesh):
+    return forced_routing(ids, mesh) if ids is not None else contextlib.nullcontext([0])
+
+
+def _rows(tree, mesh, b):
+    spec = SH.batch_pspec(mesh, b)
+    return {k: SH.local_slice(torch.as_tensor(v), spec, mesh) for k, v in tree.items()}
+
+
+def _family_grads(cfg, mesh, params_np, batch, ids, seq_shard):
+    """Loss and whole gradients of one batch (no remat: a forced routing is
+    read once a layer in order)."""
+
+    params, _ = train_state_from_jax(params_np, None, device="cpu", cfg=cfg, mesh=mesh)
+    lf = Z.make_loss_fn(cfg, mesh=mesh, remat=False, seq_shard=seq_shard)
+    rows = _rows(batch, mesh, next(iter(batch.values())).shape[0])
+    with _maybe_forced(ids, mesh) as calls:
+        loss, metrics, grads = O.value_and_grad(lf, params, rows)
+    grads = spmd.sync_grads(grads, lf.layout.specs, mesh)
+    return {"loss": float(spmd.dp_sum(loss, mesh)), "aux": float(spmd.dp_sum(metrics["aux"], mesh)),
+            "grads": spmd.gather_full(grads, lf.layout.specs, mesh), "route_calls": calls[0]}
+
+
+def _family_prefill(cfg, mesh, serve, batch, ids):
+    b = batch["tokens"].shape[0]
+    with torch.no_grad(), _maybe_forced(ids, mesh):
+        with counting() as seen:
+            logits = Z.make_prefill_fn(cfg, mesh=mesh)(serve, _rows(batch, mesh, b))
+    return {"logits": Z.gather_logits(logits, cfg, mesh, b), "gemm_calls": seen["gemm"],
+            "flash_calls": seen["flash"]}
+
+
+def _family_decode(cfg, mesh, serve, case):
+    """A bulk prefill of ``prefill_len`` tokens through the decode step,
+    then one step, over a cache of ``seq_len`` positions: the last step's
+    logits, whole, and its GEMM calls and collective bytes."""
+
+    from repro_torch.models import encdec as E
+
+    tokens = torch.as_tensor(case["tokens"])
+    b, n = tokens.shape[0], case["prefill_len"]
+    state = Z.init_decode_state(cfg, b, case["seq_len"], device="cpu", mesh=mesh)
+    decode = Z.make_decode_fn(cfg, mesh=mesh, batch=b, seq_len=case["seq_len"])
+    rows = _rows({"tokens": tokens}, mesh, b)["tokens"]
+    with torch.no_grad(), _maybe_forced(case.get("ids"), mesh):
+        if "frames" in case:
+            frames = _rows({"f": case["frames"]}, mesh, b)["f"]
+            E.fill_cross_kv_sharded(serve, cfg, frames, state, decode.layout, decode.cache_specs)
+        if n:
+            _, state = Z.make_prefill_fn(cfg, with_cache=True, mesh=mesh, batch=b,
+                                         seq_len=case["seq_len"])(
+                serve, {"tokens": rows[:, :n]}, state, 0)
+        with counting() as seen:
+            logits, _ = decode(serve, {"tokens": rows[:, n:n + 1]}, state, n)
+    return {"logits": Z.gather_logits(logits, cfg, mesh, b), "gemm_calls": seen["gemm"],
+            "flash_calls": seen["flash"], "collective_bytes": seen["bytes"],
+            "specs": {k: v for k, v in decode.cache_specs.items() if k != "mamba"},
+            "ssm_spec": decode.cache_specs.get("mamba", {}).get("ssm")}
+
+
+def _family_step(cfg, mesh, params_np, batch):
+    """One ``trainer.sharded_train_step`` on the training loss (remat):
+    the enc-dec's gradient step, which the trainer's data cannot feed."""
+
+    from repro_torch.runtime.trainer import sharded_train_step
+
+    params, opt_state = train_state_from_jax(params_np, None, device="cpu", cfg=cfg, mesh=mesh)
+    lf = Z.make_loss_fn(cfg, mesh=mesh)
+    rows = _rows(batch, mesh, next(iter(batch.values())).shape[0])
+    _, _, m = sharded_train_step(lf, params, opt_state, rows, O.AdamWConfig(), lf.layout)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def _family_train(cfg, mesh, case):
+    params, _ = train_state_from_jax(case["params"], None, device="cpu", cfg=cfg, mesh=mesh)
+    tcfg = TrainerConfig(ckpt_dir=case["ckpt_dir"], ckpt_every=100, **case["tcfg"])
+    trainer = Trainer(cfg, tcfg=tcfg, opt_cfg=O.AdamWConfig(**case["opt"]), device="cpu",
+                      mesh=mesh, params=params)
+    history = []
+    for step in range(tcfg.steps):
+        batch, _ = trainer.next_batch(step)
+        with counting() as seen:
+            m = trainer.train_step(batch)
+        history.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                        "lr": float(m["lr"]), "aux": float(m.get("aux", 0.0)),
+                        "gemm_calls": seen["gemm"], "collective_bytes": seen["bytes"]})
+        trainer.step = step + 1
+    # Each step again from the reference's state before it: AdamW turns
+    # last-bit differences of near-zero gradients into whole-lr updates,
+    # so free-running grad norms part by more than their tolerance (the
+    # reference's own trainer on two meshes does too).
+    replay = []
+    for step, state in enumerate(case.get("states", ())):
+        trainer.params, trainer.opt_state = train_state_from_jax(*state, device="cpu", cfg=cfg,
+                                                                 mesh=mesh)
+        m = trainer.train_step(trainer.next_batch(step)[0])
+        replay.append({k: float(v) for k, v in m.items() if k in ("loss", "grad_norm", "lr", "aux")})
+    return {"history": history, "replay": replay}
+
+
+def family_run(rank, plan):
+    """Every case of ``plan["cases"]`` on one mesh (``plan["mesh"]``:
+    ``(data, model)``); rank 0 returns ``{case name: results}``.  A case
+    holds the config (``cfg``), the reference's numpy params and any of:
+    ``train`` (the trainer's steps), ``grads`` (a batch, its forced routing
+    ``ids`` or ``None``; with ``seq_shard`` also sequence-sharded),
+    ``prefill`` (a batch and ``ids``), ``decodes`` (name -> a decode case
+    of :func:`_family_decode`)."""
+
+    data, model = plan["mesh"]
+    mesh = make_host_mesh(data=data, model=model, device="cpu")
+    out = {}
+    for case in plan["cases"]:
+        cfg, res = case["cfg"], {}
+        if "train" in case:
+            res.update(_family_train(cfg, mesh, dict(case["train"], params=case["params"])))
+        if "grads" in case:
+            g = case["grads"]
+            res["grads"] = _family_grads(cfg, mesh, case["params"], g["batch"], g["ids"], False)
+            if g.get("seq_shard"):
+                res["grads_seq_shard"] = _family_grads(cfg, mesh, case["params"], g["batch"],
+                                                       g["ids"], True)
+        if "step" in case:  # the sharded gradient step itself (AdamW, the global norm)
+            res["step"] = _family_step(cfg, mesh, case["params"], case["step"])
+        serve = params_from_jax(case["params"], cfg, device="cpu", mesh=mesh)
+        if "prefill" in case:
+            res["prefill"] = _family_prefill(cfg, mesh, serve, case["prefill"]["batch"],
+                                             case["prefill"]["ids"])
+            if case["prefill"].get("local_norm"):  # a planted fault: each rank's own mean
+                with local_mean_norm():
+                    res["prefill_local_norm"] = _family_prefill(cfg, mesh, serve, case["prefill"]["batch"],
+                                                                case["prefill"]["ids"])
+        for name, dec in case.get("decodes", {}).items():
+            res[name] = _family_decode(cfg, mesh, serve, dec)
+        out[case["name"]] = res
+    return out if rank == 0 else None
