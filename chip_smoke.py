@@ -289,6 +289,31 @@ Phases (any failed check exits non-zero and prints no result line):
      arguments a step reads).  ``python3 chip_smoke.py --phase25``
      runs phase 0 and this phase alone (whisper's one-card steps then run
      here too); ``--phase24`` phase 0 and phase 24 alone.
+ 26. the class-sharded step a rank a pod: 2 spawned ranks share the card
+     over ``gloo`` as a (pod=2, data=1, model=1) mesh, pod 0 the big class
+     (``gemm_cuda``) and pod 1 the little one (``gemm_cuda_lean``), each
+     rank drawing the full-width internlm2-1.8b from seed 0 (digests held
+     equal across the ranks).  (a) ``launch/serve.py --class-sharded on
+     --one-shot`` on the ranks, and phase 20's teacher-forced replay
+     through ``serve.mixed_decode_step`` on a rank's pod mesh: each pod's
+     logits bitwise equal to that pod's rows of phase 20's stream step,
+     the tokens bitwise the stream path's, 169 launches a recurrence step
+     of the rank's own kernel and none of the other; (b) the dense and
+     paged engines on phase 20's requests: completed == submitted on
+     both ranks, tokens bitwise phase 20's stream engines' and equal on
+     both ranks, 24 ``paged_attention_cuda`` a step a rank on its pod's
+     page partition, a rank's KV bytes half the stream engine's; (c) 3
+     mixed training steps of 8 x 512 tokens (12 padded rows) at 12 of 24
+     layers (``SPMD_LAYERS``): losses and grad norms within
+     ``POD_LOSS_RTOL`` of the same-cut stream mixed trainer's (run here
+     first), 339 launches a step a rank of its own kernel, all-reduce
+     bytes a step a rank equal to the dry-run's for the cell on the
+     abstract pod mesh, each step's peak within ``P25_MEM_RTOL`` of the
+     dry-run's bytes; then a straggler hook (each rank its own times,
+     pod 1 slow) gives both ranks the same new split.  The mixed decode
+     step's wall ms on the ranks is printed beside the stream step's.
+     Phase 20's stream results are its references (made here when
+     ``--phase26`` runs phase 0 and this phase alone).
  Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
  of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
@@ -297,7 +322,7 @@ engines and the kernel step of phases 11 and 12, the paths of phases
 13-15, the training runs and little-tree steps of phases 16-17, the
 training runs of phase 18, the steps of phase 19, the paths and steps
 of phases 20-21, the lanes of phase 22 and each rank's steps and paths of
-phases 24 and 25 resets the kernels' launch counters just before it and
+phases 24, 25 and 26 resets the kernels' launch counters just before it and
 reads them just after; the launches of phases 1, 5, 6, 10 and the
 comparisons of phases 7, 8, 11, 12, 13-15 and 20 count for no path.  The engines' tokens/s are smoke readings over a few steps, not
 throughputs: ``python -m repro_torch.launch.profile_decode`` measures those.
@@ -3484,7 +3509,6 @@ def phase20(torch, counts, reset, s2: dict) -> dict:
     wall time beside the single-program step's and the mixed step's on one
     stream."""
 
-    import contextlib
     import statistics
 
     import numpy as np
@@ -3569,7 +3593,11 @@ def phase20(torch, counts, reset, s2: dict) -> dict:
                     out.append(lg[:, 0].float())
         return out
 
-    mixed = replay(step, contextlib.nullcontext())
+    mixed, replay_ms = pod_replay(torch, step, params, padded, total, len(padded))
+    streams = {"tokens": {k: r["tokens"] for k, r in runs.items()},
+               "kv": {k: r["engine"].kv_stats() for k, r in runs.items() if r["engine"] is not None},
+               "replay": mixed, "replay_tokens": padded, "replay_ms": replay_ms}
+    mixed = [m.cuda() for m in mixed]
     diffs = {}
     for pod, cls in enumerate(("big", "little")):
         ref = replay(decode, asym.execution_context(cls))
@@ -3636,7 +3664,7 @@ def phase20(torch, counts, reset, s2: dict) -> dict:
                     for k, r in runs.items()},
            "paged_vs_dense_logit_diff": dlog, "planted_fault": caught, "replay_logit_diff": diffs,
            "step_wall_ms": walls, "step_wall_ms_median": med, "phase2_engine_step_ms": phase2_ms,
-           "traced": traced}
+           "traced": traced, "streams": streams}
     del runs, dense, paged, params
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"  phase 20 took {out['phase_s']:.1f} s", flush=True)
@@ -5387,7 +5415,357 @@ def phase25(torch, counts, reset, one_card_train: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the class-sharded step a rank a pod, 2 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# The pods as ranks: (pod, data, model), pod 0 the big class on gemm_cuda
+# and pod 1 the little class on gemm_cuda_lean, as in phases 20-21.
+POD_MESH = (2, 1, 1)
+# (c)'s mixed training steps at SPMD_LAYERS of the 24 layers (phase 24's
+# cut): each rank holds a whole fp32 replica with AdamW's moments (about 18
+# GB at 12 layers, 30 GB at 24); with the activations, the gathered
+# gradients and two CUDA contexts, 24 layers do not fit the card twice.
+POD_STEPS = 3
+# Against the same-cut stream mixed step on one card (phase 26 runs it
+# first): the epilogue's sums are a + b on both sides, AdamW runs on every
+# rank on the same reduced gradients.
+POD_LOSS_RTOL = POD_NORM_RTOL = 1e-6
+# (c)'s straggler feedback: each rank's pod_time_hook gives other times;
+# every rank's scheduler takes its own pod's entry, gathered (pod 1 slow).
+POD_TIMES = ([1.0, 9.0], [2.0, 10.0])
+POD_TIMEOUT_S = 600
+
+
+def pod_serve_argv(*extra) -> list:
+    return ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--gen-len", str(GEN_LEN), "--seed", "0"] + MIXED + list(extra)
+
+
+POD_PATHS = {"dense": [], "paged": ["--paged", "on", "--page-size", str(PAGE_SIZE)],
+             "one_shot": ["--one-shot"]}
+
+
+def pod_train_args(steps: int):
+    from repro_torch.launch import train as TL
+
+    return TL.build_parser().parse_args([
+        "--arch", ARCH, "--steps", str(steps), "--global-batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--ckpt-every", "100", "--seed", "0", "--heterogeneous"] + MIXED)
+
+
+def pod_replay(torch, step, params, padded, total: int, rows: int) -> tuple:
+    """Teacher-forced replay of ``padded`` through the mixed decode
+    ``step`` (phase 20's): the logits of the generated positions, one
+    (rows, vocab) fp32 tensor a step, on the host, and every step's wall
+    ms (CUDA-synchronised)."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as Z
+
+    cfg = get_config(ARCH)
+    toks = torch.as_tensor(padded, device="cuda")
+    st, out, walls = Z.init_decode_state(cfg, rows, total, device="cuda"), [], []
+    with torch.no_grad():
+        for t in range(total - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, st = step(params, {"tokens": toks[:, t:t + 1]}, st, t)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if t >= PROMPT_LEN - 1:
+                out.append(lg[:, 0].float().cpu())
+    return out, walls
+
+
+def pod_streams(torch) -> dict:
+    """Phase 20's stream references, made here when phase 26 runs alone:
+    the three mixed paths' tokens, the engines' KV bytes, and the stream
+    step's replay of the dense engine's tokens."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as Z
+
+    cfg = get_config(ARCH)
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    out = {"tokens": {}, "kv": {}}
+    for label, extra in POD_PATHS.items():
+        _, tok, eng, _ = run_serve(pod_serve_argv(*extra), params=params)
+        out["tokens"][label] = tok
+        if eng is not None:
+            out["kv"][label] = eng.kv_stats()
+        del eng
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    padded, _ = SV.pad_requests(out["tokens"]["dense"], asym.batch_layout(BATCH))
+    total = PROMPT_LEN + GEN_LEN
+    step = SV.mixed_decode_step(cfg, asym, make_host_mesh(pod=2), len(padded), total)
+    out["replay"], out["replay_ms"] = pod_replay(torch, step, params, padded, total, len(padded))
+    out["replay_tokens"] = padded
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase26_rank(rank: int, plan: dict) -> dict:
+    """One pod's rank of phase 26 (a spawned process, the card shared):
+    (a) the one-shot mixed decode and the stream step's replay, (b) the
+    dense and paged engines, (c) the mixed training steps and the
+    straggler feedback; each path's launches read just after it."""
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import RankMesh, make_host_mesh
+    from repro_torch.models import model_zoo as Z
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def counts():
+        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES}
+
+    def reset():
+        G.reset_launches()
+        PA.reset_launches()
+        FA.reset_launches()
+
+    mesh = make_host_mesh(pod=POD_MESH[0], device="cuda")
+    check(isinstance(mesh, RankMesh) and mesh.shape == dict(zip(("pod", "data", "model"), POD_MESH)),
+          f"rank {rank}: make_host_mesh(pod=2) gave {mesh}")
+    out: dict = {"rank": rank, "pod": mesh.coord("pod"), "backend": mesh.transport, "paths": {}}
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = Z.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    C.check_replicas(params, mesh)  # every rank drew the same weights
+    out["init_s"] = time.perf_counter() - t0
+    for label, extra in POD_PATHS.items():
+        reset()
+        t = time.perf_counter()
+        s, tok, eng, _ = run_serve(pod_serve_argv(*extra), params=params)
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t, "launches": counts(), "tokens": tok,
+               "summary": {k: s[k] for k in ("class_sharded", "device_class", "shard_classes",
+                                             "pod_ranks", "tokens_per_s")}}
+        if eng is not None:
+            rec.update(steps=PROMPT_LEN * eng.stats.admission_rounds + eng._step_calls,
+                       kv=eng.kv_stats(), completed=eng.stats.completed,
+                       submitted=int(eng._next_rid), pod=eng.pod)
+        else:
+            rec["steps"] = PROMPT_LEN + GEN_LEN
+        out["paths"][label] = rec
+        del eng
+    # The stream step's replay on the ranks: the rank's pod's rows.
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1)
+    padded = plan["replay_tokens"]
+    total = PROMPT_LEN + GEN_LEN
+    step = SV.mixed_decode_step(cfg, asym, mesh, len(padded), total)
+    rows = len(padded) // POD_MESH[0]
+    reset()
+    lg, out["replay_ms"] = pod_replay(torch, step, params, padded, total, rows)
+    out["replay_launches"] = counts()
+    pod = out["pod"]
+    out["replay"] = [x[pod * rows:(pod + 1) * rows].clone() for x in lg]
+    del params, lg, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c): the mixed training steps, a pod a rank.
+    t0 = time.perf_counter()
+    trainer = TL.make_trainer(pod_train_args(POD_STEPS), cfg=spmd_config())
+    torch.cuda.synchronize()
+    out["train_init_s"] = time.perf_counter() - t0
+    check(trainer.pod_ranks and trainer.class_sharded_step.pod == pod,
+          f"rank {rank}: the trainer is not a rank a pod ({trainer.mesh})")
+    out["shards"] = [(p.pod, p.device_class, p.backend) for p in trainer.class_sharded_step.provenance]
+    seen: dict = {}
+
+    def note(kind, nbytes):
+        seen[kind] = seen.get(kind, 0) + nbytes
+
+    steps = []
+    for i in range(POD_STEPS):
+        batch, layout = trainer.next_batch(i)
+        seen.clear()
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        C.COLLECTIVE_OBSERVERS.append(note)
+        t = time.perf_counter()
+        try:
+            m = trainer.train_step(batch)
+            torch.cuda.synchronize()
+        finally:
+            C.COLLECTIVE_OBSERVERS.remove(note)
+        steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "wall_s": time.perf_counter() - t, "launches": counts(),
+                      "collective_bytes": dict(seen), "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "rows": int(batch["tokens"].shape[0]), "sizes": layout.sizes})
+    out["steps"] = steps
+    # The straggler feedback: this rank's hook, its own pod's entry gathered.
+    trainer.pod_time_hook = lambda step: POD_TIMES[rank]
+    before = trainer.asym.batch_layout(TRAIN_BATCH).sizes
+    trainer.asym.observe_step(layout.sizes, trainer.pod_times(trainer.pod_time_hook(POD_STEPS)))
+    out["das"] = {"before": before, "after": trainer.asym.batch_layout(TRAIN_BATCH).sizes,
+                  "rates": [float(r) for r in trainer.asym.scheduler.rates]}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del trainer
+    return out
+
+
+def phase26(torch, counts, reset, streams=None) -> dict:
+    """The class-sharded step a rank a pod: the one-card references (phase
+    20's stream results, made here when it did not run; the same-cut
+    stream mixed trainer), the dry-run's counts on the abstract pod mesh,
+    then 2 ranks (``phase26_rank``) and their checks."""
+
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import RankMesh, spawn_ranks
+
+    t_phase = time.perf_counter()
+    if streams is None:
+        streams = pod_streams(torch)
+    t_streams = time.perf_counter() - t_phase
+    cfg = spmd_config()
+    # The same-cut stream mixed trainer on one card, and its batches.
+    trainer = TL.make_trainer(pod_train_args(POD_STEPS), cfg=cfg)
+    check(trainer.class_sharded_enabled() and not trainer.pod_ranks, "phase 26: the stream trainer")
+    one = []
+    for i in range(POD_STEPS):
+        batch, layout = trainer.next_batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        one.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "wall_s": time.perf_counter() - t0})
+    shape = ShapeSpec("phase26_train", TRAIN_SEQ, int(batch["tokens"].shape[0]), "train")
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    del trainer, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_dry = time.perf_counter()
+    dry = D.run_cell(cfg, shape, little_spec="h100-little", batch=meta_batch, write=False,
+                     mesh=RankMesh.abstract(("pod", "data", "model"), POD_MESH))
+    check(dry["ok"], f"dry-run a rank a pod: {dry.get('error')}")
+    t_dry = time.perf_counter() - t_dry
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(phase26_rank, POD_MESH[0], {"replay_tokens": streams["replay_tokens"]},
+                        device="cuda", timeout=POD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    gemms = 7 * 24 + 1
+    kernels = ("gemm_cuda", "gemm_cuda_lean")
+    for r in ranks:
+        pod, own = r["pod"], kernels[r["pod"]]
+        check(r["backend"] == "gloo", f"rank {r['rank']} backend {r['backend']}")
+        for label, p in r["paths"].items():
+            c, paged = p["launches"], label == "paged"
+            want = {own: gemms * p["steps"], kernels[1 - pod]: 0,
+                    "paged_attention_cuda": 24 * p["steps"] if paged else 0, "flash_attention_cuda": 0}
+            check(c == want, f"phase 26 rank {r['rank']} {label}: launches {c}, want {want}")
+            check(np.array_equal(p["tokens"], streams["tokens"][label]),
+                  f"phase 26 rank {r['rank']} {label}: tokens differ from the stream pods'")
+            check(p["summary"]["class_sharded"] and p["summary"]["pod_ranks"] == POD_MESH[0]
+                  and [tuple(x[:2]) for x in p["summary"]["shard_classes"]] == [(0, "big"), (1, "little")],
+                  f"phase 26 rank {r['rank']} {label}: {p['summary']}")
+            if label != "one_shot":
+                check(p["completed"] == p["submitted"] == BATCH and p["pod"] == pod,
+                      f"phase 26 rank {r['rank']} {label}: completed {p['completed']} of {p['submitted']}")
+                key = "kv_bytes" if label == "dense" else "arena_kv_bytes"
+                check(2 * p["kv"]["pod_kv_bytes"] == streams["kv"][label][key],
+                      f"phase 26 rank {r['rank']} {label}: KV bytes {p['kv']['pod_kv_bytes']} vs the "
+                      f"stream engine's {streams['kv'][label][key]}")
+        rows = r["replay"][0].shape[0]
+        for t, (got, want) in enumerate(zip(r["replay"], streams["replay"], strict=True)):
+            check(torch.equal(got, want[pod * rows:(pod + 1) * rows]),
+                  f"phase 26 rank {r['rank']}: replay step {t} logits differ from the stream step's")
+        check(r["replay_launches"][own] == gemms * (PROMPT_LEN + GEN_LEN - 1)
+              and r["replay_launches"][kernels[1 - pod]] == 0,
+              f"phase 26 rank {r['rank']} replay launches {r['replay_launches']}")
+        check(r["shards"] == MIXED_SHARDS, f"phase 26 rank {r['rank']} shards {r['shards']}")
+        per_step = 4 * forward_gemm_calls(cfg) - 1
+        total_bytes = dry["memory"]["total_bytes"]
+        for i, (st, o) in enumerate(zip(r["steps"], one, strict=True)):
+            c = st["launches"]
+            check(c[own] == per_step and c[kernels[1 - pod]] == 0 and c["flash_attention_cuda"] == 0,
+                  f"phase 26 rank {r['rank']} step {i}: launches {c}, want {per_step} {own}")
+            check(abs(st["loss"] - o["loss"]) <= POD_LOSS_RTOL * abs(o["loss"]),
+                  f"phase 26 rank {r['rank']} step {i}: loss {st['loss']} vs the stream step's {o['loss']}")
+            check(abs(st["grad_norm"] - o["grad_norm"]) <= POD_NORM_RTOL * abs(o["grad_norm"]),
+                  f"phase 26 rank {r['rank']} step {i}: grad norm {st['grad_norm']} vs {o['grad_norm']}")
+            check(st["collective_bytes"] == dry["hlo_cost"]["by_collective"],
+                  f"phase 26 rank {r['rank']} step {i}: collective bytes {st['collective_bytes']} != "
+                  f"dry-run {dry['hlo_cost']['by_collective']}")
+            check(abs(st["peak_bytes"] - total_bytes) <= P25_MEM_RTOL * total_bytes,
+                  f"phase 26 rank {r['rank']} step {i}: peak {st['peak_bytes'] / 1e9:.3f} GB vs dry-run "
+                  f"{total_bytes / 1e9:.3f} GB")
+    r0, r1 = ranks
+    for label in POD_PATHS:
+        check(np.array_equal(r0["paths"][label]["tokens"], r1["paths"][label]["tokens"]),
+              f"phase 26 {label}: the ranks' tokens differ")
+    check(r0["das"] == r1["das"] and r0["das"]["after"] != r0["das"]["before"],
+          f"phase 26: the straggler feedback's split {r0['das']} vs {r1['das']}")
+
+    walls = [[round(st["wall_s"], 2) for st in r["steps"]] for r in ranks]
+    # The mixed decode step's wall ms: the replay's steps after the first
+    # (each rank one pod, its logits gathered; the stream step the pods in turn).
+    step_ms = {"stream": statistics.median(streams["replay_ms"][1:]),
+               "ranks": [statistics.median(r["replay_ms"][1:]) for r in ranks]}
+    print(f"phase 26: {ARCH} a rank a pod, {len(ranks)} ranks sharing the card over {r0['backend']}: "
+          f"(a) one-shot and the stream step's replay bitwise the stream pods' ({GEN_LEN} steps); "
+          f"(b) dense and paged engines' tokens bitwise, {BATCH} of {BATCH} completed on each rank, "
+          f"KV bytes a rank {r0['paths']['dense']['kv']['pod_kv_bytes']} / "
+          f"{r0['paths']['paged']['kv']['pod_kv_bytes']} of the stream engines' "
+          f"{streams['kv']['dense']['kv_bytes']} / {streams['kv']['paged']['arena_kv_bytes']}; "
+          f"launches by rank {[{k: r['paths'][k]['launches'] for k in POD_PATHS} for r in ranks]}",
+          flush=True)
+    print(f"  (c) {cfg.n_layers} of 24 layers: losses {[round(st['loss'], 6) for st in r0['steps']]} vs "
+          f"stream {[round(o['loss'], 6) for o in one]}, grad norms "
+          f"{[round(st['grad_norm'], 6) for st in r0['steps']]} vs {[round(o['grad_norm'], 6) for o in one]}; "
+          f"step wall s by rank {walls} (gloo through the host: not a multi-card time); all-reduce bytes a "
+          f"step a rank {r0['steps'][0]['collective_bytes']} = dry-run; peak GB by rank "
+          f"{[[round(st['peak_bytes'] / 1e9, 2) for st in r['steps']] for r in ranks]} vs dry-run "
+          f"{dry['memory']['total_bytes'] / 1e9:.2f}; split {r0['das']['before']} -> {r0['das']['after']} "
+          f"on both ranks", flush=True)
+    print(f"  mixed decode step wall ms (median of the replay's {len(r0['replay_ms']) - 1} steps after the "
+          f"first): a rank a pod {[round(x, 2) for x in step_ms['ranks']]}, the pods as streams "
+          f"{step_ms['stream']:.2f}; the stream trainer's steps {[round(o['wall_s'], 3) for o in one]} s",
+          flush=True)
+    out = {"mesh": list(POD_MESH), "backend": r0["backend"], "one_card": one, "step_ms": step_ms,
+           "ranks": [{k: v for k, v in r.items() if k not in ("paths", "replay")}
+                     | {"paths": {k: {kk: vv for kk, vv in p.items() if kk != "tokens"}
+                                  for k, p in r["paths"].items()}} for r in ranks],
+           "dry_run": {"collective_bytes": dry["hlo_cost"]["by_collective"],
+                       "total_bytes": dry["memory"]["total_bytes"]},
+           "launches": {k: sum(p["launches"][k] for r in ranks for p in r["paths"].values())
+                        + sum(st["launches"][k] for r in ranks for st in r["steps"])
+                        for k in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda")},
+           "streams_s": t_streams, "dry_run_s": t_dry, "ranks_s": ranks_s}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 26 took {out['phase_s']:.1f} s (stream references {t_streams:.1f} s, dry-run "
+          f"{t_dry:.1f} s, the ranks {ranks_s:.1f} s)", flush=True)
+    return out
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -5418,7 +5796,7 @@ def main() -> None:
         FA.reset_launches()
 
     alone = sys.argv[1:]
-    if alone and set(alone) <= {"--phase24", "--phase25"}:  # these phases alone (and phase 0)
+    if alone and set(alone) <= {"--phase24", "--phase25", "--phase26"}:  # alone (and phase 0)
         runs = {}
         if "--phase24" in alone:
             print("phase 24 alone: the multi-card half", flush=True)
@@ -5426,6 +5804,9 @@ def main() -> None:
         if "--phase25" in alone:  # whisper's one-card steps run here too
             print("phase 25 alone: the other families on the mesh of ranks", flush=True)
             runs["phase25"] = phase25(torch, counts, reset, {})
+        if "--phase26" in alone:  # phase 20's stream references run here too
+            print("phase 26 alone: the class-sharded step a rank a pod", flush=True)
+            runs["phase26"] = phase26(torch, counts, reset)
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "chip_smoke_alone.json"), "w") as f:
             json.dump(runs, f, indent=1, default=str)
@@ -5588,6 +5969,7 @@ def main() -> None:
     print(f"phase 20: mixed serving, {ARCH} at full width through launch/serve.py --class-sharded on: "
           f"the big pod on gemm_cuda, the little pod on gemm_cuda_lean, a CUDA stream each", flush=True)
     mixed_serve = phase20(torch, counts, reset, s2)
+    streams20 = mixed_serve.pop("streams")  # phase 26's references (tensors: not in the detail)
     detail["mixed_serve"] = mixed_serve
     gc.collect()
     torch.cuda.empty_cache()
@@ -5618,6 +6000,14 @@ def main() -> None:
           f"{SPMD_MESH[0]}, model={SPMD_MESH[1]}) mesh of ranks sharing the card", flush=True)
     spmd_families = phase25(torch, counts, reset, {ENCDEC_ARCH: train_encdec["steps"][:P25_STEPS]})
     detail["spmd_families"] = spmd_families
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 26: the class-sharded step a rank a pod, {ARCH} at full width: {POD_MESH[0]} ranks "
+          f"sharing the card, the big pod's on gemm_cuda and the little pod's on gemm_cuda_lean",
+          flush=True)
+    pod_ranks = phase26(torch, counts, reset, streams20)
+    detail["pod_ranks"] = pod_ranks
+    del streams20
     for run in (train_moe, *train_ssm.values(), train_encdec, mixed_train):
         for name, err in run["backward_products"]["max_abs_err"].items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
@@ -5701,6 +6091,9 @@ def main() -> None:
     moe_launches["gemm_cuda"]["families_spmd_4_ranks"] = spmd_families["launches"]["gemm_cuda"]
     moe_launches["flash_attention_cuda"]["families_spmd_prefill_4_ranks"] = \
         spmd_families["launches"]["flash_attention_cuda"]
+    # Phase 26, the pods as ranks: every path's and step's launches, summed over the ranks.
+    for name in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda"):
+        moe_launches[name]["internlm2_pod_ranks_2"] = pod_ranks["launches"][name]
     # Phase 22, the fleet: each lane's launches read from its own run.
     for label, run in fleet["lanes"].items():
         for name in ("gemm_cuda", "gemm_cuda_lean", "paged_attention_cuda"):
@@ -5719,6 +6112,8 @@ def main() -> None:
     detail["engines"] = {"dense": s2, "paged": s3, "one_shot_little": s4,
                          "paged_vs_dense_logit_diff": dlog, "paged_token_agreement": agree,
                          "little_token_agreement": agree4, "replay_logit_diff": replay}
+    detail["script_s"] = time.perf_counter() - t_script
+    print(f"chip_smoke.py: every phase passed in {detail['script_s']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_detail.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)

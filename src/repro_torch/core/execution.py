@@ -607,7 +607,7 @@ def current_context() -> Optional[ExecutionContext]:
 
 
 # ---------------------------------------------------------------------------
-# Per-class programs within one step (one stream per pod on the card)
+# Per-class programs within one step (a rank a pod, or a stream a pod)
 # ---------------------------------------------------------------------------
 
 
@@ -638,9 +638,20 @@ class ClassShardedFn:
     provenance: tuple[ShardProvenance, ...]
     trace_log: list
     mixed: bool  # False on the single-class fallback (one context, no pods)
+    pod: Optional[int] = None  # this rank's pod when the pods are ranks
 
     def __call__(self, *args):
         return self.fn(*args)
+
+
+@dataclasses.dataclass(frozen=True)
+class PodRanks:
+    """The pod axis of a mesh of ranks, as :func:`class_sharded` hands it
+    to an epilogue: the axis ``name`` and the ``mesh`` whose group over it
+    the epilogue's collectives (``distributed.collectives``) take."""
+
+    name: str
+    mesh: object
 
 
 def _signature(tree) -> tuple:
@@ -677,35 +688,50 @@ def class_sharded(
     The paper's §5.3/§5.4 schemes run *different* control trees on the big
     and LITTLE clusters simultaneously inside one GEMM.  The reference
     does it with a ``shard_map`` over the mesh's pod axis and a
-    ``lax.switch`` on each shard's class index.  On one card a pod is a
-    CUDA stream (``launch.mesh.PodMesh.pod_streams``): the wrapper splits
-    every argument by ``in_specs`` into per-pod views
-    (``distributed.sharding.split_pods``: no copies, so the params and the
-    paged arena are shared, not duplicated), then issues each pod's shard
-    in turn, under its own class's :class:`ExecutionContext` — every
-    ``ops.gemm`` in pod *i* resolves class(*i*)'s blocks and kernel at the
-    shard's own shape — on that pod's stream.  Each pod's stream first
-    waits on the caller's stream (the inputs were written there), and the
-    caller's stream waits on every pod's before anything is read or
-    reduced; the inputs stay alive until that join, and every output
-    tensor is marked as used on the caller's stream (``record_stream``),
-    so the allocator reuses no pod's block under pending work.  On the CPU
-    the pods have no streams and run in turn.  One process, one address
-    space: pods as processes over gloo would each need their own copy of
-    the weights (3.6 GB at internlm2-1.8b's width) and a host-side
-    reduction.
+    ``lax.switch`` on each shard's class index, a device a pod.  The port
+    has two realisations, by the mesh (``launch.mesh.resolve_pods`` picks
+    one):
 
-    ``contexts`` is ordered by class index; ``pod_class[i]`` is the class
-    index of pod ``i`` (``distributed.sharding.pod_class_specs``).
+    * **A rank a pod** (a :class:`~repro_torch.launch.mesh.RankMesh` with
+      a ``pod`` axis: ``torch.distributed`` ranks, each on its own card
+      under ``nccl``, or sharing one over ``gloo``).  The rank's pod is
+      ``mesh.coord(axis)``; it takes its pod's view of every argument by
+      ``in_specs`` (``distributed.sharding.pod_view``) and runs ``fn``
+      once, under ``contexts[pod_class[pod]]``.  ``epilogue(out,
+      shard_args, axis)`` then runs on this rank's output with ``axis`` a
+      :class:`PodRanks` — the one place cross-pod collectives run, as in
+      the reference's ``shard_map`` body.  Without one the outputs are
+      all-gathered over the pod group by ``out_specs``
+      (``sharding.gather_pods``).  Pods wider than one rank (``data`` or
+      ``model`` above 1) replicate their pod's program over their ranks,
+      the reference's fully manual default, and the epilogue reduces over
+      ``pod`` only.  The pods' programs run at once, on their own cards;
+      each rank holds its own copy of what is replicated (the weights).
+      ``auto`` takes this route only where every rank has a card.
+    * **A stream a pod** (a :class:`~repro_torch.launch.mesh.PodMesh`: one
+      process on one card).  The wrapper splits every argument by
+      ``in_specs`` into per-pod views (``sharding.split_pods``: no
+      copies, so the params and the paged arena are shared, not
+      duplicated), then issues each pod's shard in turn, under its own
+      class's :class:`ExecutionContext`, on that pod's stream.  Each pod's
+      stream first waits on the caller's stream (the inputs were written
+      there), and the caller's stream waits on every pod's before
+      anything is read or reduced; the inputs stay alive until that join,
+      and every output tensor is marked as used on the caller's stream
+      (``record_stream``), so the allocator reuses no pod's block under
+      pending work.  On the CPU the pods have no streams and run in turn.
+      ``epilogue(outs, shard_args, axis)`` runs after the join, on the
+      caller's stream, over the per-pod outputs and arguments (lists)
+      with ``axis`` the axis name; without one the outputs are joined by
+      ``out_specs`` (``sharding.stitch_pods``).  ``on`` takes this route
+      in one process.
 
-    ``epilogue(outs, shard_args, axis)`` runs after the join, on the
-    caller's stream, over the per-pod outputs and arguments — the one
-    place a cross-pod reduction happens (the reference's ``psum``s inside
-    its ``shard_map`` body).  Without one the outputs are joined by
-    ``out_specs`` (``distributed.sharding.stitch_pods``).  With a single
-    class the fallback activates the one context around ``fn`` — no pods,
-    bitwise the single-context path — and calls ``epilogue(out, args,
-    None)``.
+    Either way every ``ops.gemm`` in pod *i* resolves class(*i*)'s blocks
+    and kernel at the shard's own shape.  ``contexts`` is ordered by class
+    index; ``pod_class[i]`` is the class index of pod ``i``
+    (``distributed.sharding.pod_class_specs``).  With a single class the
+    fallback activates the one context around ``fn`` — no pods, bitwise
+    the single-context path — and calls ``epilogue(out, args, None)``.
 
     ``fn`` must itself do no cross-pod work.  The reference's
     ``compat_shard_map`` (a shim over a ``jax`` keyword renamed between
@@ -775,6 +801,24 @@ def class_sharded(
         )
     n_pods = len(pod_class)
 
+    if hasattr(mesh, "coord"):  # a RankMesh: this rank runs its own pod
+        pod = mesh.coord(axis)
+        ctx = contexts[pod_class[pod]]
+        group = PodRanks(axis, mesh)
+
+        def ranked(*args):
+            shard_args = SH.pod_view(args, in_specs, n_pods, pod)
+            with ctx:
+                note(ctx, shard_args, mixed=True)
+                out = fn(*shard_args)
+            if epilogue is not None:
+                return epilogue(out, shard_args, group)
+            return SH.gather_pods(out, out_specs, mesh)
+
+        return ClassShardedFn(
+            fn=ranked, provenance=provenance, trace_log=trace_log, mixed=True, pod=pod
+        )
+
     def wrapped(*args):
         views: dict = {}
         shards = SH.split_pods(args, in_specs, n_pods, views)
@@ -834,6 +878,7 @@ __all__ = [
     "LEAN_VARIANTS",
     "ClassShardedFn",
     "ExecutionContext",
+    "PodRanks",
     "ShardProvenance",
     "align_backend_family",
     "backend_op",

@@ -39,15 +39,18 @@ carried to the next step keeps convergence unbiased in practice [Seide
 et al. 2014; Karimireddy et al. 2019].
 
 In the reference the pods are shards of a ``shard_map`` and the int8
-blocks travel by ``all_gather``.  Here the pods of the class-sharded step
-share one card and one address space, so the functions take a list of
-per-pod gradient trees and the gather is the list.  Neither package wires
-the reduction into a training step: the class-sharded step reduces
-exactly (``runtime.trainer.weighted_mean_epilogue``).
+blocks travel by ``all_gather``.  With a rank a pod (a ``RankMesh`` with a
+``pod`` axis) so do the port's: each rank passes its own tree and the
+codes and scales are all-gathered over the pod group.  With the pods as
+streams in one process the function takes a list of per-pod gradient
+trees and the gather is the list.  Neither package wires the reduction
+into a training step: the class-sharded step reduces exactly
+(``runtime.trainer.weighted_mean_epilogue``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -108,18 +111,42 @@ def _crosspod_mean_one(gs: Sequence[torch.Tensor], errs: Sequence[torch.Tensor])
     return (mean / len(gs)).to(gs[0].dtype), new_errs
 
 
-def compressed_crosspod_mean(grads: Sequence, err_trees: Sequence, mesh=None, *,
-                             axis: str = "pod"):
+def _crosspod_mean_rank(g: torch.Tensor, err: torch.Tensor, mesh, axis: str):
+    """One leaf on a rank: quantize ``g + err``, all-gather the int8 codes
+    and the scales over the pod group, sum them in fp32, divide by the pod
+    count (the reference's ``_crosspod_mean_one`` in its ``shard_map``)."""
+
+    gf = g.float() + err
+    q, scale = quantize_int8(gf)
+    new_err = gf - dequantize_int8(q, scale)
+    qs = all_gather(q[None], mesh, axis, 0)               # (n_pods, ...) int8 on the wire
+    scales = all_gather(scale.reshape(1), mesh, axis, 0)  # (n_pods,) fp32
+    mean = torch.tensordot(scales, qs.float(), dims=([0], [0]))
+    return (mean / mesh.size(axis)).to(g.dtype), new_err
+
+
+def compressed_crosspod_mean(grads, err_trees, mesh=None, *, axis: str = "pod"):
     """Mean of per-pod gradient trees with an int8 wire format.
 
-    ``grads``: one tree per pod, each already reduced within its pod (a
-    per-pod mean); ``err_trees``: the pods' error-feedback residuals (the
-    same structure, fp32).  Returns ``(mean_grads, new_err_trees)``: one
-    tree, the same on every pod, and one residual tree per pod.  A
-    ``mesh`` without the pod axis has one pod and passes its tree and
-    residual through, as the reference does.
+    With the pods as streams: ``grads`` is one tree per pod, each already
+    reduced within its pod (a per-pod mean), ``err_trees`` the pods'
+    error-feedback residuals (the same structure, fp32); returns
+    ``(mean_grads, new_err_trees)``: one tree, the same on every pod, and
+    one residual tree per pod.  On a ``RankMesh`` (a rank a pod) ``grads``
+    and ``err_trees`` are this rank's own trees, as the reference's
+    arguments are, and it returns the mean (the same on every rank) and
+    this rank's new residual tree.  A ``mesh`` without the pod axis has
+    one pod and passes its tree and residual through, as the reference
+    does.
     """
 
+    if hasattr(mesh, "coord"):
+        if mesh.size(axis) == 1:
+            return grads, err_trees
+        flat_e = tree_leaves(err_trees)
+        out = [_crosspod_mean_rank(g, e, mesh, axis) for g, e in zip(tree_leaves(grads), flat_e)]
+        return (tree_unflatten(grads, [m for m, _ in out]),
+                tree_unflatten(grads, [e for _, e in out]))
     if mesh is not None and axis not in mesh.axis_names:
         if len(grads) != 1:
             raise ValueError(f"{len(grads)} gradient trees on a mesh without a {axis!r} axis")
@@ -215,6 +242,41 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
     dist.all_reduce(xs, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                     group=mesh.group(axes))
     return xs.to(x.device)
+
+
+def pod_values(value, mesh, axis: str = "pod") -> Optional[list]:
+    """Every pod's ``value`` (a float from this rank's pod, or ``None``),
+    in pod order, the same list on every rank: all-gathered over the pod
+    group.  ``None`` when any pod gave ``None``."""
+
+    x = torch.tensor([math.nan if value is None else float(value)], dtype=torch.float64,
+                     device=mesh.device)
+    out = all_gather(x, mesh, axis, 0).tolist()
+    return None if any(math.isnan(v) for v in out) else out
+
+
+def _digest(x: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums over a tensor's bits (the values reinterpreted as
+    integers, and their squares, wrapping): equal tensors give equal
+    digests."""
+
+    bits = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}[x.element_size()]
+    v = x.detach().contiguous().reshape(-1).view(bits).to(torch.int64)
+    return torch.stack([v.sum(), (v * v).sum()])
+
+
+def check_replicas(tree, mesh, axis: str = "pod") -> None:
+    """Raise unless every leaf of ``tree`` is bitwise the same on every rank
+    of the ``axis`` group: each rank's digests of every leaf all-gathered
+    and compared (a ``ValueError`` naming the first leaf that differs)."""
+
+    leaves = tree_leaves(tree)
+    mine = torch.stack([_digest(x) for x in leaves])
+    every = all_gather(mine[None], mesh, axis, 0)
+    for j in range(len(leaves)):
+        if not bool((every[:, j] == every[0, j]).all()):
+            raise ValueError(f"leaf {j} of {len(leaves)} differs between the ranks of {axis!r}: "
+                             f"digests {every[:, j].tolist()}")
 
 
 def local_block(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -368,6 +430,7 @@ __all__ = [
     "COLLECTIVE_OBSERVERS",
     "all_gather",
     "all_reduce",
+    "check_replicas",
     "enter",
     "gather",
     "local_block",
@@ -377,6 +440,7 @@ __all__ = [
     "split",
     "total",
     "note_collective",
+    "pod_values",
     "quantize_int8",
     "dequantize_int8",
     "compressed_crosspod_mean",

@@ -35,8 +35,16 @@ the pods:
 
 A spec may stop above the leaves (a prefix of the argument's tree), as a
 ``PartitionSpec`` may: one ``PodSplit(0)`` covers every tensor of a batch
-dict.  :func:`split_pods` makes the per-pod views (no copies) and
-:func:`stitch_pods` joins per-pod outputs back.
+dict.  With the pods as streams in one process, :func:`split_pods` makes
+the per-pod views (no copies) and :func:`stitch_pods` joins per-pod
+outputs back.  With a rank a pod (a ``RankMesh`` with a ``pod`` axis),
+:func:`pod_view` takes this rank's pod's view and :func:`gather_pods`
+all-gathers an output's ``PodSplit`` dims over the pod group; a rank that
+holds only its own pod's state passes it under ``None`` both ways
+(``pod_decode_specs(..., held=True)``).  Inside a pod's program the pod
+axis is manual: ``constrain(..., manual=("pod",))`` drops it from an
+activation's spec, as the reference's ``activation_manual_axes`` does in
+its ``shard_map`` body.
 """
 
 from __future__ import annotations
@@ -89,7 +97,7 @@ def pod_state_specs(state_tree, *, axis: str = "pod", dim: int = 1):
 
 
 def pod_decode_specs(state_spec, *, axis: str = "pod",
-                     batch_keys: Sequence[str] = ("tokens",)):
+                     batch_keys: Sequence[str] = ("tokens",), held: bool = False):
     """(in_specs, out_specs) for a slot-table decode step over the pod axis.
 
     The serving engine's step is ``decode(params, batch, state, pos)``
@@ -99,10 +107,14 @@ def pod_decode_specs(state_spec, *, axis: str = "pod",
     pod, positions likewise, and the decode state split on dim 1 — the
     slot dim of dense caches, the *page* dim of the paged arena, which is
     pod-partitioned on pages as the dense cache is on slots.  The same
-    specs serve the engine's bulk prefill (tokens (B, P)).
+    specs serve the engine's bulk prefill (tokens (B, P)).  ``held``: each
+    rank holds its own pod's state (a rank a pod), so the state's specs
+    are ``None`` — nothing to cut on the way in, nothing to gather on the
+    way out — while the batch, the positions and the logits still split
+    and gather over the pods.
     """
 
-    sspecs = pod_state_specs(state_spec, axis=axis)
+    sspecs = None if held else pod_state_specs(state_spec, axis=axis)
     in_specs = (None, {k: PodSplit(0, axis) for k in batch_keys}, sspecs, PodSplit(0, axis))
     out_specs = (PodSplit(0, axis), sspecs)
     return in_specs, out_specs
@@ -177,6 +189,37 @@ def stitch_pods(outs: list, spec, views: Optional[dict] = None):
         return type(first)(stitch_pods([o[j] for o in outs], _sub_spec(spec, j), views)
                            for j in range(len(first)))
     return _join(outs, spec, views)
+
+
+def pod_view(tree, spec, n_pods: int, pod: int):
+    """Pod ``pod``'s tree of ``tree`` under ``spec``, the rank form of
+    :func:`split_pods`: its block of every ``PodSplit`` dim (a view), the
+    whole leaf where the spec is ``None``."""
+
+    if isinstance(tree, dict):
+        return {k: pod_view(v, _sub_spec(spec, k), n_pods, pod) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(pod_view(v, _sub_spec(spec, j), n_pods, pod) for j, v in enumerate(tree))
+    if not _is_spec_leaf(spec):
+        raise ValueError(f"a {type(spec).__name__} spec for a leaf")
+    return _shard(tree, spec, pod, n_pods, {})
+
+
+def gather_pods(tree, spec, mesh):
+    """This rank's output tree made whole, the rank form of
+    :func:`stitch_pods`: every ``PodSplit`` leaf all-gathered over its
+    axis's group along its dim (pod-major, as the views were cut); a
+    ``None`` leaf is this rank's as it is."""
+
+    from repro_torch.distributed import collectives as C
+
+    if isinstance(tree, dict):
+        return {k: gather_pods(v, _sub_spec(spec, k), mesh) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(gather_pods(v, _sub_spec(spec, j), mesh) for j, v in enumerate(tree))
+    if spec is None or not isinstance(tree, torch.Tensor):
+        return tree
+    return C.all_gather(tree, mesh, spec.axis, spec.dim)
 
 
 # ---------------------------------------------------------------------------
@@ -498,6 +541,8 @@ __all__ = [
     "pod_class_specs",
     "pod_decode_specs",
     "pod_state_specs",
+    "pod_view",
+    "gather_pods",
     "split_pods",
     "stitch_pods",
 ]

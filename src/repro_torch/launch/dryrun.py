@@ -26,8 +26,17 @@ rules (FSDP unless ``--no-fsdp``, the stream sequence-sharded unless
 shapes and report their bytes, and the record is per device (``n_chips``
 the mesh's size).  Every family runs sharded; a ``long_500k`` cell of a
 full-attention model is skipped for the reference's reason.  ``--little-spec``
-runs the cell class-sharded on one card (``execution.class_sharded``:
-pod 0 under ``--spec``, pod 1 under the little spec, in turn).
+runs the cell class-sharded (``execution.class_sharded``: pod 0 under
+``--spec``, pod 1 under the little spec): on one card the pods in turn;
+with ``--multi-pod`` a rank a pod, the reference's ``run_cell`` with
+``--multi-pod --little-spec``: rank 0 of the abstract (pod, data, model)
+mesh runs its pod's program under its pod's class over its pod's rows
+(the whole params and AdamW state, replicated over the pod's ``data`` and
+``model`` ranks, as the reference's fully manual ``shard_map``), and the
+record counts the epilogue's cross-pod collectives (a train cell's
+all-reduces) or the logits' all-gather over ``pod``.  On the 16x16 mesh,
+which has no pod axis, the cell runs sharded and single-class, as the
+reference's does.
 
 The backend is set, never probed: the cells run under an execution
 context whose GEMM backend is ``--backend`` (default ``matmul``) and whose
@@ -162,6 +171,49 @@ def _build_sharded(cfg, shape, mesh, *, remat: bool, fsdp: bool, seq_shard: bool
     return fn, (params, batch, state, pos), (2,)
 
 
+def _build_pod_ranks(cfg, shape, mesh, asym, *, remat: bool, batch=None):
+    """The class-sharded cell as rank ``mesh.rank`` runs it, a rank a pod:
+    its pod's program over the pod's rows of the whole batch (the whole
+    params, and for a decode cell its pod's rows of the state)."""
+
+    from repro_torch.distributed import sharding as SH
+
+    device = mesh.device
+    if batch is None:
+        batch = Z.batch_spec(cfg, shape, device=device)
+    if shape.kind == "train":
+        from repro_torch.runtime.trainer import build_class_sharded_grad_step
+
+        params = meta_params(cfg, train=True, device=device)
+        opt_state = O.init_opt_state(params)
+        opt_cfg = O.AdamWConfig()
+        grad_fn = build_class_sharded_grad_step(Z.make_loss_fn(cfg, remat=remat), asym, mesh)
+
+        def train_step(params, opt_state, b):
+            with torch.enable_grad():
+                l, _, grads = grad_fn(params, b)
+            params, opt_state, _ = O.adamw_update(params, grads, opt_state, opt_cfg)
+            return params, opt_state, l
+
+        train_step.provenance = grad_fn.provenance
+        return train_step, (params, opt_state, batch), (0, 1)
+    params = meta_params(cfg, train=False, device=device)
+    bspecs = SH.pod_batch_specs(batch)
+    if shape.kind == "prefill":
+        fn = asym.class_sharded(Z.make_prefill_fn(cfg, attn_backend=ATTN_BACKENDS["flash_attn"]),
+                                mesh=mesh, in_specs=(None, bspecs), out_specs=SH.PodSplit(0))
+        return fn, (params, batch), ()
+    if shape.global_batch % asym.n_pods:
+        raise ValueError(f"a batch of {shape.global_batch} does not split over {asym.n_pods} pods")
+    state = Z.decode_state_spec(cfg, shape.global_batch // asym.n_pods, shape.seq_len,
+                                device=device)
+    fn = asym.class_sharded(torch.no_grad()(Z.make_decode_fn(cfg)), mesh=mesh,
+                            in_specs=(None, bspecs, None, None),
+                            out_specs=(SH.PodSplit(0), None))
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    return fn, (params, batch, state, pos), (2,)
+
+
 def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta", mesh=None,
                fsdp: bool = True, seq_shard: bool = True, batch=None):
     """``(fn, args, alias)``: the cell's step, its inputs on ``device``, and
@@ -178,21 +230,27 @@ def build_cell(arch, shape, *, remat: bool = True, asym=None, device="meta", mes
     sharded step (``fsdp``, ``seq_shard`` as the reference's dry-run).
     ``batch`` (the whole batch, on ``device``) replaces ``batch_spec``'s
     inputs: an enc-dec's frames longer than its tokens, as
-    ``chip_smoke.py`` trains whisper-small.
+    ``chip_smoke.py`` trains whisper-small.  A multi-class ``asym`` on a
+    rank ``mesh`` whose pod axis has its pod count runs the cell a rank a
+    pod (:func:`_build_pod_ranks`).
     """
 
     from repro_torch.distributed import sharding as SH
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import PodMesh
 
     cfg = _config(arch)
     shape = _shape(cfg, shape)
+    mixed = asym is not None and len(asym.classes) > 1
     if mesh is not None:
+        if mixed and mesh.shape.get("pod") == asym.n_pods:
+            return _build_pod_ranks(cfg, shape, mesh, asym, remat=remat, batch=batch)
         return _build_sharded(cfg, shape, mesh, remat=remat, fsdp=fsdp, seq_shard=seq_shard,
                               batch=batch)
     if batch is None:
         batch = Z.batch_spec(cfg, shape, device=device)
-    mixed = asym is not None and len(asym.classes) > 1
-    mesh = make_host_mesh(pod=asym.n_pods, device=device) if mixed else None
+    # One card: the pods as streams, in any world of ranks.
+    mesh = PodMesh(("pod", "data", "model"), (asym.n_pods, 1, 1), torch.device(device)) \
+        if mixed else None
 
     if shape.kind == "train":
         params = meta_params(cfg, train=True, device=device)
@@ -284,8 +342,6 @@ def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
         exec_ctx = X.default_context(spec=get_spec(spec_name), backend=backend)
         t0 = time.time()
         with exec_ctx:
-            if mesh is not None and asym is not None:
-                raise ValueError("--little-spec runs on one card, not on a rank mesh")
             fn, args, alias = build_cell(cfg, shape, remat=remat, asym=asym, mesh=mesh,
                                          fsdp=fsdp, seq_shard=seq_shard, batch=batch)
             with op_analysis.count_ops() as cost:
@@ -311,10 +367,10 @@ def run_cell(arch, shape, *, out_dir: str = DEFAULT_OUT, force: bool = False,
             device_class=exec_ctx.device_class,
             exec_backend=exec_ctx.backend(),
             attn_backends=dict(ATTN_BACKENDS),
-            class_sharded=bool(asym is not None),
+            class_sharded=bool(provenance),
             shard_classes=(
                 [(p.pod, p.device_class, p.block_source, p.backend) for p in provenance]
-                if asym is not None else None
+                if provenance else None
             ),
             n_chips=mesh.world if mesh is not None else 1,
             mesh_shape=dict(mesh.shape) if mesh is not None else None,
@@ -370,8 +426,9 @@ def main(argv=None):
     ap.add_argument("--spec", default="h100", choices=sorted(SPECS),
                     help="class spec whose execution context runs the cells")
     ap.add_argument("--little-spec", default="", choices=[""] + sorted(SPECS),
-                    help="second device class: run the cell class-sharded on one card "
-                         "(pod 0 under --spec, pod 1 under this spec, in turn)")
+                    help="second device class: run the cell class-sharded (pod 0 under "
+                         "--spec, pod 1 under this spec): on one card in turn, with "
+                         "--multi-pod a rank a pod")
     ap.add_argument("--backend", default="matmul",
                     choices=sorted(n for n, op in X.BACKEND_OPS.items() if op == "gemm"),
                     help="GEMM dispatch entry the cells run with (never probed); the "

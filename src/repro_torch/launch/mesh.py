@@ -19,10 +19,16 @@ model=16).  The port has two kinds:
     axis names and sizes, the device, and one ``torch.cuda.Stream`` per
     pod, made on first use (on the CPU the pods run in turn).
 
-:func:`make_host_mesh` gives a :class:`PodMesh` when ``data`` and
-``model`` are 1 (the one-process default) and a :class:`RankMesh`
-otherwise; :func:`make_production_mesh` the 16x16 / 2x16x16 mesh, real
-under a launcher with that world and abstract otherwise.
+The class-sharded step's pods are ranks (a rank a pod, the reference's
+device a pod) on a :class:`RankMesh` with a ``pod`` axis, or streams in
+one process on a :class:`PodMesh`.  :func:`make_host_mesh` gives the
+rank mesh under an initialised process group whose world is ``pod · data
+· model > 1``, the :class:`PodMesh` when ``data`` and ``model`` are 1
+otherwise (one process, or a world of 1), and a :class:`RankMesh` when
+``data`` or ``model`` exceed 1; :func:`resolve_pods` decides which the
+class-sharded step takes (:func:`pod_route` is its rule);
+:func:`make_production_mesh` the 16x16 / 2x16x16 mesh, real under a
+launcher with that world and abstract otherwise.
 
 The backend is decided per node: ``nccl`` when the ranks on a node
 (a launcher's ``LOCAL_WORLD_SIZE``, else the world) have a card each, and
@@ -84,48 +90,123 @@ def _axes_of(pod: int) -> tuple:
     return ("pod", "data", "model") if pod else ("data", "model")
 
 
+def _world() -> int:
+    """The initialised process group's world, else 1."""
+
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def process_rank() -> int:
+    """This process's rank: the initialised process group's, else a
+    launcher's ``RANK``, else 0 (the one process that prints a summary)."""
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
 def make_host_mesh(*, model: int = 1, data: int = 1, pod: int = 0, device="cuda"):
     """``(pod, data, model)`` with a pod axis, else ``(data, model)``, as
     the reference's ``make_host_mesh``.
 
-    With ``data == model == 1`` a :class:`PodMesh` on ``device`` (the
-    class-sharded step's pods as streams, or the one-process default).
-    Otherwise a :class:`RankMesh` over the ranks of the initialised
-    process group, whose world must equal ``pod · data · model``; each
-    rank on ``cuda:(rank % device_count)`` for ``device="cuda"``."""
+    A :class:`RankMesh` over the ranks of the initialised process group
+    when its world is ``pod · data · model > 1`` with a pod axis (a rank a
+    pod, each pod ``data · model`` ranks wide), or when ``data`` or
+    ``model`` exceed 1 (whose world must then match); each rank on
+    ``cuda:(rank % device_count)`` for ``device="cuda"``.  Otherwise, with
+    ``data == model == 1``, a :class:`PodMesh` on ``device`` (the
+    class-sharded step's pods as streams, or the one-process default)."""
 
-    if model == 1 and data == 1:
+    sizes = ((int(pod),) if pod else ()) + (int(data), int(model))
+    world = 1
+    for n in sizes:
+        world *= n
+    if model == 1 and data == 1 and not (pod and world > 1 and _world() == world):
         device = torch.device(device)
         if pod:
             return PodMesh(("pod", "data", "model"), (int(pod), 1, 1), device)
         return PodMesh(("data", "model"), (1, 1), device)
-    sizes = ((int(pod),) if pod else ()) + (int(data), int(model))
     return RankMesh.over_world(_axes_of(pod), sizes, device=device)
 
 
-def resolve_pods(mode: str, asym, device) -> Optional[PodMesh]:
-    """The pod mesh of the class-sharded mixed step, or ``None`` for the
-    single-program step, for ``class_sharded=mode``: the one place the
-    engine, the one-shot serving path and the train CLI decide it.
+def pod_route(mode: str, n_classes: int, n_pods: int, world: int, transport: Optional[str]):
+    """The class-sharded step's route for ``class_sharded=mode``:
+    ``"ranks"`` (a rank a pod), ``"streams"`` (the pods as streams in one
+    process) or ``None`` (the single-program step).  ``world`` is the
+    process group's (1 without one), ``transport`` the backend
+    ``choose_backend`` gives its ranks (``None`` without a group).
 
-    * ``"on"``: ``asym.n_pods`` pods on ``device``, each a CUDA stream
-      there (on the CPU the pods run in turn); a ``ValueError`` with one
+    * ``"on"``: ranks under a world of ``n_pods``, streams in one process;
+      any other world raises a ``ValueError`` naming both, as does one
       device class.
-    * ``"auto"``: ``None``.  The reference's ``auto`` takes the mixed
-      step when every pod can have a device of its own.  The port never
-      places pods on separate cards: they share ``device`` as streams,
-      issued one after the other, so the mixed step costs what its pods
-      cost in turn, on any number of cards.  ``auto`` never takes it.
+    * ``"auto"``: ranks only where the world is ``n_pods`` ranks and each
+      has a card of its own (``nccl``): the reference's ``auto`` takes the
+      mixed step when ``jax.device_count() >= n_pods``.  Everywhere else
+      ``None``: pods sharing a card, as streams or as ``gloo`` ranks, run
+      one after the other and cost what their pods cost in turn.
     * ``"off"``: ``None``.
     """
 
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"class_sharded={mode!r}")
-    if mode != "on":
+    if mode == "off":
         return None
-    if len(asym.classes) < 2:
-        raise ValueError(f"class_sharded='on' needs more than one device class, "
-                         f"have {len(asym.classes)}")
+    if n_classes < 2:
+        if mode == "on":
+            raise ValueError(f"class_sharded='on' needs more than one device class, "
+                             f"have {n_classes}")
+        return None
+    if mode == "on":
+        if world == 1:
+            return "streams"
+        if world != n_pods:
+            raise ValueError(f"class_sharded='on' runs a rank a pod: {n_pods} pods need a world "
+                             f"of {n_pods} ranks; the process group has {world}")
+        return "ranks"
+    return "ranks" if world == n_pods > 1 and transport == "nccl" else None
+
+
+def resolve_pods(mode: str, asym, device):
+    """The pod mesh of the class-sharded mixed step, or ``None`` for the
+    single-program step, for ``class_sharded=mode``: the one place the
+    engine, the one-shot serving path and the train CLI decide it, by
+    :func:`pod_route` (the choice is printed to stderr).
+
+    The world is the initialised process group's, or a launcher's
+    (``torchrun`` sets ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), whose group is initialised here when the route
+    takes ranks.  Ranks give a :class:`RankMesh` with a ``pod`` axis of
+    ``asym.n_pods`` (``data = model = 1``), each rank on its own card or
+    sharing ``device``'s; streams give a :class:`PodMesh` on ``device``.
+    A rank that cannot make its process group fails the call: nothing
+    falls back to streams inside a world of ranks.
+    """
+
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    initialised = dist.is_available() and dist.is_initialized()
+    if initialised:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        transport = dist.get_backend()
+    else:
+        world, rank = int(os.environ.get("WORLD_SIZE", "1")), int(os.environ.get("RANK", "0"))
+        transport = choose_backend(rank, world, device=device, launcher=True)[0] \
+            if world > 1 else None
+    route = pod_route(mode, len(asym.classes), asym.n_pods, world, transport)
+    if route == "ranks" and not initialised:
+        init_ranks(rank, world, device=device)
+    if rank == 0 and (mode == "on" or world > 1):
+        how = {"ranks": f"pods as ranks ({world} over {transport}, a rank a pod)",
+               "streams": f"pods as streams on {device}",
+               None: "the single-program step"}[route]
+        print(f"class-sharded step ({mode}): {how}", file=sys.stderr, flush=True)
+    if route is None:
+        return None
     return make_host_mesh(pod=asym.n_pods, device=device)
 
 
@@ -411,4 +492,5 @@ def spawn_ranks(target: Callable, world: int, *args, device="cpu", timeout: floa
 
 
 __all__ = ["PodMesh", "RankMesh", "choose_backend", "init_ranks", "make_host_mesh",
-           "make_production_mesh", "rank_device", "resolve_pods", "spawn_ranks"]
+           "make_production_mesh", "pod_route", "process_rank", "rank_device", "resolve_pods",
+           "spawn_ranks"]

@@ -15,10 +15,14 @@ not read from the card.  The Mamba2 families (mamba2-1.3b, zamba2-2.7b)
 serve on dense lanes: ``--paged auto`` keeps them dense and ``--paged on``
 is refused, as in the reference; the encoder-decoder and embedding-input
 archs are refused.  ``--class-sharded on`` runs the mixed step: each pod
-decodes its request shard under its own class's control tree, the pods
-as CUDA streams on the one card (``gemm_cuda`` for the big pod,
-``gemm_cuda_lean`` for the little one); ``auto`` never takes it, since
-the port never puts pods on separate cards (``launch.mesh.resolve_pods``).
+decodes its request shard under its own class's control tree
+(``gemm_cuda`` for the big pod, ``gemm_cuda_lean`` for the little one),
+a rank a pod under a launcher's world of one rank a pod (``torchrun
+--nproc-per-node 2``: each rank holds the weights and its pod's state,
+the logits are all-gathered over the pods, only rank 0 prints the
+summary), else the pods as CUDA streams on the one card; ``auto`` takes
+it only where each pod's rank has a card of its own (``nccl``), the
+reference's ``device_count() >= n_pods`` (``launch.mesh.resolve_pods``).
 ``--fleet N`` serves through a fault-tolerant fleet of N engines
 (:class:`repro_torch.runtime.fleet.Fleet`) behind one submit front; the
 engines share the one device and one copy of the weights, and the fleet
@@ -36,6 +40,8 @@ Examples (one H100; add ``--reduced --device cpu`` to run on the CPU)::
         --batch 3 --slots-per-pod 4 --objective energy
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --class-sharded on [--paged on | --one-shot]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch internlm2-1.8b --class-sharded on [--paged on | --one-shot]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --fleet 2 [--objective energy]
 """
@@ -52,7 +58,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
 from repro_torch.distributed import sharding as SH
-from repro_torch.launch.mesh import resolve_pods
+from repro_torch.launch.mesh import process_rank, resolve_pods
 from repro_torch.models import model_zoo as Z
 from repro_torch.runtime.serving import resolve_device
 
@@ -63,11 +69,12 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda", decode=None,
-             prefill=None):
+             prefill=None, state_rows: int = 0):
     """Greedy decode: bulk prefill through the decode recurrence, then
     token by token, updating one cache in place.  ``decode`` / ``prefill``
     replace the model's (the mixed path passes its class-sharded step and
-    the bulk prefill through it).
+    the bulk prefill through it); ``state_rows`` sizes the cache when it
+    holds fewer rows than the batch (a rank a pod: its pod's rows).
 
     Returns ``(tokens, timings)``; ``timings`` splits warm-up (the prefill
     and the first decode call) from steady-state decode.
@@ -78,7 +85,7 @@ def generate(cfg, params, prompts, gen_len: int, seq_cap: int, *, device="cuda",
     b, plen = prompts.shape
     decode = decode or Z.make_decode_fn(cfg)
     prefill = prefill or Z.make_prefill_fn(cfg, with_cache=True)
-    state = Z.init_decode_state(cfg, b, seq_cap, device=device)
+    state = Z.init_decode_state(cfg, state_rows or b, seq_cap, device=device)
 
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -105,10 +112,12 @@ def mixed_decode_step(cfg, asym, mesh, batch_padded: int, seq_cap: int):
     """The decode fn wrapped so each pod decodes its request shard under
     its own class's control tree (true CA-SAS serving: one step, two
     per-class programs).  Decode is pure data parallelism over requests —
-    no cross-pod work, so no epilogue."""
+    no cross-pod work, so no epilogue.  A rank a pod holds its pod's
+    ``batch_padded / n_pods`` rows of the state (nothing to split or
+    gather); the logits are all-gathered over the pods."""
 
     state_spec = Z.init_decode_state(cfg, batch_padded, seq_cap, device="meta")
-    sspecs = SH.pod_state_specs(state_spec)
+    sspecs = None if hasattr(mesh, "coord") else SH.pod_state_specs(state_spec)
     bspecs = SH.pod_batch_specs({"tokens": 0})  # the decode batch tree
     return asym.class_sharded(
         Z.make_decode_fn(cfg),
@@ -126,23 +135,28 @@ def _shard_summary(provenance):
             "+".join(sorted({p.backend for p in provenance})))
 
 
-def _one_shot(cfg, params, asym, prompts, args, seq_cap, device):
+def _one_shot(cfg, params, asym, prompts, args, seq_cap, device, mesh="resolve"):
     """The legacy path: under one class's control tree, or the mixed step
-    over the requests laid out pod-major by the chunk table."""
+    over the requests laid out pod-major by the chunk table (``mesh``: the
+    pods :func:`serve` resolved, else resolved here)."""
 
-    try:  # an explicit class wins; a CLI error exits, as the reference's
-        mesh = None if args.device_class is not None else resolve_pods(args.class_sharded, asym, device)
-    except ValueError as err:
-        raise SystemExit(str(err)) from err
+    if isinstance(mesh, str):
+        try:  # an explicit class wins; a CLI error exits, as the reference's
+            mesh = None if args.device_class is not None else \
+                resolve_pods(args.class_sharded, asym, device)
+        except ValueError as err:
+            raise SystemExit(str(err)) from err
     layout = asym.batch_layout(args.batch)
-    print("request split across classes:", layout.sizes)
+    _say("request split across classes:", layout.sizes)
     if mesh is not None:
         # One step, one program per class: pod i's shard runs under
         # class(i)'s control tree (paper §5.3, serving side).
         padded, order = pad_requests(prompts, layout)
         step = mixed_decode_step(cfg, asym, mesh, padded.shape[0], seq_cap)
+        rows = padded.shape[0] // asym.n_pods if hasattr(mesh, "coord") else 0
         out_padded, timings = generate(cfg, params, padded, args.gen_len, seq_cap, device=device,
-                                       decode=step, prefill=Z.bulk_prefill_from_decode(step))
+                                       decode=step, prefill=Z.bulk_prefill_from_decode(step),
+                                       state_rows=rows)
         return (out_padded[order], timings, *_shard_summary(step.provenance), None)
     exec_ctx = asym.execution_context(args.device_class)
     with exec_ctx:
@@ -185,23 +199,25 @@ def truncate_at_eos(out: np.ndarray, prompt_len: int, eos_id: int):
     return out, n_eos, out.shape[0] - n_eos
 
 
-def _engine(cfg, params, asym, prompts, args, seq_cap, device):
-    """The persistent slot-table engine path (the default)."""
+def _engine(cfg, params, asym, prompts, args, seq_cap, device, mesh=None):
+    """The persistent slot-table engine path (the default), on the pods
+    :func:`serve` resolved (``None``: the single program)."""
 
     from repro_torch.runtime.serving import ServingEngine
 
     layout = asym.batch_layout(args.batch)
-    print("request split across classes:", layout.sizes)
+    _say("request split across classes:", layout.sizes)
     eng = ServingEngine(
         cfg, params, asym,
         seq_cap=seq_cap,
         slots_per_pod=args.slots_per_pod or layout.c_max,
-        class_sharded=args.class_sharded,
+        class_sharded="off" if mesh is None else args.class_sharded,
         paged=args.paged,
         page_size=args.page_size,
         pool_pages=args.pool_pages,
         eos_id=args.eos_id,
         device=device,
+        mesh=mesh,
     )
     out = eng.generate(prompts, args.gen_len)
     st = eng.stats
@@ -213,7 +229,14 @@ def _engine(cfg, params, asym, prompts, args, seq_cap, device):
     return out, timings, None, ctx.device_class, ctx.backend(), eng
 
 
-def _fleet(cfg, params, asym, prompts, args, seq_cap, device):
+def _say(*words) -> None:
+    """Print on rank 0 only (under a launcher every rank runs the CLI)."""
+
+    if process_rank() == 0:
+        print(*words)
+
+
+def _fleet(cfg, params, asym, prompts, args, seq_cap, device, mesh=None):
     """The multi-engine fleet path (``--fleet N``): N engines, each on its
     own mesh, sharing ``params`` on ``device``, behind one submit front
     with DAS request scheduling over calibrated per-engine throughput."""
@@ -276,8 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: fastest)")
     ap.add_argument("--class-sharded", default="auto", choices=["auto", "on", "off"],
                     help="decode each pod's request shard under its own class's tree in "
-                         "one step, the pods as CUDA streams on one card; auto = off "
-                         "(pods never get cards of their own)")
+                         "one step: a rank a pod under a launcher's world of one rank a "
+                         "pod, else the pods as CUDA streams on one card; auto = on only "
+                         "where each pod's rank has a card of its own")
     ap.add_argument("--one-shot", action="store_true",
                     help="legacy path: per-call batch + token-by-token decode")
     ap.add_argument("--fleet", type=int, default=0, metavar="N",
@@ -337,11 +361,26 @@ def serve(args, *, params=None):
 
         OBS.enable()
 
+    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), strategy=args.strategy,
+                          batch_tile=1, objective=args.objective)
+    # The pods are resolved before the weights: a rank a pod makes them on
+    # its own card.  An explicit class and the fleet decide their own.
+    mesh = None
+    if args.device_class is None and not args.fleet:
+        try:  # a CLI error exits, as the reference's
+            mesh = resolve_pods(args.class_sharded, asym, device)
+        except ValueError as err:
+            raise SystemExit(str(err)) from err
+    ranks = hasattr(mesh, "coord")
+    if ranks:
+        device = mesh.device
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = Z.init_params(cfg, gen, device)
-    asym = AsymmetricMesh(biglittle_classes(chips_per_pod=1), strategy=args.strategy,
-                          batch_tile=1, objective=args.objective)
+        if ranks:  # every pod's rank drew the same weights
+            from repro_torch.distributed.collectives import check_replicas
+
+            check_replicas(params, mesh)
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len), dtype=np.int32)
@@ -350,7 +389,7 @@ def serve(args, *, params=None):
     t0 = time.time()
     run = _one_shot if args.one_shot else (_fleet if args.fleet else _engine)
     out, timings, shard_classes, device_class, exec_backend, engine = run(
-        cfg, params, asym, prompts, args, seq_cap, device
+        cfg, params, asym, prompts, args, seq_cap, device, mesh
     )
     dt = time.time() - t0
     engines = engine.engines if args.fleet else [engine]
@@ -381,6 +420,8 @@ def serve(args, *, params=None):
         "sample": out[0, -8:].tolist(),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
+    if ranks:
+        summary["pod_ranks"] = mesh.world
     if stop_counts is not None:
         summary["stop_counts"] = stop_counts
     if args.fleet:
@@ -413,7 +454,8 @@ def serve(args, *, params=None):
 
 def main(argv=None) -> dict:
     summary, _, _ = serve(build_parser().parse_args(argv))
-    print(json.dumps(summary))
+    if process_rank() == 0:  # under a launcher every rank serves; one prints
+        print(json.dumps(summary))
     return summary
 
 

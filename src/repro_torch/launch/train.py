@@ -20,12 +20,20 @@ Examples::
     # gemm_cuda_lean, each pod on its own CUDA stream
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b --steps 3 \\
         --seq 512 --heterogeneous --class-sharded on
+    # the same step a rank a pod: two processes, each on its own card (nccl)
+    # where the node has two, else sharing one over gloo
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch internlm2-1.8b --steps 3 --seq 512 --heterogeneous --class-sharded on
 
 Flags are the reference's (with its defaults), plus ``--device`` and
-``--seed``.  ``--class-sharded auto`` never takes the mixed step, since
-the port never puts pods on separate cards (``launch.mesh.resolve_pods``);
-``on`` runs the pods as streams on one card (the summary's ``shard_classes`` lists each pod's class,
-block source and kernel).  ``--mesh 16x16`` / ``2x16x16`` train every family
+``--seed``.  ``launch.mesh.resolve_pods`` decides ``--class-sharded``:
+``on`` runs the pods as ranks under a launcher's world of one rank a pod
+(every rank its pod's rows under its class's tree; only rank 0 prints the
+summary) and as CUDA streams on one card in one process; ``auto`` takes
+the ranks only where each rank has a card of its own (``nccl``), the
+reference's ``device_count() >= n_pods``, and is off everywhere else (the
+summary's ``shard_classes`` lists each pod's class, block source and
+kernel).  ``--mesh 16x16`` / ``2x16x16`` train every family
 the trainer takes (dense, MoE, Mamba2, hybrid) on the reference's
 production mesh, FSDP over ``data`` and tensor
 parallelism over ``model``, one process a rank: they run under a launcher
@@ -48,7 +56,8 @@ import time
 from repro_torch.configs import get_config
 from repro_torch.core import execution
 from repro_torch.core.asymmetric import AsymmetricMesh, DeviceClass, biglittle_classes
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, resolve_pods
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh, process_rank,
+                                    resolve_pods)
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.serving import resolve_device
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -71,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="simulate a big+little two-pod fleet for the scheduler")
     ap.add_argument("--mesh", default="host", choices=["host", "16x16", "2x16x16"])
     ap.add_argument("--class-sharded", default="auto", choices=["auto", "on", "off"],
-                    help="per-class programs in one step, the pods as CUDA streams on "
-                         "one card; auto = off (pods never get cards of their own)")
+                    help="per-class programs in one step: a rank a pod under a launcher's "
+                         "world of one rank a pod, else the pods as CUDA streams on one "
+                         "card; auto = on only where each pod's rank has a card of its own")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -151,7 +161,8 @@ def main(argv=None) -> dict:
         "wall_s": round(time.time() - t0, 2),
         "chunk_sizes": asym.batch_layout(args.global_batch).sizes if asym else None,
     }
-    print(json.dumps(out, indent=1))
+    if process_rank() == 0:  # under a launcher every rank trains; one prints
+        print(json.dumps(out, indent=1))
     return out
 
 

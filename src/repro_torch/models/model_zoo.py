@@ -71,7 +71,12 @@ def bulk_prefill_from_decode(decode_fn):
     ``plens`` ((B,) int32, optional) supports mixed-length prompts in one
     call: prompts are right-padded, every row runs every padded step, and
     each row's returned logits are those of its own last real token
-    ``t == plens[row] - 1``.
+    ``t == plens[row] - 1``.  A row past its prompt (``t >= plens[row]``)
+    keeps its recurrent state (the Mamba2 leaves, ``state["mamba"]``)
+    through the pad step: the step's writes to those rows are undone, so a
+    short prompt's state is the one it has served alone.  KV caches are
+    left as the step wrote them: a pad write lands past the row's
+    position, which its attention masks and its later decode overwrites.
     """
 
     def f(params, batch, state, pos0, plens=None):
@@ -80,11 +85,21 @@ def bulk_prefill_from_decode(decode_fn):
         tokens = batch["tokens"]
         extras = {k: v for k, v in batch.items() if k != "tokens"}
         plen = tokens.shape[1]
+        lens = None
         if plens is not None:
             last = torch.as_tensor(plens, dtype=torch.int32, device=tokens.device) - 1
+            if _recurrent_leaves(state):
+                lens = torch.as_tensor(plens).tolist()
         logits = None
         for t in range(plen):
+            done = [r for r, n in enumerate(lens) if t >= n] if lens is not None else []
+            if done:
+                rows = torch.tensor(done, dtype=torch.long, device=tokens.device)
+                kept = [leaf.index_select(1, rows) for leaf in _recurrent_leaves(state)]
             lg, state = decode_fn(params, dict(extras, tokens=tokens[:, t:t + 1]), state, pos0 + t)
+            if done:
+                for leaf, old in zip(_recurrent_leaves(state), kept):
+                    leaf.index_copy_(1, rows, old)
             if logits is None or plens is None:
                 logits = lg
             else:
@@ -92,6 +107,14 @@ def bulk_prefill_from_decode(decode_fn):
         return logits, state
 
     return f
+
+
+def _recurrent_leaves(state) -> list:
+    """The leaves of a decode state that carry a recurrence (the Mamba2
+    state, slot dim 1), in a fixed order; empty for KV-only states."""
+
+    rec = state.get("mamba") if isinstance(state, dict) else None
+    return [rec[k] for k in sorted(rec)] if rec else []
 
 
 def param_specs(cfg: ArchConfig, mesh, *, fsdp: bool) -> dict:

@@ -5,15 +5,19 @@ carries over:
 
   * **Fixed pod-major slot table** — ``n_pods × c_max`` decode slots; pod
     *i* owns ``[i·c_max, (i+1)·c_max)``.
-  * **Class-sharded mixed step** (``class_sharded="on"``) — each pod
-    decodes its slot region under its
-    own class's control tree, on its own CUDA stream
+  * **Class-sharded mixed step** (``launch.mesh.resolve_pods``) — each
+    pod decodes its slot region under its own class's control tree
     (``AsymmetricMesh.class_sharded``): the step, the bulk prefill and
     the merge run per pod on its rows, and the paged arena splits into
     the pods' page partitions, each pod's table holding pod-local page
-    ids (``PagePool.localize``).  Otherwise (``"auto"`` or ``"off"``;
-    see ``launch.mesh.resolve_pods``) the whole slot table decodes under
-    the fastest class's tree.
+    ids (``PagePool.localize``).  A rank a pod (a ``torch.distributed``
+    world of one rank a pod): every rank runs this engine loop on the
+    same submitted requests, allocates the decode state or page partition
+    of its own pod only, and all-gathers what the host reads (the
+    logits, so the sampled tokens) over the pod group, so every rank's
+    slot bookkeeping, admission, parking and completions are identical.
+    A stream a pod on one card in one process.  Otherwise the whole slot
+    table decodes under the fastest class's tree.
   * **Paged KV pool** (``paged="auto"|"on"``) — a fixed arena of pages and
     a page-index list per slot (:mod:`repro_torch.runtime.paging`); pages
     are reserved all-or-nothing at admission and freed at retirement.
@@ -72,6 +76,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core.asymmetric import AsymmetricMesh
 from repro_torch.core.schedule import deficit_route
+from repro_torch.distributed import collectives as C
 from repro_torch.launch.mesh import resolve_pods
 from repro_torch.models import model_zoo as Z
 from repro_torch.models import transformer as TX
@@ -263,8 +268,13 @@ class ServingEngine:
     slots_per_pod : ``c_max`` — each pod's fixed slot-region size.
     class_sharded : "auto" (default) | "on" | "off", resolved by
         :func:`~repro_torch.launch.mesh.resolve_pods`: "on" runs the
-        mixed step, ``asym.n_pods`` pods sharing ``device`` as streams
-        (more than one class); "auto" and "off" never take it.
+        mixed step (more than one class), a rank a pod under a world of
+        ``asym.n_pods`` ranks, else ``asym.n_pods`` pods sharing
+        ``device`` as streams; "auto" takes it only where each pod's rank
+        has a card of its own; "off" never.
+    mesh : the pod mesh when the caller has resolved it already
+        (``launch.serve`` does, before it makes the weights); it replaces
+        ``class_sharded``.
     paged : "off" (default) | "auto" | "on" — the paged KV pool.  "auto"
         pages every pure KV-cache family and stays dense where paging is
         unsupported (Mamba2 / hybrid state); "on" raises there.
@@ -299,6 +309,7 @@ class ServingEngine:
         eos_id: Optional[int] = None,
         device="cuda",
         pod_time_hook: Union[str, None, Callable[..., Optional[Sequence[float]]]] = "auto",
+        mesh=None,
     ):
         if cfg.embed_inputs or cfg.family == "encdec":
             raise ValueError(f"{cfg.name}: the serving engine targets token-in archs")
@@ -307,6 +318,13 @@ class ServingEngine:
         if paged not in ("auto", "on", "off"):
             raise ValueError(f"paged={paged!r}")
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else resolve_pods(class_sharded, asym, self.device)
+        self.mixed = self.mesh is not None
+        # A rank a pod: this rank holds its pod's state and runs its rows.
+        self.ranks = hasattr(self.mesh, "coord")
+        self.pod = self.mesh.coord("pod") if self.ranks else None
+        if self.ranks:
+            self.device = self.mesh.device
         self.cfg = cfg
         self.params = params
         self.asym = asym
@@ -326,9 +344,6 @@ class ServingEngine:
             _hook_takes_units(pod_time_hook) if pod_time_hook is not None else False
         )
         self._tps_ema: Optional[float] = None
-
-        self.mesh = resolve_pods(class_sharded, asym, self.device)
-        self.mixed = self.mesh is not None
 
         # -- per-class request queues fed by the admission router ----------
         self.queues: list[collections.deque] = [collections.deque() for _ in asym.classes]
@@ -362,6 +377,7 @@ class ServingEngine:
         # pad streams at the last admission; False for retired lanes.
         self._live = np.zeros(self.n_slots, bool)
         self._pod_of_row = np.arange(self.n_slots) // self.c_max
+        self._state_rows = self.c_max if self.ranks else self.n_slots
 
         # -- KV storage: dense per-slot lanes or the paged pool ------------
         supported, why = _paged_supported(cfg)
@@ -390,11 +406,13 @@ class ServingEngine:
             self._phantom_rows_idx = (
                 np.arange(self.n_slots) if per_slot_phantom else self._pod_of_row
             )
-            self.state = Z.init_decode_state_paged(cfg, spec.n_pages, ps, device=self.device)
+            pages = spec.pages_per_pod if self.ranks else spec.n_pages
+            self.state = Z.init_decode_state_paged(cfg, pages, ps, device=self.device)
         else:
             self.pool = None
             self.phantom = None
-            self.state = Z.init_decode_state(cfg, self.n_slots, self.seq_cap, device=self.device)
+            self.state = Z.init_decode_state(cfg, self._state_rows, self.seq_cap,
+                                             device=self.device)
 
         self.tokens = torch.zeros((self.n_slots, 1), dtype=torch.int32, device=self.device)
         self._pos = np.zeros(self.n_slots, np.int64)
@@ -406,24 +424,29 @@ class ServingEngine:
 
     def _build(self):
         """The decode step, class-sharded over the pods' slot regions when
-        mixed, and the bulk prefill through it."""
+        mixed, and the bulk prefill through it (on ranks, the bulk prefill
+        of the rank's own rows, its logits gathered once)."""
 
-        decode, merge = Z.make_decode_fn(self.cfg), _merge_lanes
+        decode, merge, bulk = Z.make_decode_fn(self.cfg), _merge_lanes, None
         if self.mixed:
             from repro_torch.distributed.sharding import PodSplit, pod_decode_specs
 
             keys = ("tokens", "page_table", "live") if self.paged else ("tokens", "live")
-            in_specs, out_specs = pod_decode_specs(self.state, batch_keys=keys)
+            in_specs, out_specs = pod_decode_specs(self.state, batch_keys=keys, held=self.ranks)
+            sspecs = in_specs[2]
+            if self.ranks:  # (params, batch, state, pos0, plens)
+                bulk = self.asym.class_sharded(Z.bulk_prefill_from_decode(decode), mesh=self.mesh,
+                                               in_specs=in_specs + (PodSplit(0),),
+                                               out_specs=out_specs)
             decode = self.asym.class_sharded(decode, mesh=self.mesh, in_specs=in_specs,
                                              out_specs=out_specs)
-            sspecs = in_specs[2]
             merge = self.asym.class_sharded(merge, mesh=self.mesh, out_specs=None,
                                             in_specs=(sspecs, sspecs, PodSplit(0)))
             self.provenance = decode.provenance
         else:
             self.provenance = None
         self._decode = decode
-        self._bulk = Z.bulk_prefill_from_decode(decode)
+        self._bulk = bulk or Z.bulk_prefill_from_decode(decode)
         self._merge_state = merge
 
     # -- device programs ----------------------------------------------------
@@ -444,7 +467,7 @@ class ServingEngine:
     def _prefill_program(self, batch, state, plens):
         pos0 = torch.zeros((self.n_slots,), dtype=torch.int32, device=self.device)
         with torch.no_grad(), self._ctx:
-            logits, state = self._bulk(self.params, batch, state, pos0, plens=plens)
+            logits, state = self._bulk(self.params, batch, state, pos0, plens)
             self.prefill_logits = logits  # the latest admission round's (B, 1, V)
             return self._argmax(logits), state
 
@@ -551,9 +574,11 @@ class ServingEngine:
         return float(np.sum(self.asym.scheduler.rates))
 
     def health(self) -> dict:
-        """The engine health surface a fleet front polls each tick."""
+        """The engine health surface a fleet front polls each tick (on
+        ranks also this rank's pod, its active slots and its rate; the
+        rest is the whole engine's, the same on every rank)."""
 
-        return {
+        out = {
             "queued": sum(len(q) for q in self.queues),
             "active": int((self.slot_rid >= 0).sum()),
             "slots": self.n_slots,
@@ -562,6 +587,10 @@ class ServingEngine:
             "completed": self.stats.completed,
             "admission_deferrals": self.stats.admission_deferrals,
         }
+        if self.ranks:
+            out.update(pod=self.pod, pod_active=self._pod_active()[self.pod],
+                       pod_tps=float(self.asym.scheduler.rates[self.pod]))
+        return out
 
     # -- slot-region budgets (resize between steps only) ---------------------
 
@@ -751,7 +780,8 @@ class ServingEngine:
             self.tokens = torch.where(take_new_t[:, None], nxt, self.tokens)
         else:
             pbatch = {"tokens": self._t(prompts, torch.int32), "live": live_all}
-            fresh = Z.init_decode_state(self.cfg, self.n_slots, self.seq_cap, device=self.device)
+            fresh = Z.init_decode_state(self.cfg, self._state_rows, self.seq_cap,
+                                        device=self.device)
             nxt, fresh = self._prefill_program(pbatch, fresh, plens_t)
             self._merge(fresh, nxt, take_new_t)
         first = nxt.cpu().numpy()  # blocks; first generated token per lane
@@ -888,6 +918,8 @@ class ServingEngine:
                 if self._hook_takes_units
                 else self.pod_time_hook(self._step_calls - 1)
             )
+            if self.ranks:  # each rank's own pod's time, the same vector on every rank
+                times = C.pod_values(None if times is None else times[self.pod], self.mesh)
             if times is not None:
                 self.asym.observe_step(units, list(times))
         return n_active
@@ -928,11 +960,18 @@ class ServingEngine:
     # -- KV memory accounting ---------------------------------------------------
 
     def kv_stats(self) -> dict:
-        """KV memory accounting (dense lanes, or the pool's occupancy)."""
+        """KV memory accounting (dense lanes, or the pool's occupancy).  On
+        ranks the state's bytes are the whole engine's (every pod's state
+        has this rank's shape), and ``pod`` / ``pod_kv_bytes`` this rank's
+        own."""
 
         arena = int(sum(x.numel() * x.element_size() for x in _leaves(self.state)))
+        own = {}
+        if self.ranks:
+            own = {"pod": self.pod, "pod_kv_bytes": arena}
+            arena *= self.n_pods
         if self.pool is None:
-            return {"paged": False, "kv_bytes": arena}
+            return {"paged": False, "kv_bytes": arena, **own}
         spec = self.pool.spec
         itemsize = self.state["pages_k"].element_size()
         per_tok = 2 * self.cfg.n_layers * self.cfg.n_kv_heads * self.cfg.head_dim
@@ -950,6 +989,7 @@ class ServingEngine:
             "peak_kv_bytes": self.pool.peak_live * page_bytes,
             "arena_kv_bytes": arena,
             "dense_kv_bytes": per_tok * self.n_slots * self.s_cache * itemsize,
+            **own,
         }
 
     # -- telemetry (every method below only runs while tracing is enabled) ----

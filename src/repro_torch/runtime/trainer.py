@@ -11,9 +11,11 @@ Composes:
     reference,
   * class-routed execution: on a multi-class mesh with a pod axis the
     step runs *class-sharded* — every pod's rows of the batch run under
-    its own class's control tree, on its own CUDA stream, and a
-    mask-weighted sum of the pods' gradients keeps the update the global
-    masked mean (true CA-SAS, :func:`build_class_sharded_grad_step`);
+    its own class's control tree, a rank a pod (each rank holding the
+    whole params and AdamW state, the pods' gradients all-reduced over
+    the pod group) or a CUDA stream a pod, and a mask-weighted sum of the
+    pods' gradients keeps the update the global masked mean (true CA-SAS,
+    :func:`build_class_sharded_grad_step`);
     otherwise the whole step runs under one
     :class:`~repro_torch.core.execution.ExecutionContext`, the asymmetric
     mesh's primary class by default.  Either way each class's tree picks
@@ -27,7 +29,15 @@ Composes:
   * elastic re-placement: :meth:`Trainer.reshard` rebuilds the step for
     another pod mesh, the state left in place.
 
-On a :class:`~repro_torch.launch.mesh.RankMesh` (``mesh=``) each process
+On a :class:`~repro_torch.launch.mesh.RankMesh` (``mesh=``) whose pod
+axis takes the class-sharded step (:meth:`Trainer.class_sharded_enabled`)
+each process is one pod's rank: it draws the whole params from the seed
+(rank 0 checks every rank drew the same), takes its pod's rows of each
+global batch, runs its class's program, and AdamW updates its replica
+from the all-reduced gradients, so the replicas stay equal; the pods'
+step times are all-gathered, so every rank's scheduler derives the same
+split, and rank 0 writes the checkpoints.  On any other
+:class:`~repro_torch.launch.mesh.RankMesh` each process
 is one rank of the ``(data, model)`` / ``(pod, data, model)`` mesh and
 the trainer runs the sharded step (:func:`sharded_train_step`; every
 family it trains): the params and the AdamW state are this
@@ -64,10 +74,11 @@ import torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import ArchConfig
 from repro_torch.core.asymmetric import AsymmetricMesh
-from repro_torch.core.execution import ClassShardedFn, ExecutionContext
+from repro_torch.core.execution import ClassShardedFn, ExecutionContext, PodRanks
 from repro_torch.data.pipeline import AsymmetricBatcher, SyntheticLM
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import spmd
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import note_collective
 from repro_torch.distributed.sharding import PodSplit
 from repro_torch.launch.mesh import make_host_mesh
@@ -105,10 +116,11 @@ class TrainerConfig:
     # FSDP: on a rank mesh, shard the params and AdamW state over "data"
     # too (else only over "model"); no effect on one card.
     fsdp: bool = True
-    # True CA-SAS: per-class programs within one step (a stream per pod).
-    # None = auto (on when the asym mesh has more than one class and the
-    # mesh a matching pod axis); False = always the single primary-class
-    # context; True = required (raises if the mesh cannot support it).
+    # True CA-SAS: per-class programs within one step (a rank or a stream
+    # a pod).  None = auto (on when the asym mesh has more than one class
+    # and the mesh a matching pod axis of one rank or stream a pod, ranks
+    # each with a card); False = always the single primary-class context;
+    # True = required (raises if the mesh cannot support it).
     class_sharded: Optional[bool] = None
 
 
@@ -159,7 +171,7 @@ def _masked_micro_grads(loss_fn, params, batch, n_micro: int):
 
 
 def weighted_mean_epilogue(outs, shard_args, axis):
-    """The class-sharded step's cross-pod reduction, after the pods join.
+    """The class-sharded step's cross-pod reduction.
 
     With ``w_i`` pod *i*'s valid tokens and ``W = Σ w_i``: ``loss = Σ
     (w_i/W)·loss_i``, and likewise the metrics and the gradients (each
@@ -167,10 +179,27 @@ def weighted_mean_epilogue(outs, shard_args, axis):
     ``g·scale`` does), so the result is the global masked mean; a pod with
     no valid rows contributes zero.  ``axis=None`` is the single-class
     fallback, whose ``outs`` is already the global mean.
+
+    A rank a pod (``axis`` a :class:`~repro_torch.core.execution.PodRanks`):
+    ``outs`` and ``shard_args`` are this rank's; ``W`` is its ``w``
+    all-reduced over the pod group, and each scaled term is all-reduced
+    (summed) there, the reference's ``psum(g·scale)``.  A stream a pod:
+    ``outs`` and ``shard_args`` hold every pod's, summed here after the
+    join (at two pods ``a + b`` either way, so the two realisations agree
+    bitwise).
     """
 
     if axis is None:
         return outs
+    if isinstance(axis, PodRanks):
+        mesh, name = axis.mesh, axis.name
+        loss, metrics, grads = outs
+        w = _shard_weight(shard_args[1])
+        total = C.all_reduce(w, mesh, name)
+        scale = torch.where(total > 0, w / torch.clamp(total, min=1.0), torch.zeros_like(w))
+        return (C.all_reduce(loss * scale, mesh, name),
+                {k: C.all_reduce(v * scale, mesh, name) for k, v in metrics.items()},
+                O.tree_map(lambda g: C.all_reduce((g * scale).to(g.dtype), mesh, name), grads))
     # The reference's psum of each pod's (loss, metrics, grads): one pod's
     # tree is the operand every device sends.
     note_collective("all-reduce", [outs[0][0], list(outs[0][1].values()), outs[0][2]])
@@ -198,11 +227,12 @@ def build_class_sharded_grad_step(
     Each pod's rows of the batch (pod-major, ``c_max`` rows a pod, as
     ``AsymmetricBatcher`` lays them out) take their *local* loss and
     gradients under the pod's own class's control tree, on the pod's own
-    stream: ``torch.autograd.grad`` returns each pod's own gradient tree
-    (nothing accumulates into a shared ``.grad``), and ``ops.GemmFn`` runs
-    each pod's backward on the kernel of its forward's context.  After the
-    pods join, :func:`weighted_mean_epilogue` reduces them to the global
-    masked mean on the caller's stream.
+    rank or stream: ``torch.autograd.grad`` returns each pod's own
+    gradient tree (nothing accumulates into a shared ``.grad``), and
+    ``ops.GemmFn`` runs each pod's backward on the kernel of its forward's
+    context.  :func:`weighted_mean_epilogue` then reduces them to the
+    global masked mean: over the pod group on ranks, on the caller's
+    stream after the pods join on one card.
 
     With ``n_micro > 1`` the local accumulation weights each micro-batch
     by *its* valid tokens (:func:`_masked_micro_grads`): a shard's padding
@@ -291,8 +321,12 @@ class Trainer:
         self.data = SyntheticLM(vocab=arch.vocab, seed=seed)
         self.batcher = AsymmetricBatcher(self.data, asym) if asym else None
 
-        self.sharded = spmd.is_sharded(self.mesh)
-        if self.sharded:
+        # A rank mesh whose pod axis takes the class-sharded step runs it
+        # a rank a pod, every rank holding the whole state; any other rank
+        # mesh runs the sharded step.
+        self.pod_ranks = spmd.is_sharded(self.mesh) and self.class_sharded_enabled()
+        self.sharded = spmd.is_sharded(self.mesh) and not self.pod_ranks
+        if spmd.is_sharded(self.mesh):
             self.device = self.mesh.device
         self.loss_fn = self._make_loss_fn()
         self._build_step()
@@ -312,6 +346,8 @@ class Trainer:
         elif params is None:
             params = O.tree_map(lambda p: p.requires_grad_(True),
                                 Z.init_params(arch, gen, self.device, dtype=torch.float32))
+            if self.pod_ranks:  # every pod's rank drew the same replica
+                C.check_replicas(params, self.mesh)
         self.params = params
         self.opt_state = opt_state if opt_state is not None else O.init_opt_state(params)
         self.step = 0
@@ -324,8 +360,11 @@ class Trainer:
         return fn
 
     def state_specs(self) -> dict:
-        """The spec tree of ``{"params", "opt"}`` on the rank mesh."""
+        """The spec tree of ``{"params", "opt"}`` on the rank mesh (every
+        leaf replicated when the ranks are pods)."""
 
+        if self.pod_ranks:
+            return O.tree_map(lambda _: SH.P(), self._state())
         specs = self.layout.specs
         return {"params": specs, "opt": SH.shard_opt_state(None, specs, self.mesh)}
 
@@ -336,9 +375,12 @@ class Trainer:
         """Is the per-class-programs step active?
 
         Auto mode requires a multi-class asym mesh *and* a mesh whose
-        ``pod`` axis matches the pod count (and no other axis above 1);
-        ``class_sharded=True`` makes a mismatch an error instead of a
-        silent fallback.
+        ``pod`` axis matches the pod count (and no other axis above 1:
+        pods of one stream or rank), on a rank mesh each rank with a card
+        of its own (``nccl``), the reference's ``device_count() >=
+        n_pods``; ``class_sharded=True`` makes a mismatch an error instead
+        of a silent fallback, and on a rank mesh replicates each pod's
+        program over its ranks where ``data`` or ``model`` exceed 1.
         """
 
         flag = self.tcfg.class_sharded
@@ -357,6 +399,8 @@ class Trainer:
                 if a != "pod":
                     intra *= n
             ok = ok and intra == 1
+            if spmd.is_sharded(self.mesh):
+                ok = ok and self.mesh.transport == "nccl"
         return ok
 
     def _build_step(self):
@@ -401,6 +445,8 @@ class Trainer:
         leaf at a time (gathered whole, cut again); on one card they stay
         where they are: nothing is sharded."""
 
+        if self.pod_ranks:
+            raise ValueError("the pods are ranks: their mesh is the world's, and stays")
         if self.sharded or spmd.is_sharded(new_mesh):
             if not (self.sharded and spmd.is_sharded(new_mesh)) or \
                     new_mesh.world != self.mesh.world:
@@ -448,7 +494,8 @@ class Trainer:
         return {"params": self.params, "opt": self.opt_state}
 
     def _checkpoint(self):
-        shard = dict(mesh=self.mesh, specs=self.state_specs()) if self.sharded else {}
+        ranks = self.sharded or self.pod_ranks
+        shard = dict(mesh=self.mesh, specs=self.state_specs()) if ranks else {}
         self.ckpt.save(self.step, self._state(), extra={"restarts": self.restarts}, **shard)
 
     def _restart(self):
@@ -457,11 +504,21 @@ class Trainer:
         card."""
 
         self.restarts += 1
-        shard = dict(mesh=self.mesh, specs=self.state_specs()) if self.sharded else {}
+        ranks = self.sharded or self.pod_ranks
+        shard = dict(mesh=self.mesh, specs=self.state_specs()) if ranks else {}
         tree, manifest = self.ckpt.restore(self._state(), device="cpu", **shard)
         with torch.no_grad():
             O.tree_map(lambda live, saved: live.copy_(saved), self._state(), tree)
         self.step = int(manifest["step"])
+
+    def pod_times(self, times):
+        """``times`` (per pod) as the scheduler takes them: on pod ranks
+        each rank's own pod's entry, all-gathered, so every rank derives
+        the same split; unchanged elsewhere."""
+
+        if not self.pod_ranks:
+            return times
+        return C.pod_values(times[self.mesh.coord("pod")], self.mesh)
 
     # -- main loop ------------------------------------------------------------
 
@@ -492,7 +549,7 @@ class Trainer:
                         if self.pod_time_hook is not None
                         else [dt] * len(layout.sizes)
                     )
-                    self.asym.observe_step(layout.sizes, times)
+                    self.asym.observe_step(layout.sizes, self.pod_times(times))
 
                 self.step += 1
                 history.append(metrics)

@@ -372,3 +372,124 @@ def family_run(rank, plan):
             res[name] = _family_decode(cfg, mesh, serve, dec)
         out[case["name"]] = res
     return out if rank == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# The class-sharded step a rank a pod (tests/test_torch_pod_ranks.py)
+# ---------------------------------------------------------------------------
+
+
+def grad_asym():
+    """Two classes at a 2:1 ratio, ``sas`` over tiles of 2 (the mixed
+    gradient step's fixture in ``test_torch_class_sharded.py``)."""
+
+    from repro_torch.core import blocking as B
+    from repro_torch.core.asymmetric import AsymmetricMesh, DeviceClass
+
+    return AsymmetricMesh([DeviceClass("big", spec=B.hopper_spec()),
+                           DeviceClass("little", rel_throughput=0.5, spec=B.hopper_spec(little=True))],
+                          strategy="sas", batch_tile=2,
+                          backend="cuda")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
+
+
+def serve_asym():
+    """The serving tests' two classes (``test_torch_mixed_serving._mesh``)."""
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+
+    return AsymmetricMesh(biglittle_classes(chips_per_pod=1), strategy="ca-das", batch_tile=1,
+                          backend="cuda")  # repro: noqa=RPR005 -- the port's backend name (repro_torch.core.execution.BACKENDS)
+
+
+def serve_requests(engine, reqs) -> dict:
+    """``{rid: tokens}`` of ``reqs`` ((prompt, max_new) pairs) served to
+    completion."""
+
+    rids = [engine.submit(p, n) for p, n in reqs]
+    done = {c.rid: c.tokens.tolist() for c in engine.run()}
+    return {r: done[r] for r in rids}
+
+
+def pod_run(rank, plan):
+    """One rank of the class-sharded step a rank a pod on a (pod, data, 1)
+    mesh; every rank returns its results (``plan``: see the test)."""
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.runtime import trainer as TR
+    from repro_torch.runtime.serving import ServingEngine
+
+    mesh = make_host_mesh(pod=2, data=plan.get("data", 1), device="cpu")
+    assert isinstance(mesh, RankMesh) and mesh.transport == "gloo", mesh
+    cfg = get_config(ARCH).reduced()
+    out = {"rank": rank, "pod": mesh.coord("pod"), "shape": mesh.shape}
+    params, _ = train_state_from_jax(plan["params"], None, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in plan["batch"].items()}
+    out["grad"] = {}
+    for n_micro in plan["n_micro"]:
+        step = TR.build_class_sharded_grad_step(Z.make_loss_fn(cfg), grad_asym(), mesh,
+                                                n_micro=n_micro)
+        with counting() as seen:
+            loss, metrics, grads = step(params, batch)
+        out["grad"][n_micro] = {"loss": loss, "metrics": metrics, "grads": grads, "pod": step.pod,
+                                "mixed": step.mixed, "trace": list(step.trace_log),
+                                "backends": [p.backend for p in step.provenance],
+                                "gemm_calls": seen["gemm"], "bytes": seen["bytes"]}
+    if not plan.get("serve"):
+        return out
+
+    # The engine, dense and paged, and the one-shot path.
+    serving = params_from_jax(plan["params"], cfg, device="cpu")
+    out["engine"] = {}
+    for paged in ("off", "on"):
+        eng = ServingEngine(cfg, serving, serve_asym(), seq_cap=plan["seq_cap"], device="cpu",
+                            class_sharded="on", pod_time_hook=None, slots_per_pod=3, paged=paged,
+                            page_size=4, eos_id=plan["eos_id"])
+        assert eng.ranks and eng.pod == mesh.coord("pod")
+        out["engine"][paged] = {"tokens": serve_requests(eng, plan["reqs"]),
+                                "kv": eng.kv_stats(), "health": eng.health(),
+                                "state_rows": [int(x.shape[1]) for x in
+                                               (eng.state.values() if paged == "off" else [])]}
+    eng = ServingEngine(cfg, serving, serve_asym(), seq_cap=plan["seq_cap"], device="cpu",
+                        class_sharded="on", pod_time_hook=None,
+                        slots_per_pod=serve_asym().batch_layout(len(plan["prompts"])).c_max)
+    out["generate"] = eng.generate(plan["prompts"], plan["gen"])
+    asym = serve_asym()
+    padded, order = SV.pad_requests(plan["prompts"], asym.batch_layout(len(plan["prompts"])))
+    step = SV.mixed_decode_step(cfg, asym, mesh, len(padded), plan["seq_cap"])
+    tokens, _ = SV.generate(cfg, serving, padded, plan["gen"], plan["seq_cap"], device="cpu",
+                            decode=step, prefill=Z.bulk_prefill_from_decode(step),
+                            state_rows=len(padded) // 2)
+    out["one_shot"] = tokens[order]
+
+    # Different per-rank step times: every rank's scheduler sees the same
+    # gathered vector (each rank's own pod's entry).
+    times = plan["pod_times"][rank]
+    tr = Trainer(cfg, tcfg=TrainerConfig(steps=2, global_batch=8, seq_len=16, ckpt_every=100,
+                                         ckpt_dir=plan["ckpt_dir"], class_sharded=True),
+                 asym=serve_asym(), device="cpu", mesh=mesh, params=params,
+                 pod_time_hook=lambda step: times,
+                 opt_cfg=O.AdamWConfig(lr=1e-3, total_steps=2, warmup_steps=1))
+    assert tr.pod_ranks and not tr.sharded
+    hist = tr.run()
+    out["das"] = {"rates": [float(r) for r in tr.asym.scheduler.rates],
+                  "sizes": tr.asym.batch_layout(8).sizes, "losses": [h["loss"] for h in hist],
+                  "params": O.tree_leaves(tr.params)[0].detach().clone()}
+
+    # The int8 cross-pod mean: the reference's replicated tree, then a
+    # tree of this rank's own.
+    g = O.tree_map(torch.from_numpy, plan["crosspod"]["g"])
+    e = O.tree_map(torch.from_numpy, plan["crosspod"]["e"])
+    out["crosspod_same"] = C.compressed_crosspod_mean(g, e, mesh)
+    mine = O.tree_map(lambda t: t * (1 - 3 * mesh.coord("pod")), g)
+    out["crosspod_own"] = C.compressed_crosspod_mean(mine, C.init_error_feedback(mine), mesh)
+
+    # Both CLIs on the ranks (the process group is the launcher's).
+    out["serve_cli"] = SV.main(["--device", "cpu", "--arch", ARCH, "--reduced", "--batch", "4",
+                                "--prompt-len", "4", "--gen-len", "3", "--class-sharded", "on"])
+    out["train_cli"] = TL.main(["--device", "cpu", "--arch", ARCH, "--reduced", "--steps", "2",
+                                "--seq", "16", "--heterogeneous", "--class-sharded", "on",
+                                "--ckpt-dir", plan["ckpt_dir"] + "_cli"])
+    return out

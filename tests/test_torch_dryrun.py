@@ -177,6 +177,39 @@ def test_class_sharded_train_cell_communicates():
     assert row.collective_s > 0
 
 
+@pytest.mark.parametrize("sizes", [(2, 1, 1), (2, 16, 16)], ids=["pod2x1x1", "pod2x16x16"])
+def test_class_sharded_cells_a_rank_a_pod(sizes):
+    """``--little-spec`` on a mesh of pod ranks (the reference's
+    ``--multi-pod --little-spec``): rank 0 runs pod 0's program over its
+    half of the rows, and the record counts the epilogue's all-reduces
+    (each pod's scaled loss, metrics and gradients, and the valid-token
+    count) or the logits' all-gather over ``pod``."""
+
+    from repro_torch.launch.mesh import RankMesh
+
+    cfg = get_config("internlm2-1.8b").reduced()
+    mesh = RankMesh.abstract(("pod", "data", "model"), sizes)
+    one = D.run_cell(cfg, "train_4k", little_spec="h100-little", write=False)
+    rec = D.run_cell(cfg, "train_4k", little_spec="h100-little", mesh=mesh, write=False)
+    assert rec["ok"], rec.get("error")
+    assert rec["class_sharded"] and [c[1] for c in rec["shard_classes"]] == ["big", "little"]
+    assert rec["n_chips"] == mesh.world and rec["mesh"] == D.mesh_tag(mesh)
+    assert rec["hlo_cost"]["gemm_calls"] * 2 == one["hlo_cost"]["gemm_calls"]
+    assert rec["hlo_cost"]["by_collective"] == {
+        "all-reduce": one["hlo_cost"]["by_collective"]["all-reduce"] + 4}
+    for shape in ("decode_32k", "prefill_32k"):
+        s = next(x for x in cfg.shapes() if x.name == shape)
+        rec = D.run_cell(cfg, shape, little_spec="h100-little", mesh=mesh, write=False)
+        assert rec["ok"] and rec["class_sharded"], rec.get("error")
+        rows = s.global_batch // 2 * (1 if s.kind == "decode" else s.seq_len)
+        assert rec["hlo_cost"]["by_collective"] == {"all-gather": rows * cfg.vocab * 2}
+    # The 16x16 mesh has no pod axis: the cell runs sharded, single-class.
+    if sizes == (2, 16, 16):
+        rec = D.run_cell(cfg, "decode_32k", little_spec="h100-little", write=False,
+                         mesh=RankMesh.abstract(("data", "model"), (16, 16)))
+        assert rec["ok"] and not rec["class_sharded"]
+
+
 def test_ssm_long_context_decode_state_is_small():
     rec = D.run_cell("mamba2-1.3b", "long_500k", write=False)
     assert rec["ok"], rec.get("error")
