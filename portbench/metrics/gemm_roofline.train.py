@@ -1,0 +1,9 @@
+"""The GEMM funnel's products of a training step (forward, recompute,
+both backward products) at their roofline, over the device time of the
+``gemm_cuda`` kernels."""
+
+from portbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "gemm", "gemm_bound_s")

@@ -1,0 +1,10 @@
+"""The program's sources on the path for the benchmark's own tests (run
+them as ``python -m pytest portbench/tests`` from the repository root)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+for path in (ROOT, os.path.join(ROOT, "src")):
+    if path not in sys.path:
+        sys.path.insert(0, path)
