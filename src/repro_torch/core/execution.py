@@ -727,7 +727,9 @@ def class_sharded(
       in one process.
 
     Either way every ``ops.gemm`` in pod *i* resolves class(*i*)'s blocks
-    and kernel at the shard's own shape.  ``contexts`` is ordered by class
+    and kernel at the shard's own shape; each pod's program is a
+    ``class_sharded.pod`` span (on its stream, or its rank) and the
+    epilogue a ``class_sharded.epilogue`` span.  ``contexts`` is ordered by class
     index; ``pod_class[i]`` is the class index of pod ``i``
     (``distributed.sharding.pod_class_specs``).  With a single class the
     fallback activates the one context around ``fn`` — no pods, bitwise
@@ -776,6 +778,17 @@ def class_sharded(
             block_source=ctx.tree.block_source,
         )
 
+    def pod_span(pod: int, shard_args):
+        """The ``class_sharded.pod`` span of ``pod``'s program, on its
+        stream (its rows: the leading size of its first split leaf)."""
+
+        split = [a for a, spec in zip(shard_args, in_specs) if spec is not None]
+        leaves = _tensor_leaves(split)
+        prov = provenance[pod]
+        return obs.span("class_sharded.pod", cat="execution", pod=pod,
+                        device_class=prov.device_class, backend=prov.backend,
+                        rows=int(leaves[0].shape[0]) if leaves else 0)
+
     if len(contexts) == 1:
         # Single-class fallback: the one context governs the whole program.
         ctx = contexts[0]
@@ -810,9 +823,11 @@ def class_sharded(
             shard_args = SH.pod_view(args, in_specs, n_pods, pod)
             with ctx:
                 note(ctx, shard_args, mixed=True)
-                out = fn(*shard_args)
+                with pod_span(pod, shard_args):
+                    out = fn(*shard_args)
             if epilogue is not None:
-                return epilogue(out, shard_args, group)
+                with obs.span("class_sharded.epilogue", cat="execution"):
+                    return epilogue(out, shard_args, group)
             return SH.gather_pods(out, out_specs, mesh)
 
         return ClassShardedFn(
@@ -828,18 +843,20 @@ def class_sharded(
             if s is not None:
                 s.wait_stream(caller)
         outs = []
-        for stream, c, shard_args in zip(streams, pod_class, shards):
+        for pod, (stream, c, shard_args) in enumerate(zip(streams, pod_class, shards)):
             ctx = contexts[c]
             with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext(), ctx:
                 note(ctx, shard_args, mixed=True)
-                outs.append(fn(*shard_args))
+                with pod_span(pod, shard_args):
+                    outs.append(fn(*shard_args))
         if caller is not None:
             for s in streams:
                 caller.wait_stream(s)
             for t in _tensor_leaves(outs):
                 t.record_stream(caller)
         if epilogue is not None:
-            return epilogue(outs, shards, axis)
+            with obs.span("class_sharded.epilogue", cat="execution"):
+                return epilogue(outs, shards, axis)
         return SH.stitch_pods(outs, out_specs, views)
 
     return ClassShardedFn(

@@ -45,6 +45,7 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import spmd
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
+from repro_torch.observability import trace
 from repro_torch.optim import adamw as O
 
 
@@ -244,7 +245,8 @@ def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: 
 
     On a rank mesh a rank's part over serving params (no FSDP): its rows'
     logits, their vocab over ``model`` (``with_cache``: the caches of
-    ``batch`` rows and ``seq_len`` positions).
+    ``batch`` rows and ``seq_len`` positions).  The logits-only forward
+    is the ``model.prefill`` span.
     """
 
     if with_cache:
@@ -255,18 +257,26 @@ def make_prefill_fn(cfg: ArchConfig, *, with_cache: bool = False, attn_backend: 
         fwd = E.forward_encdec_sharded if cfg.family == "encdec" else T.forward_lm_sharded
 
         def f(params, batch_):
-            with torch.inference_mode():
+            with _prefill_span(batch_), torch.inference_mode():
                 return fwd(params, cfg, batch_, lay, attn_backend=attn_backend)[0]
 
         return f
 
     def f(params, batch):
-        with torch.inference_mode():
+        with _prefill_span(batch), torch.inference_mode():
             if cfg.family == "encdec":
                 return E.forward_encdec(params, cfg, batch, attn_backend=attn_backend)[0]
             return T.prefill(params, cfg, batch, attn_backend=attn_backend)
 
     return f
+
+
+def _prefill_span(batch):
+    """The ``model.prefill`` span of a forward over ``batch``: its rows and
+    length (of the tokens, else the embeddings)."""
+
+    rows, length = batch["tokens" if "tokens" in batch else "embeds"].shape[:2]
+    return trace.span("model.prefill", cat="model", rows=rows, length=length)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device="cuda", mesh=None):

@@ -1,6 +1,7 @@
-"""Trace spans over a bounded in-memory buffer, Chrome-trace exportable.
+"""Trace spans over a bounded in-memory buffer, Chrome-trace exportable,
+and on the clock of a ``torch.profiler`` session.
 
-The span API mirrors :class:`repro.core.execution.ExecutionContext`'s
+The span API mirrors :class:`repro_torch.core.execution.ExecutionContext`'s
 contextvar discipline: the active-span stack lives in a ``ContextVar``
 holding an immutable tuple, so concurrent threads (each thread starts
 from the default empty stack) and interleaved asyncio tasks (each task
@@ -8,20 +9,42 @@ runs in a copied context) nest and restore independently, and ``with``
 semantics make exit exception-safe (a failing span is recorded with its
 error class rather than leaked).
 
+Every event has an integer ``id``; ``parent`` is the enclosing span's id
+and ``parent_name`` its name.  A span keeps its host seconds (``dur``,
+also ``host_s``) and, where CUDA is initialised, its ``device_s``: the
+time between two timing events recorded on the current stream at entry
+and at exit, the span's hold on that stream (device idle inside it
+included).  ``device_s`` is resolved only once the stream has passed the
+exit event (``TraceEvent.resolve``, which queries and never waits); on
+the CPU it stays None.
+
+Spans are live while :func:`enable` holds a buffer, and while a
+``torch.profiler`` session records.  Under a session each span also opens
+a function-scope profiler range (``_RecordFunctionFast``, a CPU event
+that is not a user annotation, so the profiler mirrors no device event
+for it) for the length of its body: the span's interval lands in the
+session's trace beside the kernels, on their clock.  Those spans go to a
+per-session list, read after the session by :func:`profiled_spans`; a
+session's list starts with its first span after the profiler was last
+seen off (by a span or by :func:`profiled_spans`).  A session does not
+turn tracing on: once it stops, spans are no-ops again unless
+:func:`enable` was called.
+
 Recording is cheap and lock-bounded: events append to a fixed-capacity
 deque (oldest events drop, counted in ``dropped``) and nothing here
-imports jax or numpy — the disabled fast path is a single module-global
-``None`` check, which is what lets hot loops call :func:`complete`
-unconditionally.
+imports jax or numpy — the disabled fast path is a module-global
+``None`` check and one profiler-flag check, which is what lets hot loops
+call :func:`span` unconditionally.  Tags are shapes and names: reading a
+device value into one would synchronise the host.
 
 Two export formats:
 
   * :meth:`TraceBuffer.save` — the native ``{"version", "events"}`` JSON
-    the ``python -m repro.observability.report`` CLI summarizes,
+    the ``python -m repro_torch.observability.report`` CLI summarizes,
   * :meth:`TraceBuffer.chrome_trace` — the Chrome ``traceEvents`` JSON
     (load in ``chrome://tracing`` or Perfetto); complete spans nest by
     time containment per thread, instants render as marks, counters as
-    tracks.
+    tracks; a span's args carry ``device_ms`` where it is known.
 
 Span ``args`` carry the scheduling provenance the repo's assertions
 already speak: ``device_class``, ``backend``, ``block_source``.
@@ -32,20 +55,30 @@ from __future__ import annotations
 import collections
 import contextvars
 import dataclasses
+import itertools
 import os
 import threading
 import time
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.util.atomic import atomic_write_json
 
 DEFAULT_CAPACITY = 65536
+
+_profiling = getattr(torch._C._autograd, "_profiler_enabled", None) or (lambda: False)
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+_IDS = itertools.count(1)
 
 
 @dataclasses.dataclass
 class TraceEvent:
     """One recorded event; ``ts``/``dur`` are seconds on the buffer's
-    ``perf_counter`` clock, relative to the buffer's epoch."""
+    ``perf_counter`` clock, relative to the buffer's epoch (a profiled
+    span's: to its session's first span).  ``parent`` is the enclosing
+    span's ``id``, ``parent_name`` its name; ``device_s`` the span's time
+    on its stream, None until resolved and on the CPU."""
 
     name: str
     cat: str
@@ -53,8 +86,27 @@ class TraceEvent:
     ts: float
     dur: float
     tid: int
-    parent: Optional[str]
+    parent: Optional[int]
     args: dict
+    id: int = 0
+    parent_name: Optional[str] = None
+    device_s: Optional[float] = None
+
+    _marks = None                # (start, end) CUDA events until resolved
+
+    @property
+    def host_s(self) -> float:
+        return self.dur
+
+    def resolve(self) -> "TraceEvent":
+        """Fill ``device_s`` if the stream has passed the exit event
+        (a query: never waits)."""
+
+        marks = self._marks
+        if marks is not None and marks[1].query():
+            self.device_s = marks[0].elapsed_time(marks[1]) / 1e3
+            self._marks = None
+        return self
 
 
 class TraceBuffer:
@@ -78,7 +130,8 @@ class TraceBuffer:
     @property
     def events(self) -> list[TraceEvent]:
         with self._lock:
-            return list(self._events)
+            out = list(self._events)
+        return [ev.resolve() for ev in out]
 
     def __len__(self) -> int:
         return len(self._events)
@@ -128,8 +181,10 @@ class TraceBuffer:
                 rec["dur"] = round(ev.dur * 1e6, 3)
             if ev.ph == "i":
                 rec["s"] = "t"  # thread-scoped instant mark
-            if ev.parent:
-                rec["args"]["parent"] = ev.parent
+            if ev.parent_name:
+                rec["args"]["parent"] = ev.parent_name
+            if ev.device_s is not None:
+                rec["args"]["device_ms"] = round(ev.device_s * 1e3, 6)
             out.append(rec)
         return {
             "traceEvents": out,
@@ -153,6 +208,12 @@ _BUFFER: Optional[TraceBuffer] = None
 _STACK: contextvars.ContextVar[tuple] = contextvars.ContextVar(
     "repro_trace_spans", default=()
 )
+
+# The spans of the newest profiler session: the list, its epoch, and
+# whether the session is still the one the list belongs to.
+_PROFILED: list = []
+_PROFILED_EPOCH = 0.0
+_PROFILED_OPEN = False
 
 
 def enable(capacity: int = DEFAULT_CAPACITY) -> TraceBuffer:
@@ -180,19 +241,53 @@ def get_buffer() -> Optional[TraceBuffer]:
     return _BUFFER
 
 
+def profiled_spans() -> list[TraceEvent]:
+    """The spans recorded while the newest ``torch.profiler`` session ran,
+    in the order they ended, each resolved as far as its stream has run
+    (synchronise first for every ``device_s``).  Read after the session
+    ends; the next session's first span starts a new list."""
+
+    global _PROFILED_OPEN
+    if not _profiling():
+        _PROFILED_OPEN = False
+    return [ev.resolve() for ev in list(_PROFILED)]
+
+
+def _open_session() -> None:
+    """Start the running session's list and epoch on its first span."""
+
+    global _PROFILED, _PROFILED_EPOCH, _PROFILED_OPEN
+    if not _PROFILED_OPEN:
+        _PROFILED, _PROFILED_EPOCH, _PROFILED_OPEN = [], time.perf_counter(), True
+
+
+def _device_mark():
+    """A timing event recorded on the current stream, where CUDA runs."""
+
+    if not torch.cuda.is_initialized():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 # -- recording ---------------------------------------------------------------
+
+
+def _parent(stack) -> tuple:
+    return (stack[-1].id, stack[-1].name) if stack else (None, None)
 
 
 def complete(name: str, t0: float, dur: float, *, cat: str = "span", **args) -> None:
     """Record an already-measured interval (``t0`` = ``perf_counter`` at
     start).  The hot-loop API: callers that already time themselves
-    (engine step, trainer step) record post hoc with zero control-flow
-    change; disabled cost is this ``None`` check."""
+    (engine step) record post hoc with zero control-flow change; disabled
+    cost is this ``None`` check."""
 
     buf = _BUFFER
     if buf is None:
         return
-    stack = _STACK.get()
+    parent, parent_name = _parent(_STACK.get())
     buf.add(
         TraceEvent(
             name=name,
@@ -201,8 +296,10 @@ def complete(name: str, t0: float, dur: float, *, cat: str = "span", **args) -> 
             ts=t0 - buf.epoch,
             dur=dur,
             tid=threading.get_ident(),
-            parent=stack[-1].name if stack else None,
+            parent=parent,
             args=args,
+            id=next(_IDS),
+            parent_name=parent_name,
         )
     )
 
@@ -213,7 +310,7 @@ def instant(name: str, *, cat: str = "span", **args) -> None:
     buf = _BUFFER
     if buf is None:
         return
-    stack = _STACK.get()
+    parent, parent_name = _parent(_STACK.get())
     buf.add(
         TraceEvent(
             name=name,
@@ -222,8 +319,10 @@ def instant(name: str, *, cat: str = "span", **args) -> None:
             ts=time.perf_counter() - buf.epoch,
             dur=0.0,
             tid=threading.get_ident(),
-            parent=stack[-1].name if stack else None,
+            parent=parent,
             args=args,
+            id=next(_IDS),
+            parent_name=parent_name,
         )
     )
 
@@ -244,6 +343,7 @@ def counter(name: str, *, cat: str = "metric", **values) -> None:
             tid=threading.get_ident(),
             parent=None,
             args=values,
+            id=next(_IDS),
         )
     )
 
@@ -269,19 +369,27 @@ _NOOP = _NoopSpan()
 class Span:
     """One timed region; create via :func:`span`, use as a context manager.
 
-    Entering pushes onto the contextvar stack (so children see their
-    parent); exiting pops, measures the duration, and records — tagged
-    with the exception class if the body raised.  A span object is
+    Entering takes an id, pushes onto the contextvar stack (so children
+    see their parent), opens the profiler range while a session records
+    and marks the current stream; exiting marks the stream again, closes
+    the range, pops, measures the host duration, and records — tagged with
+    the exception class if the body raised — to the buffer and, when the
+    profiler recorded it, to the session's list.  A span object is
     single-use.
     """
 
-    __slots__ = ("name", "cat", "args", "_t0")
+    __slots__ = ("name", "cat", "args", "id", "_t0", "_parent", "_profiled", "_range", "_mark")
 
     def __init__(self, name: str, cat: str, args: dict):
         self.name = name
         self.cat = cat
         self.args = args
+        self.id = next(_IDS)
         self._t0 = 0.0
+        self._parent = (None, None)
+        self._profiled = False
+        self._range = None
+        self._mark = None
 
     def tag(self, **kw) -> "Span":
         """Attach tags after creation (e.g. results known mid-span)."""
@@ -290,42 +398,65 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
-        _STACK.set(_STACK.get() + (self,))
+        global _PROFILED_OPEN
+        stack = _STACK.get()
+        self._parent = _parent(stack)
+        _STACK.set(stack + (self,))
+        self._profiled = _profiling()
+        if self._profiled:
+            _open_session()
+            if _RANGE is not None:
+                self._range = _RANGE(self.name)
+                self._range.__enter__()
+        else:
+            _PROFILED_OPEN = False
+        self._mark = _device_mark()
         self._t0 = time.perf_counter()
         return self
 
+    def _event(self, epoch: float, dur: float, args: dict, marks) -> TraceEvent:
+        ev = TraceEvent(
+            name=self.name,
+            cat=self.cat,
+            ph="X",
+            ts=self._t0 - epoch,
+            dur=dur,
+            tid=threading.get_ident(),
+            parent=self._parent[0],
+            args=args,
+            id=self.id,
+            parent_name=self._parent[1],
+        )
+        ev._marks = marks
+        return ev
+
     def __exit__(self, exc_type, exc, tb) -> bool:
+        end = _device_mark() if self._mark is not None else None
         dur = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         stack = _STACK.get()
         if stack and stack[-1] is self:
             _STACK.set(stack[:-1])
         else:  # misnested exit: drop self wherever it sits, keep the rest
             _STACK.set(tuple(s for s in stack if s is not self))
+        args = dict(self.args)
+        if exc_type is not None:
+            args["error"] = exc_type.__name__
+        marks = (self._mark, end) if end is not None else None
         buf = _BUFFER
         if buf is not None:
-            args = dict(self.args)
-            if exc_type is not None:
-                args["error"] = exc_type.__name__
-            outer = _STACK.get()
-            buf.add(
-                TraceEvent(
-                    name=self.name,
-                    cat=self.cat,
-                    ph="X",
-                    ts=self._t0 - buf.epoch,
-                    dur=dur,
-                    tid=threading.get_ident(),
-                    parent=outer[-1].name if outer else None,
-                    args=args,
-                )
-            )
+            buf.add(self._event(buf.epoch, dur, args, marks))
+        if self._profiled:
+            _PROFILED.append(self._event(_PROFILED_EPOCH, dur, dict(args), marks))
         return False
 
 
 def span(name: str, *, cat: str = "span", **args):
-    """A context manager timing its body (no-op while tracing is off)."""
+    """A context manager timing its body (no-op while tracing is off and
+    no profiler session records)."""
 
-    if _BUFFER is None:
+    if _BUFFER is None and not _profiling():
         return _NOOP
     return Span(name, cat, args)
 
@@ -346,6 +477,7 @@ __all__ = [
     "disable",
     "enabled",
     "get_buffer",
+    "profiled_spans",
     "span",
     "complete",
     "instant",

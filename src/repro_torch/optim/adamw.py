@@ -25,6 +25,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.observability import trace as T
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -130,44 +132,54 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, *, norm: Optional[Calla
     ``norm`` computes the gradients' global norm (:func:`global_norm`
     unless given: a sharded tree's is ``distributed.spmd.global_norm``).
     On shards the update is the same element-wise arithmetic, and weight
-    decay reads a leaf's logical ``ndim``, which its shard keeps.
+    decay reads a leaf's logical ``ndim``, which its shard keeps.  The
+    whole update (norm, clip, every leaf) is the ``trainer.optimizer``
+    span.
     """
 
-    step = state["step"] + 1
-    grad_norm = (norm or global_norm)(grads)
-    flat_g = tree_leaves(grads)
-    if cfg.clip_norm is not None:
-        scale = _clip_scale(grad_norm, cfg.clip_norm)
-        for g in flat_g:
-            g.mul_(scale)
-    lr = lr_at(cfg, step)
-    stepf = step.to(torch.float32)
-    b1c = 1 - torch.pow(_f32(cfg.b1, step.device), stepf)
-    b2c = 1 - torch.pow(_f32(cfg.b2, step.device), stepf)
-    b1, b2 = _f32(cfg.b1, step.device), _f32(cfg.b2, step.device)
-    c1, c2 = _f32(1 - cfg.b1, step.device), _f32(1 - cfg.b2, step.device)
+    with T.span("trainer.optimizer", cat="trainer") as sp:
+        step = state["step"] + 1
+        grad_norm = (norm or global_norm)(grads)
+        flat_g = tree_leaves(grads)
+        if cfg.clip_norm is not None:
+            scale = _clip_scale(grad_norm, cfg.clip_norm)
+            for g in flat_g:
+                g.mul_(scale)
+        lr = lr_at(cfg, step)
+        stepf = step.to(torch.float32)
+        b1c = 1 - torch.pow(_f32(cfg.b1, step.device), stepf)
+        b2c = 1 - torch.pow(_f32(cfg.b2, step.device), stepf)
+        b1, b2 = _f32(cfg.b1, step.device), _f32(cfg.b2, step.device)
+        c1, c2 = _f32(1 - cfg.b1, step.device), _f32(1 - cfg.b2, step.device)
 
-    leaves = zip(tree_leaves(params), flat_g, tree_leaves(state["m"]), tree_leaves(state["v"]))
-    for p, g, m, v in leaves:
-        g = g.float()
-        m.mul_(b1).add_(c1 * g)                  # b1·m + (1-b1)·g
-        v.mul_(b2).add_(c2 * g * g)              # b2·v + (1-b2)·g·g
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.ndim >= 2:                          # decoupled decay, matrices only
-            upd.add_(cfg.weight_decay * p)
-        p.sub_((lr * upd).to(p.dtype))
-        del upd
-    state = {"m": state["m"], "v": state["v"], "step": step}
+        leaves = zip(tree_leaves(params), flat_g, tree_leaves(state["m"]), tree_leaves(state["v"]))
+        for p, g, m, v in leaves:
+            g = g.float()
+            m.mul_(b1).add_(c1 * g)                  # b1·m + (1-b1)·g
+            v.mul_(b2).add_(c2 * g * g)              # b2·v + (1-b2)·g·g
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            if p.ndim >= 2:                          # decoupled decay, matrices only
+                upd.add_(cfg.weight_decay * p)
+            p.sub_((lr * upd).to(p.dtype))
+            del upd
+        state = {"m": state["m"], "v": state["v"], "step": step}
+        sp.tag(leaves=len(flat_g))
     return params, state, {"lr": lr, "grad_norm": grad_norm}
 
 
-def value_and_grad(loss_fn: Callable, params, batch):
+def value_and_grad(loss_fn: Callable, params, batch, *, micro: Optional[int] = None):
     """``(loss, metrics, grads)`` of ``loss_fn(params, batch)``: the grads
-    of every leaf that requires one, in the params' tree and dtype."""
+    of every leaf that requires one, in the params' tree and dtype.  The
+    loss is the ``trainer.forward`` span, the gradients (the recompute
+    included) ``trainer.backward``; ``micro`` tags both with the
+    micro-batch's index."""
 
-    loss, metrics = loss_fn(params, batch)
+    tags = {} if micro is None else {"micro": micro}
+    with T.span("trainer.forward", cat="trainer", **tags):
+        loss, metrics = loss_fn(params, batch)
     leaves = tree_leaves(params)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with T.span("trainer.backward", cat="trainer", **tags):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
     return loss.detach(), {k: v.detach() if isinstance(v, torch.Tensor) else v
                            for k, v in metrics.items()}, tree_unflatten(params, grads)
@@ -191,7 +203,7 @@ def accumulate_gradients(loss_fn: Callable, params, batch, n_micro: int):
     acc_g, acc_l, metrics = None, None, None
     for j in range(n_micro):
         mb = {k: v[j * size:(j + 1) * size] for k, v in batch.items()}
-        loss, metrics, grads = value_and_grad(loss_fn, params, mb)
+        loss, metrics, grads = value_and_grad(loss_fn, params, mb, micro=j)
         if acc_g is None:
             acc_g = tree_map(lambda g: g.float(), grads)
             acc_l = loss.float()

@@ -25,7 +25,12 @@ Composes:
     steps; a :class:`SimulatedFailure` restores the newest committed step
     and the loop replays from there (the data is seeded by step),
   * straggler feedback: per-pod step times feed the CA-DAS scheduler,
-    which re-derives the next step's batch shares,
+    which re-derives the next step's batch shares (the step's host time
+    for every pod unless a ``pod_time_hook`` gives them),
+  * telemetry: :meth:`Trainer.train_step` is the ``trainer.step`` span,
+    with ``trainer.forward``, ``trainer.backward`` and
+    ``trainer.optimizer`` inside it (``class_sharded.pod`` around each
+    pod's, on the mixed step),
   * elastic re-placement: :meth:`Trainer.reshard` rebuilds the step for
     another pod mesh, the state left in place.
 
@@ -83,22 +88,8 @@ from repro_torch.distributed.collectives import note_collective
 from repro_torch.distributed.sharding import PodSplit
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model_zoo as Z
-from repro_torch.observability import metrics as MET
 from repro_torch.observability import trace as T
 from repro_torch.optim import adamw as O
-
-_M = None
-
-
-def _metrics():
-    global _M
-    if _M is None:
-        _M = {
-            "steps": MET.counter("trainer_steps_total", "Training steps completed"),
-            "step_seconds": MET.histogram(
-                "trainer_step_seconds", "Train step wall time (incl. compile)"),
-        }
-    return _M
 
 
 class SimulatedFailure(RuntimeError):
@@ -153,7 +144,7 @@ def _masked_micro_grads(loss_fn, params, batch, n_micro: int):
     ms, ws = [], []
     for j in range(n_micro):
         mb = {k: v[j * size:(j + 1) * size] for k, v in batch.items()}
-        loss, metrics, grads = O.value_and_grad(loss_fn, params, mb)
+        loss, metrics, grads = O.value_and_grad(loss_fn, params, mb, micro=j)
         w = _shard_weight(mb)
         if acc_g is None:
             acc_g = O.tree_map(lambda g: w * g.float(), grads)
@@ -417,8 +408,14 @@ class Trainer:
         """One step under the ambient context: the gradients (per pod
         under its class's tree when class-sharded, else accumulated over
         ``n_micro`` micro-batches), then AdamW in place; returns the
-        metrics as tensors."""
+        metrics as tensors.  The step is the ``trainer.step`` span, on
+        every path."""
 
+        rows, seq = batch["tokens"].shape[:2]
+        with T.span("trainer.step", cat="trainer", step=self.step, tokens=rows * seq):
+            return self._train_step(batch)
+
+    def _train_step(self, batch) -> dict:
         if self.sharded:
             with self._execution():
                 self.params, self.opt_state, metrics = sharded_train_step(
@@ -534,12 +531,6 @@ class Trainer:
                 t0 = time.perf_counter()
                 metrics = {k: float(v) for k, v in self.train_step(batch).items()}
                 dt = time.perf_counter() - t0
-                if T.enabled():
-                    m = _metrics()
-                    T.complete("trainer.step", t0, dt, cat="trainer",
-                               step=self.step, loss=metrics.get("loss"))
-                    m["steps"].inc()
-                    m["step_seconds"].observe(dt)
 
                 # Straggler feedback: measured (or injected) per-pod times
                 # re-derive the next step's chunk table (CA-DAS).

@@ -1,9 +1,9 @@
 """Port vs reference: blocking, schedulers, paging and the asymmetric mesh.
 
 The modules the port copies verbatim (the paper's blocking derivation,
-``core/schedule.py``, ``runtime/paging.py``, ``util/atomic.py``,
-``observability/trace.py``) and the mesh's scheduling surface are held to
-**exact** equality with the JAX package on identical inputs.  The Hopper
+``core/schedule.py``, ``runtime/paging.py``, ``util/atomic.py``), the
+records of ``observability/trace.py`` and the mesh's scheduling surface
+are held to **exact** equality with the JAX package on identical inputs.  The Hopper
 block derivation has no reference numbers to match (its shapes differ by
 design); it is held to the reference's *structural* rules instead: a
 shared ``bk`` under Loop 3, the little class on the lean kernel at the
@@ -153,7 +153,7 @@ def test_page_pool_state_matches_reference_after_identical_ops(per_slot):
 
 
 # ---------------------------------------------------------------------------
-# util.atomic and observability.trace (verbatim copies: exact)
+# util.atomic (a verbatim copy) and observability.trace's records (exact)
 # ---------------------------------------------------------------------------
 
 

@@ -814,3 +814,154 @@ def test_sharded_step_on_ranks_sharing_the_card(cuda, tmp_path):
         assert run["reduced"].eq(10.0).all()
         data_index = rank // 2
         assert torch.equal(run["scattered"], 2 * torch.arange(8.0).reshape(4, 2)[2 * data_index:2 * data_index + 2])
+
+
+# ---------------------------------------------------------------------------
+# The program's spans on the card: device time, the profiler's clock
+# ---------------------------------------------------------------------------
+
+
+def _mixed_trainer(tmp_path, device):
+    """The benchmark's mixed training cell's model (internlm2-1.8b at full
+    width, cut to 2 layers) through the class-sharded step on two
+    streams."""
+
+    import dataclasses
+
+    from repro_torch.launch import train as LT
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2)
+    args = LT.build_parser().parse_args([
+        "--arch", "internlm2-1.8b", "--device", "cuda", "--global-batch", "4", "--seq", "512",
+        "--heterogeneous", "--class-sharded", "on", "--ckpt-dir", str(tmp_path)])
+    trainer = LT.make_trainer(args, cfg=cfg)
+    assert trainer.class_sharded_step is not None
+    return trainer, trainer.next_batch(0)[0]
+
+
+def _profiled_on_card(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.observability import trace as TRC
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof, TRC.profiled_spans()
+
+
+def _span_readers(names, units):
+    """Each of the benchmark's span readers ``names`` on this session."""
+
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import counts
+    from portbench import run as RUN
+
+    run = {"trace": {"units": units}, "peaks": counts.peaks()}
+    return {n: RUN.load_reader(n)(run) for n in names}
+
+
+@pytest.mark.cuda
+def test_spans_read_device_time_and_reach_the_profiler_as_cpu_ranges(cuda, tmp_path):
+    """A mixed training step and a prefill, each under a profiler: every
+    span has its device time, every span reader of the benchmark gives a
+    number, and no device event carries a span's name (the ranges are
+    function-scope, not user annotations the profiler mirrors)."""
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
+    from repro_torch.models import model_zoo as Z
+
+    trainer, batch = _mixed_trainer(tmp_path, cuda)
+    trainer.train_step(batch)          # warm: the kernels built and loaded
+    prof, spans = _profiled_on_card(lambda: trainer.train_step(batch))
+    names = {s.name for s in spans}
+    assert {"trainer.step", "trainer.forward", "trainer.backward", "trainer.optimizer",
+            "class_sharded.pod", "class_sharded.epilogue"} <= names
+    assert all(s.device_s is not None and s.device_s > 0 for s in spans)
+    step = next(s for s in spans if s.name == "trainer.step")
+    pods = [s for s in spans if s.name == "class_sharded.pod"]
+    assert len(pods) == 2 and all(p.device_s <= step.device_s for p in pods)
+    assert not [e.name for e in prof.events()
+                if e.device_type != DeviceType.CPU and e.name in names]
+    got = _span_readers(["optimizer_share.train", "host_share.train", "pod_balance.train"], [])
+    assert all(v is not None and 0 < v for v in got.values()), got
+    assert got["optimizer_share.train"] < 100 and got["pod_balance.train"] <= 100
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    cfg = get_config("internlm2-1.8b")
+    params = Z.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                           dtype=torch.bfloat16)
+    prefill = Z.make_prefill_fn(cfg)
+    tokens = torch.randint(0, cfg.vocab, (4, 1024), device=cuda)
+    ctx = AsymmetricMesh(biglittle_classes(chips_per_pod=1), batch_tile=1).execution_context("big")
+    with ctx:
+        prefill(params, {"tokens": tokens})
+        prof, spans = _profiled_on_card(lambda: prefill(params, {"tokens": tokens}))
+    (s,) = spans
+    assert s.name == "model.prefill" and s.device_s > 0 and s.args == {"rows": 4, "length": 1024}
+    assert not [e for e in prof.events() if e.device_type != DeviceType.CPU
+                and e.name == "model.prefill"]
+    matmul = sum(p.numel() for p in _tensors(params) if p.ndim >= 2)
+    got = _span_readers(["prefill_mfu.score", "host_share.score"],
+                        [{"model_flops": 2 * matmul * tokens.numel()}])
+    assert all(v is not None and 0 < v for v in got.values()), got
+    assert got["prefill_mfu.score"] < 100
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
+
+
+@pytest.mark.cuda
+def test_spans_add_no_host_synchronisation(cuda, tmp_path):
+    """``set_sync_debug_mode("warn")`` reports the same synchronising calls,
+    at the same lines, in a mixed training step with tracing on as in the
+    step before it with tracing off (after two warm steps and a warm
+    window)."""
+
+    import collections
+    import warnings
+
+    from repro_torch.observability import trace as TRC
+
+    trainer, batch = _mixed_trainer(tmp_path, cuda)
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+
+    def syncs(on: bool) -> collections.Counter:
+        if on:
+            TRC.enable()
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    trainer.train_step(batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        finally:
+            buf = TRC.disable()
+        torch.cuda.synchronize()
+        if on:
+            assert [e for e in buf.events if e.name == "trainer.step"]
+        return collections.Counter(f"{w.filename}:{w.lineno}" for w in seen
+                                   if "synchroniz" in str(w.message))
+
+    # The first window of a process reports one more, at the line of
+    # ``set_sync_debug_mode`` itself: leave it out.
+    runs = [syncs(on) for on in (False, False, True, False, True)][1:]
+    assert not [k for run in runs for k in run if "observability" in k]
+    assert runs[1] == runs[0] and runs[3] == runs[2], runs

@@ -6,7 +6,8 @@ of ``jax``/``jaxlib`` or the JAX package ``repro``; then a fresh
 interpreter imports every port module and checks that neither ended up in
 ``sys.modules``.  The framework-neutral modules the port carries over as
 copies are held to the reference's text, their import lines renamed to the
-port's package.  No tolerances: these are structural checks.
+port's package; the port's own trace module keeps the reference's
+surface.  No tolerances: these are structural checks.
 """
 
 import ast
@@ -104,7 +105,7 @@ def test_port_covers_the_slice_modules():
 # Copies of the reference's framework-neutral modules: the same text, the
 # import lines of the reference's package renamed to the port's.
 COPIES = ("runtime/faults.py", "runtime/fleet.py", "runtime/paging.py", "util/atomic.py",
-          "observability/metrics.py", "observability/trace.py", "observability/report.py",
+          "observability/metrics.py", "observability/report.py",
           "core/schedule.py", "core/simulator.py")
 
 
@@ -127,6 +128,35 @@ def test_copied_module_matches_reference(rel):
     added = [d for d in diff if d.startswith("+") and not d.startswith("+++")]
     removed = [d for d in diff if d.startswith("-") and not d.startswith("---")]
     assert len(added) == len(removed) == DIFFERING[rel], "\n".join(diff)
+
+
+def test_trace_keeps_the_reference_surface(tmp_path):
+    """``observability/trace.py`` is the port's own (ids, device time, the
+    profiler's clock), no longer a copy: it still exports every name of
+    the reference's ``__all__``, and the copied ``report.py`` loads what
+    its buffer saves."""
+
+    from repro.observability import trace as JT
+    from repro_torch.observability import report
+    from repro_torch.observability import trace as TT
+
+    assert set(JT.__all__) <= set(TT.__all__)
+    assert all(hasattr(TT, name) for name in TT.__all__)
+    TT.enable()
+    try:
+        with TT.span("outer", cat="engine", k=1):
+            with TT.span("outer", cat="engine"):
+                TT.instant("mark", cat="engine", pages=2)
+    finally:
+        buf = TT.disable()
+    path = str(tmp_path / "t.json")
+    buf.save(path)
+    events, meta = report.load_events(path)
+    assert meta["format"] == "native" and meta["skipped_records"] == 0
+    assert [e["name"] for e in events] == ["mark", "outer", "outer"]
+    inner, outer = events[1], events[2]
+    assert inner["parent"] == outer["id"] and inner["parent_name"] == "outer"
+    assert "outer" in report.summarize(events)
 
 
 def test_importing_every_port_module_loads_no_jax():

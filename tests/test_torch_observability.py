@@ -360,7 +360,7 @@ def test_search_emits_span_and_candidate_timings():
     assert search.args["best"] == [res.best.bm, res.best.bk, res.best.bn]
     cands = [e for e in buf.events if e.name == "tuning.candidate"]
     assert len(cands) == res.n_candidates
-    assert all(e.parent == "tuning.search_shape" for e in cands)
+    assert all(e.parent == search.id and e.parent_name == "tuning.search_shape" for e in cands)
     assert MET.REGISTRY.snapshot()["tuning_candidate_seconds"]["samples"][0]["count"] >= len(cands)
     assert _obs_metrics()["cache"].labels(result="miss").value == misses0 + 1
 
