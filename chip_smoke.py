@@ -30,7 +30,13 @@ Phases (any failed check exits non-zero and prints no result line):
      head groups at 4,096 in pages of 16), each also held in L2 row by row,
      bitwise equal to itself on a second call, and timed on the device
      with ``torch.profiler`` beside the CUDA events, with the share of its
-     bytes bound and its number of splits; last, the GEMM autograd
+     bytes bound and its number of splits; the training attention
+     (``phase1_flash_training``: the log-sum-exp forward and the two
+     backward kernels) against its plain versions at the train cell's
+     layer (4 x 2,048), zamba2's head dim 80 and whisper's non-causal
+     encoder and cross-attention, row by row, bitwise twice, timed at the
+     first beside ``scaled_dot_product_attention``'s forward and
+     backward; last, the GEMM autograd
      Function (``ops.GemmFn``) at the training shapes of phase 16 (M = 8 x
      512; ``gemm_backward_check``), with a unit-scale dC: its output, dA and dB through
      ``gemm_cuda`` at the big class's blocks and ``gemm_cuda_lean`` at the
@@ -133,8 +139,11 @@ Phases (any failed check exits non-zero and prints no result line):
      6 steps and one injected failure at step 2 that restores the step-0
      checkpoint (written to a temporary directory the phase deletes);
      every step launches 675 ``gemm_cuda`` (169 forward, 168 recomputed,
-     338 backward) and no flash attention; the step-0 loss finite, within
-     0.5 of ln V and within ``TRAIN_EVAL_LOSS_TOL`` of the eval loss (the
+     338 backward) and the training attention's kernels
+     (``train_attention_launches``: 48 log-sum-exp forwards, 24 of each
+     backward kernel), no inference flash launch and no
+     ``chunked_attention`` call; the step-0 loss finite, within 0.5 of ln
+     V and within ``TRAIN_EVAL_LOSS_TOL`` of the eval loss (the inference
      flash kernel) on the same batch; the replayed step-0 loss bitwise
      equal, later ones within ``TRAIN_REPLAY_RTOL``; step ms, tokens/s,
      peak memory, the checkpoint's bytes, save and restore seconds beside
@@ -146,8 +155,8 @@ Phases (any failed check exits non-zero and prints no result line):
  17. training the full-width qwen2-moe-a2.7b at ``MOE_TRAIN_LAYERS`` of its
      24 layers through ``launch/train.py``'s trainer (its step, so no
      checkpoint is written): 6 steps of 8 x 512 tokens, each launching 115
-     ``gemm_cuda`` (29 forward, 28 recomputed, 58 backward) and no other
-     kernel; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
+     ``gemm_cuda`` (29 forward, 28 recomputed, 58 backward), the training
+     attention's kernels for its 4 layers and no other kernel; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
      loss (the flash kernel), the router's aux loss above 0 and finite,
      grad norms finite; the share of routing decisions the training and
      eval forwards agree on (printed); one step under the little tree (115
@@ -164,8 +173,9 @@ Phases (any failed check exits non-zero and prints no result line):
      ``BLOCK_FAULTS`` in the float64 block outside it;
  19. gradient steps of the full-width whisper-small through
      ``make_loss_fn``, ``value_and_grad`` and ``adamw_update`` over 2 x 448
-     tokens and 1,500 frames: 771 ``gemm_cuda`` a step and no flash
-     attention; the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
+     tokens and 1,500 frames: 771 ``gemm_cuda`` a step and the training
+     attention's kernels for its 36 attentions (12 encoder, 12 decoder, 12
+     cross); the step-0 loss within ``TRAIN_EVAL_LOSS_TOL`` of the eval
      loss, which runs ``flash_attention_cuda``; one traced step against
      its bounds.
  20. mixed serving (the class-sharded step) of the full-width internlm2-1.8b,
@@ -193,7 +203,8 @@ Phases (any failed check exits non-zero and prints no result line):
      L2 of the single-class step on the same params and batch (the little
      pod's weight zeroed in the epilogue must fail the norm and the
      slices, its gradients of one layer zeroed the slices); 3 steps of 675
-     ``gemm_cuda`` and 675 ``gemm_cuda_lean`` each; step ms, tokens/s and
+     ``gemm_cuda`` and 675 ``gemm_cuda_lean`` each, and the training
+     attention's kernels for both pods' 24 layers; step ms, tokens/s and
      peak memory beside phase 16's; then ``gemm_backward_check`` at a
      pod's shapes (M = 6 x 512).
  22. the fault-tolerant fleet serving the full-width internlm2-1.8b (phase
@@ -243,7 +254,9 @@ Phases (any failed check exits non-zero and prints no result line):
      from seed 0, losses within ``SPMD_LOSS_RTOL`` and grad norms within
      ``SPMD_NORM_RTOL`` of the one-card trainer's on the same seed and
      batches (run here first), 339 ``gemm_cuda`` a step a rank at the
-     local shapes and no other kernel, each rank's collective bytes a step
+     local shapes, the training attention's kernels on its local heads
+     (24 log-sum-exp forwards, 12 of each backward kernel) and no other
+     kernel, each rank's collective bytes a step
      by kind equal to the dry-run's count for the cell at (2,2); (b)
      ``reshard`` to (data=4, model=1) and one more step, held the same
      way; (c) one decode step of 12 rows at the last position of a
@@ -974,6 +987,97 @@ def phase1_flash(torch, detail: dict) -> dict:
             "cases": [{k: r[k] for k in ("label", "shape", "causal", "ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by", "max_abs_err", "max_row_rel_err")}
                       for r in rows if r is not record]}
+
+
+def grad_row_err(got, ref) -> float:
+    """The largest ``|got - ref|`` over the rows (last axis) in L2, over the
+    larger of the row's norm and ``ref``'s mean row norm (a query that sees
+    one key has a dQ row of rounding noise)."""
+
+    diff = (got.float() - ref.float()).norm(dim=-1)
+    norms = ref.float().norm(dim=-1)
+    return float((diff / norms.clamp_min(float(norms.mean()))).max())
+
+
+def phase1_flash_training(torch) -> dict:
+    """The training attention (``FlashAttentionFn``: the log-sum-exp forward
+    and the two backward kernels) against its plain versions at the train
+    cell's layer shape (internlm2-1.8b, ``TRAIN_ATTN_BATCH`` x
+    ``TRAIN_ATTN_SEQ``, causal), zamba2's head dim 80 and whisper's
+    non-causal encoder and cross-attention: dQ, dK, dV within
+    ``FLASH_ROW_TOL`` of the plain backward row by row (``grad_row_err``),
+    the output bitwise the inference kernel's, two backward calls bitwise
+    equal.  At the train shape: a forward and a backward timed (CUDA
+    events), the plain versions once, ``scaled_dot_product_attention``'s
+    forward and backward as a yardstick (the port never calls it), and the
+    bound: the forward's two products and the backward's five (dV, dP, dQ,
+    dK and the recomputed S) at the bf16 peak."""
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    cfg, zcfg, wcfg = get_config(ARCH), get_config(HYBRID_ARCH), get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out: dict = {"cases": []}
+    for label, b, sq, sk, causal, c in (
+        ("train", TRAIN_ATTN_BATCH, TRAIN_ATTN_SEQ, TRAIN_ATTN_SEQ, True, cfg),
+        (f"{HYBRID_ARCH} shared", 1, TRAIN_ATTN_SEQ, TRAIN_ATTN_SEQ, True, zcfg),
+        (f"{ENCDEC_ARCH} encoder", 2, wcfg.enc_frames, wcfg.enc_frames, False, wcfg),
+        (f"{ENCDEC_ARCH} cross", 2, DEC_CTX, wcfg.enc_frames, False, wcfg),
+    ):
+        hq, hkv, d = c.n_heads, c.n_kv_heads, c.head_dim
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((b, sk, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        dout = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+        def forward():
+            return FA.flash_attention_cuda(*leaves, causal=causal)
+
+        o = forward()
+        grads = torch.autograd.grad(o, leaves, dout, retain_graph=True)
+        again = torch.autograd.grad(o, leaves, dout, retain_graph=True)
+        t0 = time.perf_counter()
+        o_p, lse_p = FA.flash_attention_torch(q, k, v, causal=causal, with_lse=True)
+        want = FA.flash_attention_bwd_torch(q, k, v, o_p, dout, lse_p, causal=causal)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [grad_row_err(g, w) for g, w in zip(grads, want)]
+        with torch.no_grad():
+            inference = FA.flash_attention_cuda(q, k, v, causal=causal)
+        check(torch.equal(o.detach(), inference), f"training forward {label}: output differs from inference's")
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"training backward {label}: two calls differ")
+        check(max(errs) <= FLASH_ROW_TOL, f"training backward {label}: dq/dk/dv rows off by {errs}")
+        case = {"label": label, "shape": [b, sq, sk, hq, hkv, d], "causal": causal, "row_err": errs}
+        if label == "train":
+            fwd_ms = time_ms(torch, lambda: forward(), [()], 10)
+            bwd_ms = time_ms(torch, lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), [()], 10)
+            tq, tk, tv = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+
+            def sdpa():
+                y = F.scaled_dot_product_attention(tq, tk, tv, is_causal=True, enable_gqa=True)
+                return torch.autograd.grad(y, (tq, tk, tv), dout.transpose(1, 2))
+
+            lib_ms = time_ms(torch, sdpa, [()], 10)
+            fwd_flops = 4 * b * hq * d * visible_pairs(sq, sk, causal, None)
+            n_bytes = (3 * q.numel() + 3 * k.numel() + 3 * v.numel() + 2 * q.numel()) * 2
+            b_ms, by = bound_ms(n_bytes, 3.5 * fwd_flops)
+            case.update(ms=fwd_ms + bwd_ms, forward_ms=fwd_ms, backward_ms=bwd_ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+                        tflops=3.5 * fwd_flops / (fwd_ms + bwd_ms) / 1e9)
+            out.update({k_: case[k_] for k_ in ("ms", "forward_ms", "backward_ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by", "tflops", "shape")})
+        out["cases"].append(case)
+        print(f"  training attention {label} B={b} Sq={sq} Sk={sk} H={hq}/{hkv} D={d} causal={causal}: "
+              f"dq/dk/dv rows {[round(e, 5) for e in errs]}, bitwise twice"
+              + (f"; forward {case['forward_ms']:.3f} + backward {case['backward_ms']:.3f} ms "
+                 f"({case['tflops']:.0f} TFLOP/s), plain {plain_ms:.1f}, sdpa {case['library_ms']:.3f}, "
+                 f"bound {case['bound_ms']:.3f} ({case['bound_by']})" if "ms" in case else ""), flush=True)
+    return out
 
 
 def phase7(torch, counts, reset) -> dict:
@@ -2419,11 +2523,13 @@ def phase15(torch, counts, reset) -> dict:
 # (M = 4,096 rows in every GEMM), 6 steps and one failure at step 2 that
 # restores the step-0 checkpoint.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_FAIL_AT = 8, 512, 6, 2
-# The step-0 training loss (chunked attention, fp32 masters cast at use)
-# against the eval loss on the same batch (the flash kernel): the two
-# attentions round p to bf16 before or after normalising, a bf16 ulp of
-# the attention output; the loss is a mean over 4,096 tokens of those
-# rounding differences, a few thousandths at most.
+# The benchmark's train cell's shape, where phase 1 times the training
+# attention.
+TRAIN_ATTN_BATCH, TRAIN_ATTN_SEQ = 4, 2048
+# The step-0 training loss (fp32 masters cast at use; the training flash
+# forward, whose output is the inference kernel's) against the eval loss
+# on the same batch (the inference flash kernel): a few thousandths at
+# most, the training graph's other order of the same bf16 casts.
 TRAIN_EVAL_LOSS_TOL = 0.01
 # Later replayed losses against the first run's: the embedding's backward
 # scatters with atomics, so the step-0 update differs in the last bits.
@@ -2612,15 +2718,18 @@ def gemm_backward_check(torch, label: str, shapes: list, seed: int) -> dict:
 
 
 def kernel_family(name: str) -> str:
-    """The family of a kernel by its name: ``gemm_cuda``; cuBLAS in bf16
+    """The family of a kernel by its name: ``gemm_cuda``; the flash
+    attention kernels (the training forward and backward); cuBLAS in bf16
     on the tensor cores (the MoE experts' ``bmm``, the Mamba2 projections)
-    or in fp32 (the attention's and the router's einsums: TF32 is off);
+    or in fp32 (the router's einsums: TF32 is off);
     indexing (gathers, scatters, ``index_put``); copies; the element-wise
     rest."""
 
     name = name.lower()
     if "gemm_kernel<" in name:
         return "gemm_cuda"
+    if "flash_attention" in name:
+        return "flash_attention"
     if any(k in name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")):
         tensor_core = any(k in name for k in ("bf16", "bfloat16", "nvjet", "tensorop", "gmma", "hmma"))
         return "cublas_bf16" if tensor_core else "cublas_fp32"
@@ -2791,16 +2900,29 @@ def eval_loss_of(torch, loss_fn, params, batch, ctx, counts, reset) -> tuple[flo
     return loss, counts()
 
 
-def check_train_steps(cfg, steps: list, per_step: int, eval_loss: float) -> None:
-    """Each of ``steps`` (``launches``, ``loss``, ``grad_norm``, the MoE's
-    ``aux``) launched ``per_step`` ``gemm_cuda`` and no other kernel, with a
-    finite loss and a finite, positive grad norm (and aux); the step-0 loss
-    within ``TRAIN_EVAL_LOSS_TOL`` of the eval loss on the same batch."""
+def train_attention_launches(attn: int) -> dict:
+    """A training step's flash launches with ``attn`` attention calls a
+    forward: the log-sum-exp forward in the forward and again in the
+    recompute, each backward kernel once, no inference launch and no
+    ``chunked_attention`` call on the card."""
 
+    return {"flash_attention_cuda": 0, "flash_attention_fwd_lse": 2 * attn,
+            "flash_attention_bwd_dq": attn, "flash_attention_bwd_dkdv": attn, "chunked_attention": 0}
+
+
+def check_train_steps(cfg, steps: list, per_step: int, eval_loss: float, attn: int) -> None:
+    """Each of ``steps`` (``launches``, ``loss``, ``grad_norm``, the MoE's
+    ``aux``) launched ``per_step`` ``gemm_cuda``, the training attention's
+    kernels for ``attn`` attention calls a forward
+    (``train_attention_launches``) and no other kernel, with a finite loss
+    and a finite, positive grad norm (and aux); the step-0 loss within
+    ``TRAIN_EVAL_LOSS_TOL`` of the eval loss on the same batch."""
+
+    want = {"gemm_cuda": per_step, **train_attention_launches(attn)}
     for i, s in enumerate(steps):
         lc = s["launches"]
-        check(lc["gemm_cuda"] == per_step and all(v == 0 for k, v in lc.items() if k != "gemm_cuda"),
-              f"{cfg.name} step {i} launched {lc}, want {per_step} gemm_cuda only")
+        check(all(v == want.get(k, 0) for k, v in lc.items()),
+              f"{cfg.name} step {i} launched {lc}, want {want} and no other kernel")
         check(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) and s["grad_norm"] > 0,
               f"{cfg.name} step {i}: loss {s['loss']}, grad_norm {s['grad_norm']}")
         if cfg.family == "moe":
@@ -2930,8 +3052,9 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
         n_params = sum(p.numel() for p in O.tree_leaves(trainer.params))
         batch0, _ = trainer.next_batch(0)
         check(tuple(batch0["tokens"].shape) == (TRAIN_BATCH, TRAIN_SEQ), f"batch {batch0['tokens'].shape}")
-        eval_loss, _ = eval_loss_of(torch, Z.make_loss_fn(cfg), trainer.params, batch0, trainer.exec_ctx,
-                                    counts, reset)
+        eval_loss, eval_launches = eval_loss_of(torch, Z.make_loss_fn(cfg), trainer.params, batch0,
+                                                trainer.exec_ctx, counts, reset)
+        check(eval_launches["flash_attention_cuda"] == cfg.n_layers, f"the eval loss launched {eval_launches}")
 
         # Instrument the loop: each step's launches and wall, the save's and
         # the restore's seconds.
@@ -2996,7 +3119,8 @@ def phase16(torch, counts, reset, transpose_ms: float) -> dict:
               f"{io.get('mem_available_gb', float('nan')):.1f} GB", flush=True)
         check(n_steps == TRAIN_STEPS + TRAIN_FAIL_AT and trainer.restarts == 1 and trainer.step == TRAIN_STEPS,
               f"steps {n_steps}, restarts {trainer.restarts}, step {trainer.step}")
-        check_train_steps(cfg, [{**s, **h} for s, h in zip(steps, history)], per_step, eval_loss)
+        check_train_steps(cfg, [{**s, **h} for s, h in zip(steps, history)], per_step, eval_loss,
+                          cfg.n_layers)
         check(launches["gemm_cuda"] == per_step * n_steps, f"gemm_cuda launches {launches['gemm_cuda']}")
         check(abs(losses[0] - math.log(cfg.vocab)) < 0.5,
               f"step-0 loss {losses[0]} not within 0.5 of ln V = {math.log(cfg.vocab):.3f}")
@@ -3292,7 +3416,7 @@ def train_family(torch, counts, reset, arch: str, *, steps: int, layers: int | N
               f"({per_step} gemm_cuda a step); peak {peak_gb:.2f} GB; init {init_s:.1f} s"
               f"{'' if agree is None else f'; train vs eval routing agrees on {agree:.3f} of decisions'}",
               flush=True)
-        check_train_steps(cfg, steps_rec, per_step, eval_loss)
+        check_train_steps(cfg, steps_rec, per_step, eval_loss, eval_launches["flash_attention_cuda"])
         out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": TRAIN_BATCH,
                "seq": TRAIN_SEQ, "losses": losses, "eval_loss_step0": eval_loss,
                "eval_launches": eval_launches, "steps": steps_rec, "step_ms": step_s * 1e3,
@@ -3386,7 +3510,7 @@ def phase19(torch, counts, reset) -> dict:
           f"{rec[0]['launches']} ({per_step} gemm_cuda); peak {peak_gb:.2f} GB", flush=True)
     check(n == 193, f"whisper-small's forward makes {n} GEMMs, want 193")
     check(eval_launches["flash_attention_cuda"] > 0, f"the eval loss launched {eval_launches}")
-    check_train_steps(cfg, rec, per_step, eval_loss)
+    check_train_steps(cfg, rec, per_step, eval_loss, eval_launches["flash_attention_cuda"])
     out = {"arch": cfg.name, "params": n_params, "batch": ENCDEC_TRAIN_BATCH, "dec_tokens": DEC_CTX,
            "frames": cfg.enc_frames, "eval_loss_step0": eval_loss, "eval_launches": eval_launches,
            "steps": rec, "step_ms": step_s * 1e3, "peak_gb": peak_gb, "launches_per_step": per_step,
@@ -3442,13 +3566,16 @@ MIXED_GRAD_SLICE_RTOL = 0.05
 MIXED_FAULT_LAYER = 12
 
 
-def mixed_launches(c: dict, steps: int, paged: bool, gemms: int) -> str | None:
-    """Why ``c`` (a run's launches) is not ``steps`` mixed recurrence steps
-    (``gemms`` ``gemm_cuda`` and ``gemm_cuda_lean`` each a step, and 2 x 24
-    ``paged_attention_cuda`` when ``paged``), or None when it is."""
+def mixed_launches(c: dict, steps: int, paged: bool, gemms: int, attn: int = 0) -> str | None:
+    """Why ``c`` (a run's launches) is not ``steps`` mixed steps (``gemms``
+    ``gemm_cuda`` and ``gemm_cuda_lean`` each a step, 2 x 24
+    ``paged_attention_cuda`` when ``paged``, and the training attention's
+    kernels for ``attn`` attention calls a step, both pods'), or None when
+    it is."""
 
     want = {"gemm_cuda": gemms * steps, "gemm_cuda_lean": gemms * steps,
-            "paged_attention_cuda": 2 * 24 * steps if paged else 0, "flash_attention_cuda": 0}
+            "paged_attention_cuda": 2 * 24 * steps if paged else 0,
+            **{k: v * steps for k, v in train_attention_launches(attn).items()}}
     bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
     return f"launches (got, want) {bad}" if bad else None
 
@@ -3815,7 +3942,8 @@ def phase21(torch, counts, reset, train16: dict) -> dict:
         check(f_pod["grad_norm_rel"] > MIXED_GRAD_NORM_RTOL, f"phase 21: the zeroed pod's norm passed {f_pod}")
         for name, f in faults.items():
             check(f["worst_slice"][0] > MIXED_GRAD_SLICE_RTOL, f"phase 21: the fault ({name}) passed {f}")
-        check(mixed_launches(c_mix, 1, False, per_step) is None, f"phase 21 step-0 launches {c_mix}")
+        check(mixed_launches(c_mix, 1, False, per_step, 2 * cfg.n_layers) is None,
+              f"phase 21 step-0 launches {c_mix}")
 
         torch.cuda.reset_peak_memory_stats()
         steps = []
@@ -3823,7 +3951,7 @@ def phase21(torch, counts, reset, train16: dict) -> dict:
             batch, _ = trainer.next_batch(i)
             metrics, rec = timed_step(torch, counts, lambda: trainer.train_step(batch))
             steps.append({**rec, **{k: float(v) for k, v in metrics.items()}})
-            why = mixed_launches(rec["launches"], 1, False, per_step)
+            why = mixed_launches(rec["launches"], 1, False, per_step, 2 * cfg.n_layers)
             check(why is None, f"phase 21 step {i}: {why}")
             check(math.isfinite(steps[-1]["loss"]) and math.isfinite(steps[-1]["grad_norm"]),
                   f"phase 21 step {i}: {steps[-1]}")
@@ -4714,8 +4842,9 @@ def phase24(torch, counts, reset) -> dict:
         for i, st in enumerate(r["steps"]):
             sizes = SPMD_MESH if i < SPMD_STEPS else SPMD_RESHARD
             lc = st["launches"]
-            check(lc["gemm_cuda"] == per_step and all(v == 0 for k, v in lc.items() if k != "gemm_cuda"),
-                  f"rank {r['rank']} step {i} launched {lc}, want {per_step} gemm_cuda only")
+            want = {"gemm_cuda": per_step, **train_attention_launches(cfg.n_layers)}
+            check(all(v == want.get(k, 0) for k, v in lc.items()),
+                  f"rank {r['rank']} step {i} launched {lc}, want {want} and no other kernel")
             want = {k: v for k, v in dry[sizes]["hlo_cost"]["by_collective"].items()}
             check(st["collective_bytes"] == want,
                   f"rank {r['rank']} step {i}: collective bytes {st['collective_bytes']} != dry-run {want}")
@@ -5162,7 +5291,8 @@ def p25_train(torch, cfg, total_steps: int, mesh=None, counts=None, reset=None, 
              "collective_bytes": dict(seen), "peak_bytes": torch.cuda.max_memory_allocated()}
         if counts is not None:
             c1 = counts()
-            r["launches"] = {k: c1[k] for k in ("gemm_cuda", "flash_attention_cuda")}
+            r["launches"] = {k: c1[k] for k in ("gemm_cuda", "flash_attention_cuda", "flash_attention_fwd_lse",
+                                                "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")}
         rec.append(r)
         if save and i + 1 < P25_STEPS:
             keep(i)
@@ -5323,8 +5453,7 @@ def phase25(torch, counts, reset, one_card_train: dict) -> dict:
             total_bytes = drec["train"]["memory"]["total_bytes"]
             for f in fams:
                 for i, st in enumerate(f["train"]):
-                    check(st["launches"]["gemm_cuda"] == want["gemm_cuda"]
-                          and st["launches"]["flash_attention_cuda"] == want.get("flash_attention_cuda", 0),
+                    check(all(st["launches"][k] == want.get(k, 0) for k in st["launches"]),
                           f"{arch} step {i} launches {st['launches']} vs one card {want}")
                     check(st["collective_bytes"] == drec["train"]["hlo_cost"]["by_collective"],
                           f"{arch} step {i} collective bytes {st['collective_bytes']} != dry-run "
@@ -5677,8 +5806,8 @@ def phase26(torch, counts, reset, streams=None) -> dict:
         check(r["backend"] == "gloo", f"rank {r['rank']} backend {r['backend']}")
         for label, p in r["paths"].items():
             c, paged = p["launches"], label == "paged"
-            want = {own: gemms * p["steps"], kernels[1 - pod]: 0,
-                    "paged_attention_cuda": 24 * p["steps"] if paged else 0, "flash_attention_cuda": 0}
+            want = {**dict.fromkeys(c, 0), own: gemms * p["steps"],
+                    "paged_attention_cuda": 24 * p["steps"] if paged else 0}
             check(c == want, f"phase 26 rank {r['rank']} {label}: launches {c}, want {want}")
             check(np.array_equal(p["tokens"], streams["tokens"][label]),
                   f"phase 26 rank {r['rank']} {label}: tokens differ from the stream pods'")
@@ -5704,8 +5833,9 @@ def phase26(torch, counts, reset, streams=None) -> dict:
         total_bytes = dry["memory"]["total_bytes"]
         for i, (st, o) in enumerate(zip(r["steps"], one, strict=True)):
             c = st["launches"]
-            check(c[own] == per_step and c[kernels[1 - pod]] == 0 and c["flash_attention_cuda"] == 0,
-                  f"phase 26 rank {r['rank']} step {i}: launches {c}, want {per_step} {own}")
+            want = {own: per_step, **train_attention_launches(cfg.n_layers)}
+            check(all(v == want.get(k, 0) for k, v in c.items()),
+                  f"phase 26 rank {r['rank']} step {i}: launches {c}, want {want} and no other kernel")
             check(abs(st["loss"] - o["loss"]) <= POD_LOSS_RTOL * abs(o["loss"]),
                   f"phase 26 rank {r['rank']} step {i}: loss {st['loss']} vs the stream step's {o['loss']}")
             check(abs(st["grad_norm"] - o["grad_norm"]) <= POD_NORM_RTOL * abs(o["grad_norm"]),
@@ -5782,18 +5912,20 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import layers as L
 
     detail: dict = {}
     card, detail["sass"] = phase0(torch)
     detail["card"] = card
 
-    def counts():
-        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES}
+    def counts():  # the launches by kernel, and chunked_attention's calls on the card
+        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES, **L.CUDA_CALLS}
 
     def reset():
         G.reset_launches()
         PA.reset_launches()
         FA.reset_launches()
+        L.CUDA_CALLS["chunked_attention"] = 0
 
     alone = sys.argv[1:]
     if alone and set(alone) <= {"--phase24", "--phase25", "--phase26"}:  # alone (and phase 0)
@@ -5817,6 +5949,9 @@ def main() -> None:
           f"{BF16_TOL}, fp32 tol {FP32_TOL})", flush=True)
     records = phase1(torch, detail)
     records["flash_attention_cuda"] = phase1_flash(torch, detail)
+    print(f"phase 1: the training attention's forward and backward kernels (M = {TRAIN_ATTN_BATCH} x "
+          f"{TRAIN_ATTN_SEQ})", flush=True)
+    records["flash_attention_cuda"]["train_attention_step"] = phase1_flash_training(torch)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 1: the GEMM autograd Function's backward at the training shapes "
@@ -6067,6 +6202,8 @@ def main() -> None:
             if rec["decode_launches"][name]:
                 moe_launches[name][f"{key}_decode"] = rec["decode_launches"][name]
     moe_launches["gemm_cuda"]["internlm2_train"] = train["launches"]["gemm_cuda"]
+    for name in ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv"):
+        moe_launches["flash_attention_cuda"][f"internlm2_train_{name}"] = train["launches"][name]
     moe_launches["gemm_cuda_lean"]["internlm2_train_little_step"] = \
         train["little_step"]["launches"]["gemm_cuda_lean"]
     # Phases 17-19, each training run's launches read from its own run.

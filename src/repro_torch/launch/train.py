@@ -3,7 +3,8 @@
 Every projection and the LM head run through ``ops.gemm`` in both
 directions, on the kernel of the primary class's control tree
 (``gemm_cuda`` on the card), or, class-sharded, each pod's rows on its own
-class's; attention through ``chunked_attention``.
+class's; attention through the flash kernels and their backward
+(``chunked_attention`` on the CPU).
 Weights are random fp32 masters from ``--seed``; data is ``SyntheticLM``.
 ``--arch`` takes every token-in family (dense, MoE, Mamba2, hybrid); the
 enc-dec and embedding-input configs need batch keys ``SyntheticLM`` does

@@ -8,8 +8,8 @@ output projection is the decoder's token embedding, transposed (tied, as
 in Whisper).  Layer params are stacked along a leading axis and looped
 over, as in :mod:`repro_torch.models.transformer`: the forward takes the
 layers out of the stacks by one ``unbind`` and may recompute them in the
-backward (training attends through ``chunked_attention``, as the
-reference does: ``flash_attention_cuda`` has no backward).
+backward (training attends by ``"auto"``, as the forward does: the flash
+kernels and their backward on a card, ``chunked_attention`` on the CPU).
 
 Decode: a self-attention KV cache of ``seq_len`` per layer, written in
 place, plus cross-attention K/V computed once from the encoder output

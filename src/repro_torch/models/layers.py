@@ -128,6 +128,11 @@ def repeat_kv(k, n_rep: int):
     return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
+# chunked_attention's calls on CUDA tensors: a card's attention, training
+# and forward, goes through the flash kernels, so a card's step adds none.
+CUDA_CALLS: dict[str, int] = {"chunked_attention": 0}
+
+
 def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                       q_chunk: int = 512, scale: Optional[float] = None):
     """GQA-native attention, chunked over queries (scores <= q_chunk x Sk).
@@ -141,6 +146,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = N
     ``q_chunk + window`` keys it can see.
     """
 
+    if q.is_cuda:
+        CUDA_CALLS["chunked_attention"] += 1
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

@@ -199,11 +199,12 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True, mesh=None, fsdp: bool =
 
     When autograd will differentiate it (grad mode on and a leaf of
     ``params`` requires grad: the trainer's fp32 masters) it is the
-    training loss: attention through ``chunked_attention``, as the
-    reference trains (``flash_attention_cuda`` has no backward), and with
-    ``remat`` each layer body recomputed in the backward.  Otherwise
-    (serving params, ``no_grad``, ``inference_mode``) it is the eval loss,
-    its attention by ``"auto"`` (the flash kernel for tensors on a card).
+    training loss, with ``remat`` each layer body recomputed in the
+    backward.  Otherwise (serving params, ``no_grad``, ``inference_mode``)
+    it is the eval loss.  Both take their attention by ``"auto"``: on a
+    card the flash kernels (in training the log-sum-exp forward and the
+    backward kernels, ``kernels/flash_attention.FlashAttentionFn``), on
+    the CPU ``chunked_attention``, the reference's training arithmetic.
     The enc-dec's cross-attention takes the route of its self-attention.
     On a rank mesh the loss is this rank's term of the global mean (the dp
     ranks' terms add up to it) over params sharded by ``fsdp``, its stream
@@ -216,8 +217,7 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True, mesh=None, fsdp: bool =
 
         def f(params, batch):
             if torch.is_grad_enabled() and _requires_grad(params):
-                return sharded(params, cfg, batch, lay, attn_backend="flash_attn_torch",
-                               remat=remat)
+                return sharded(params, cfg, batch, lay, attn_backend="auto", remat=remat)
             return sharded(params, cfg, batch, lay)
 
         f.layout = lay
@@ -226,7 +226,7 @@ def make_loss_fn(cfg: ArchConfig, *, remat: bool = True, mesh=None, fsdp: bool =
 
     def f(params, batch):
         if torch.is_grad_enabled() and _requires_grad(params):
-            return loss(params, cfg, batch, attn_backend="flash_attn_torch", remat=remat)
+            return loss(params, cfg, batch, attn_backend="auto", remat=remat)
         return loss(params, cfg, batch)
 
     return f

@@ -4,7 +4,8 @@
 Composes:
 
   * the model zoo's training loss (``make_loss_fn``: attention through
-    ``chunked_attention``, each layer recomputed in the backward), whose
+    the flash kernels and their backward on a card, ``chunked_attention``
+    on the CPU, each layer recomputed in the backward), whose
     every projection, shared-expert GLU and LM head goes through
     ``ops.gemm`` in both directions (``kernels/ops.GemmFn``); the MoE
     experts and the Mamba2 projections are plain products, as in the

@@ -134,7 +134,7 @@ def test_flash_attention_cuda_refuses_cpu_tensors_and_counts_no_launch():
     meta = [torch.empty(t.shape, dtype=t.dtype, device="meta") for t in (q, k, v)]
     with pytest.raises(ValueError, match="CUDA device"):
         FA.flash_attention_cuda(*meta)
-    assert FA.LAUNCHES == {"flash_attention_cuda": 0}
+    assert FA.LAUNCHES == dict.fromkeys(FA.LAUNCHES, 0) and "flash_attention_cuda" in FA.LAUNCHES
 
 
 def test_flash_attention_rejects_bad_operands():

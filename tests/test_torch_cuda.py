@@ -21,7 +21,12 @@ values down to a few hundredths, where the bf16 tolerance's absolute 0.02
 would pass a row that lost a key block.  The GEMM autograd Function's
 output and gradients (unit-scale cotangents) are held row by row in L2
 within ``GEMM_ROW_TOL`` too: a product that skipped one K-tile of its
-reduction moves a row by ``sqrt(bk / K)`` of its norm.
+reduction moves a row by ``sqrt(bk / K)`` of its norm.  The flash
+backward's dQ, dK and dV are held to its plain version row by row within
+``FLASH_ROW_TOL`` of the larger of the row's norm and the gradient's mean
+row norm (:func:`grad_row_err`): a query that sees one key has a dQ row of
+rounding noise (``P = 1``, ``dS = 0``), and a late key few queries see a
+small dK row.
 """
 
 import contextlib
@@ -52,6 +57,15 @@ def row_rel_err(got, ref):
 
     diff = (got.float() - ref.float()).norm(dim=-1)
     return float((diff / ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def grad_row_err(got, ref):
+    """The largest ``|got - ref|`` over the rows (last axis) in L2, over the
+    larger of the row's norm and the mean row norm of ``ref``."""
+
+    diff = (got.float() - ref.float()).norm(dim=-1)
+    norms = ref.float().norm(dim=-1)
+    return float((diff / norms.clamp_min(float(norms.mean()))).max())
 
 
 @pytest.fixture
@@ -380,6 +394,113 @@ def test_cuda_flash_attention_rejects_what_it_cannot_run(cuda):
     assert X.resolve_flash_attn_backend("auto", q.device) == "flash_attn_cuda"
 
 
+# The backward's shapes: internlm2-1.8b's training layer (4 x 2,048, 16 / 8
+# heads of 128), zamba2-2.7b's shared block (head dim 80), whisper-small's
+# encoder and its non-causal 448 x 1,500 cross-attention, a windowed GQA
+# group of 4, and a ragged reduced config's (head dim 16).
+FLASH_BWD_CASES = [
+    (4, 2048, 2048, 16, 8, 128, True, None),
+    (1, 2048, 2048, 32, 32, 80, True, None),
+    (2, 1500, 1500, 12, 12, 64, False, None),
+    (2, 448, 1500, 12, 12, 64, False, None),
+    (1, 1000, 1000, 16, 4, 128, True, 256),
+    (3, 77, 77, 4, 2, 16, True, None),
+]
+
+
+def _flash_bwd_operands(cuda, case, seed=0):
+    b, sq, sk, hq, hkv, d, _, _ = case
+    gen = torch.Generator(device=cuda).manual_seed(seed + sq + sk)
+    shapes = ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d), (b, sq, hq, d))
+    return [torch.randn(s, generator=gen, device=cuda).bfloat16() for s in shapes]
+
+
+def _flash_grads(q, k, v, dout, **kw):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_attention_cuda(*leaves, **kw)
+    out.backward(dout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_flash_backward_matches_plain(cuda, case):
+    """The training forward (its output bitwise the inference kernel's, its
+    log-sum-exp the plain version's) and the two backward kernels' dQ, dK,
+    dV against ``flash_attention_bwd_torch``, one launch each."""
+
+    *_, causal, window = case
+    kw = dict(causal=causal, window=window)
+    q, k, v, dout = _flash_bwd_operands(cuda, case)
+    FA.reset_launches()
+    out, grads = _flash_grads(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_fwd_lse": 1,
+                           "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkdv": 1}
+    assert torch.equal(out, FA.flash_attention_cuda(q, k, v, **kw))
+    o, lse = FA.flash_attention_torch(q, k, v, with_lse=True, **kw)
+    _, _, _, shape = FA._checked(q, k, v, causal, window, FA.BWD_MAX_D, "test")
+    _, lse_kernel = FA._forward_lse(q, k, v, shape, causal, window, 1.0 / math.sqrt(q.shape[-1]))
+    torch.testing.assert_close(lse_kernel[..., :q.shape[1]], lse, rtol=1e-4, atol=1e-4)
+    want = FA.flash_attention_bwd_torch(q, k, v, o, dout, lse, **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        assert bool(torch.isfinite(got.float()).all()), name
+        err = grad_row_err(got, ref)
+        assert err <= FLASH_ROW_TOL, (name, err)
+
+
+def test_flash_backward_row_check_separates_a_dropped_key_block(monkeypatch):
+    """On the CPU, at a causal shape with 1,024 keys: autograd through
+    ``chunked_attention``, which multiplies ``dS`` in fp32 where the kernels
+    and the plain backward round it to bf16, stays within ``FLASH_ROW_TOL``
+    of the plain backward (1.5e-2), while the plain backward
+    with one key block dropped, from dQ's walk or from dK/dV's, lies far
+    outside it."""
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, dout = (torch.randn((1, 1024, 2, 64), generator=gen).bfloat16() for _ in range(4))
+    o, lse = FA.flash_attention_torch(q, k, v, causal=True, with_lse=True)
+    want = FA.flash_attention_bwd_torch(q, k, v, o, dout, lse, causal=True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    L.chunked_attention(*leaves, causal=True).backward(dout)
+    assert max(grad_row_err(t.grad, w) for t, w in zip(leaves, want)) <= FLASH_ROW_TOL
+
+    keys, queries = FA.key_blocks, FA.query_blocks
+    monkeypatch.setattr(FA, "key_blocks", lambda q0, sq, sk, c, w: [
+        kb for kb in keys(q0, sq, sk, c, w) if not (q0 >= 768 and kb == 5)])
+    got = FA.flash_attention_bwd_torch(q, k, v, o, dout, lse, causal=True)
+    assert grad_row_err(got[0], want[0]) > 5 * FLASH_ROW_TOL
+    monkeypatch.setattr(FA, "key_blocks", keys)
+    monkeypatch.setattr(FA, "query_blocks", lambda kb, sq, sk, c, w: [
+        qb for qb in queries(kb, sq, sk, c, w) if not (kb == 5 and qb >= 12)])
+    got = FA.flash_attention_bwd_torch(q, k, v, o, dout, lse, causal=True)
+    assert min(grad_row_err(g, w) for g, w in zip(got[1:], want[1:])) > 5 * FLASH_ROW_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_is_bitwise_deterministic(cuda):
+    """No sum crosses blocks: two backward calls on the same inputs (a GQA
+    group of 2, causal, internlm2's width) give the same bits."""
+
+    q, k, v, dout = _flash_bwd_operands(cuda, (2, 1024, 1024, 16, 8, 128, True, None), seed=5)
+    first = _flash_grads(q, k, v, dout)[1]
+    second = _flash_grads(q, k, v, dout)[1]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_rejects_what_it_cannot_run(cuda):
+    q = torch.zeros((1, 64, 2, 256), dtype=torch.bfloat16, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head dim 256"):
+        FA.flash_attention_cuda(q, q, q)
+    with torch.no_grad():  # the inference kernel takes it
+        assert FA.flash_attention_cuda(q, q, q).shape == q.shape
+    with pytest.raises(TypeError, match="bf16"):
+        FA.flash_attention_cuda(q[..., :64].float(), q[..., :64].float(), q[..., :64].float())
+
+
 @pytest.mark.cuda
 def test_full_width_layer_attention_launches_the_kernel_once(cuda):
     """One layer of minitron-4b at full width (24 query heads over 8 KV
@@ -584,8 +705,10 @@ def test_gemm_row_check_separates_a_dropped_k_tile():
 @pytest.mark.cuda
 def test_one_training_step_runs_every_gemm_on_the_kernel(cuda, tmp_path):
     """One step of the reduced internlm2 on the card: (7L+1) forward GEMMs,
-    7L recomputed and 2(7L+1) backward, all ``gemm_cuda``; no flash
-    attention (training attends through ``chunked_attention``)."""
+    7L recomputed and 2(7L+1) backward, all ``gemm_cuda``; attention on the
+    training flash kernels (the log-sum-exp forward twice a layer, in the
+    forward and the recompute; each backward kernel once), no inference
+    flash launch and no ``chunked_attention`` call."""
 
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
@@ -597,12 +720,42 @@ def test_one_training_step_runs_every_gemm_on_the_kernel(cuda, tmp_path):
     batch, _ = trainer.next_batch(0)
     G.reset_launches()
     FA.reset_launches()
+    chunked = L.CUDA_CALLS["chunked_attention"]
     metrics = trainer.train_step(batch)
     torch.cuda.synchronize()
     n = 7 * cfg.n_layers + 1
     assert G.LAUNCHES["gemm_cuda"] == n + 7 * cfg.n_layers + 2 * n
-    assert G.LAUNCHES["gemm_cuda_lean"] == 0 and FA.LAUNCHES["flash_attention_cuda"] == 0
+    assert G.LAUNCHES["gemm_cuda_lean"] == 0
+    assert FA.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_fwd_lse": 2 * cfg.n_layers,
+                           "flash_attention_bwd_dq": cfg.n_layers,
+                           "flash_attention_bwd_dkdv": cfg.n_layers}
+    assert L.CUDA_CALLS["chunked_attention"] == chunked
     assert math.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+@pytest.mark.cuda
+def test_full_width_training_step_runs_attention_on_the_flash_kernels(cuda, tmp_path):
+    """One step of the full-width internlm2-1.8b (24 layers, 16 / 8 heads of
+    128; 2 x 512 tokens): each backward kernel once a layer, the log-sum-exp
+    forward twice (forward and recompute), no ``chunked_attention`` call on
+    a CUDA tensor, a finite loss near ln V."""
+
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("internlm2-1.8b")
+    trainer = Trainer(cfg, tcfg=TrainerConfig(steps=1, global_batch=2, seq_len=512,
+                                              ckpt_dir=str(tmp_path)),
+                      exec_ctx=X.default_context(), device=cuda)
+    batch, _ = trainer.next_batch(0)
+    FA.reset_launches()
+    chunked = L.CUDA_CALLS["chunked_attention"]
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_fwd_lse": 48,
+                           "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkdv": 24}
+    assert L.CUDA_CALLS["chunked_attention"] == chunked
+    assert abs(float(metrics["loss"]) - math.log(cfg.vocab)) <= 0.5
+    assert float(metrics["grad_norm"]) > 0
 
 
 def _train_state(cfg, device):
@@ -695,18 +848,21 @@ def test_mamba2_block_backward_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,per_step", [
-    ("qwen2-moe-a2.7b", 115),  # 4 x (q, k, v, o, the shared GLU's 3) + the head = 29
-    ("mamba2-1.3b", 3),        # the head
-    ("zamba2-2.7b", 59),       # 2 groups' shared block (7) + the head = 15
-    ("whisper-small", 211),    # 2 encoder layers x 6 + 4 decoder layers x 10 + the head = 53
+@pytest.mark.parametrize("arch,per_step,attn", [
+    ("qwen2-moe-a2.7b", 115, 4),  # 4 x (q, k, v, o, the shared GLU's 3) + the head = 29
+    ("mamba2-1.3b", 3, 0),        # the head
+    ("zamba2-2.7b", 59, 2),       # 2 groups' shared block (7) + the head = 15
+    ("whisper-small", 211, 10),   # 2 encoder layers x 6 + 4 decoder layers x 10 + the head = 53
 ])
-def test_training_step_launch_formula(cuda, arch, per_step):
+def test_training_step_launch_formula(cuda, arch, per_step, attn):
     """A training step at reduced depth launches 4n - 1 ``gemm_cuda`` (n
     the forward's GEMMs: the forward, its recompute less the head, two
     backward products each; the enc-dec's encoder is always recomputed,
-    its decoder under remat) and no flash attention, the formulas
-    ``chip_smoke.py`` phases 17-19 hold at full width."""
+    its decoder under remat), and for each of its ``attn`` attentions
+    (whisper's: 2 encoder, 4 decoder and 4 cross) the log-sum-exp forward
+    twice and each backward kernel once; no inference flash launch and no
+    ``chunked_attention`` call: the formulas ``chip_smoke.py`` phases
+    17-19 hold at full width."""
 
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim import adamw as O
@@ -718,11 +874,14 @@ def test_training_step_launch_formula(cuda, arch, per_step):
         batch["frames"] = torch.randn((4, cfg.enc_frames, cfg.d_model), generator=gen).bfloat16().cuda()
     G.reset_launches()
     FA.reset_launches()
+    chunked = L.CUDA_CALLS["chunked_attention"]
     with X.default_context():
         loss, _, grads = O.value_and_grad(Z.make_loss_fn(cfg), params, batch)
     torch.cuda.synchronize()
     assert G.LAUNCHES["gemm_cuda"] == per_step and G.LAUNCHES["gemm_cuda_lean"] == 0
-    assert FA.LAUNCHES["flash_attention_cuda"] == 0
+    assert FA.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_fwd_lse": 2 * attn,
+                           "flash_attention_bwd_dq": attn, "flash_attention_bwd_dkdv": attn}
+    assert L.CUDA_CALLS["chunked_attention"] == chunked
     assert math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in O.tree_leaves(grads))
 
 

@@ -164,7 +164,8 @@ def test_backward_on_another_thread_keeps_the_forward_backend(monkeypatch):
 
 
 def test_loss_fn_trains_only_params_that_require_grad(monkeypatch):
-    """The training route (chunked attention, remat) only when autograd
+    """The training route (remat, attention by ``"auto"``: the flash
+    kernels on a card, chunked attention on the CPU) only when autograd
     will differentiate: grad mode on and a leaf that requires grad."""
 
     seen = []
@@ -180,7 +181,7 @@ def test_loss_fn_trains_only_params_that_require_grad(monkeypatch):
     with torch.inference_mode():
         loss_fn(params, {})
     Z.make_loss_fn(cfg, remat=False)(params, {})
-    train = {"attn_backend": "flash_attn_torch"}
+    train = {"attn_backend": "auto"}
     assert seen == [{}, dict(train, remat=True), {}, {}, dict(train, remat=False)]
 
 
