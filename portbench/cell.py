@@ -34,6 +34,8 @@ class Cell:
 
     @property
     def vocab(self) -> int:
+        """The published vocabulary, the range of every token id and label:
+        no padding row the family holds (``held_vocab``) is ever drawn."""
         return self.conf["vocab_size"]
 
     @property

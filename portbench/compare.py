@@ -31,7 +31,8 @@ def whole_leaves(norms: dict) -> dict:
     return {k: math.sqrt(v) for k, v in sq.items()}
 
 
-TRAINING = ("loss_gap", "grad_norm_gap", "first_grad_gap", "change_gap", "decay_gap")
+TRAINING = ("loss_gap", "grad_norm_gap", "first_grad_gap", "first_grad_diff_gap", "change_gap",
+            "decay_gap")
 
 
 def training_numbers(prog: dict, ref: dict) -> dict:
@@ -39,7 +40,11 @@ def training_numbers(prog: dict, ref: dict) -> dict:
     "first_grad": {leaf: norm}, "change": {leaf: norm}, "decay_share":
     {leaf: share}}``, the norms a layer of a stacked leaf, compared as
     the program's leaves (the stacks whole), by the worst leaf; the decay
-    shares by the widest difference.  A leaf whose reference gradient is
+    shares by the widest difference.  ``ref["first_grad_diff"]`` holds
+    the norms of the judged first gradient's difference from the
+    reference's, ``first_grad_diff_gap`` the worst leaf's over the
+    reference's norm of that leaf (a leaf the judged side lacks reads
+    infinitely far).  A leaf whose reference gradient is
     under a thousandth of the median leaf's is left out of the change and
     the decay share (its moves are round-off).  A cell compares the
     numbers its workload file gives limits."""
@@ -47,6 +52,7 @@ def training_numbers(prog: dict, ref: dict) -> dict:
     if len(prog["loss"]) != len(ref["loss"]):
         return {k: math.inf for k in TRAINING}
     grad_p, grad_r = whole_leaves(prog["first_grad"]), whole_leaves(ref["first_grad"])
+    diff = whole_leaves(ref["first_grad_diff"])
     floor = 1e-3 * statistics.median(grad_r.values())
     moved = [leaf for leaf in grad_r if grad_r[leaf] >= floor]
     change = leaf_gaps(whole_leaves(prog["change"]), whole_leaves(ref["change"]),
@@ -56,6 +62,8 @@ def training_numbers(prog: dict, ref: dict) -> dict:
         "loss_gap": max(rel_gap(p, r) for p, r in zip(prog["loss"], ref["loss"])),
         "grad_norm_gap": max(rel_gap(p, r) for p, r in zip(prog["grad_norm"], ref["grad_norm"])),
         "first_grad_gap": max(leaf_gaps(grad_p, grad_r)),
+        "first_grad_diff_gap": max(diff.get(leaf, math.inf) / max(grad_r[leaf], 1e-30)
+                                   for leaf in grad_r),
         "change_gap": max(change),
         "decay_gap": max(abs(decay_p.get(leaf, math.inf) - decay_r[leaf]) for leaf in moved),
     }

@@ -7,7 +7,8 @@ change that removes work from the program leaves them as they are.
 
   * model FLOPs: ``2·N`` a token forward and ``6·N`` a token trained, ``N``
     the weights of every matrix product (the projections and the output
-    head; the embedding is a lookup), plus the sequence mixer's own
+    head over the held vocabulary, tied or not; the embedding is a
+    lookup), plus the sequence mixer's own
     products (causal attention's ``2·Hq·Dh·S²`` a sequence and layer
     forward); training counts the mixer three times its forward.  No
     recomputation counted.
@@ -41,7 +42,7 @@ def matmul_params(conf: dict) -> int:
     """``N``: the weights that enter a matrix product for every token."""
 
     fam = families.load(conf["family"])
-    head = fam.d_model(conf) * conf["vocab_size"]
+    head = fam.d_model(conf) * fam.held_vocab(conf)
     return fam.n_layers(conf) * fam.layer_matmul_params(conf) + head
 
 
@@ -66,7 +67,7 @@ def gemm_products(conf: dict, m: int, *, train: bool) -> list:
 
     fam = families.load(conf["family"])
     layer = fam.funnel_products(conf, m)
-    forward = layer + [(m, fam.d_model(conf), conf["vocab_size"], 1)]
+    forward = layer + [(m, fam.d_model(conf), fam.held_vocab(conf), 1)]
     if not train:
         return forward
     backward = []

@@ -10,6 +10,15 @@ b1)``), and each leaf's change after the last of them, by its norm and by
 its decay share (:func:`change_readings`).  Each is worked out a leaf at
 a time.  The same object then runs the window.
 
+Once the window has closed and its memory peak is read, the same object
+is put back to the seed's weights and a zero optimizer state, a leaf at
+a time, and takes the first checked step again through the same call:
+its first moment, ``m / (1 - b1)`` in place, is then the first gradient
+as tensors, which the reference holds its own against leaf by leaf
+(``first_grad_diff_gap``).  The trainer's other state is freed before
+the reference runs; neither set-up nor the window holds a second tree,
+and nothing goes through the host.
+
 With ``class_sharded`` on, the step is the class-sharded mixed step (the
 pods as CUDA streams on one card): the benchmark's rows are laid out
 pod-major as the program's scheduler splits them
@@ -172,7 +181,28 @@ class Session:
         float(metrics["loss"])      # the host reads the step's loss, as the trainer's loop does
         return dict(self.counts, tokens=self.rows * self.seq)
 
+    def _first_gradient_again(self) -> dict:
+        """``{name: tensor}``: the first checked step's clipped gradient,
+        each leaf the program's own first moment divided in place."""
+
+        t, b1 = self.trainer, self.cell.traffic["optimizer"]["b1"]
+        params = dict(R.leaves(t.params))
+        with torch.no_grad():
+            for name, w0 in W.iter_params(self.cell.conf, self.seed, self.device, torch.float32):
+                params[name].copy_(w0)
+                del w0
+            for _, x in R.leaves(t.opt_state["m"]) + R.leaves(t.opt_state["v"]):
+                x.zero_()
+        t.opt_state = dict(t.opt_state, step=torch.zeros_like(t.opt_state["step"]))
+        self._step(self.batches[0])
+        first = dict(R.leaves(t.opt_state["m"]))
+        with torch.no_grad():
+            for x in first.values():
+                x.div_(1 - b1)
+        return first
+
     def finish(self) -> dict:
+        self.readings["first_grad_leaves"] = self._first_gradient_again()
         del self.trainer
         gc.collect()
         if self.device.type == "cuda":
@@ -182,11 +212,26 @@ class Session:
     # -- the reference --------------------------------------------------------
 
     def reference(self, readings: dict, precision: str = "fp32") -> dict:
-        """The reference's readings on the same weights and batches."""
+        """The reference's readings on the same weights and batches.  Its
+        first gradient is held against the judged side's
+        (``readings["first_grad_leaves"]``: the program's, or a
+        control's) a leaf at a time, each of those freed once read; a
+        control (any precision but fp32) keeps its own for the reference
+        that judges it."""
 
         conf, opt = self.cell.conf, self.cell.traffic["optimizer"]
+        theirs = readings["first_grad_leaves"]
+        diff, kept = {}, {}
+
+        def on_first(named):
+            for name, g in named:
+                if name in theirs:
+                    diff.update(R.layer_norms([(name, g - theirs.pop(name))]))
+                if precision != "fp32":
+                    kept[name] = g.detach().clone()
+
         params = W.make_params(conf, self.seed, self.device, torch.float32)
-        history, first = R.train(params, conf, self.batches, opt, precision)
+        history, first = R.train(params, conf, self.batches, opt, precision, on_first)
         change, share = change_readings(params, conf, self.seed, self.device, opt,
                                         len(self.batches))
         del params
@@ -195,7 +240,8 @@ class Session:
             torch.cuda.empty_cache()
         return {"loss": [h["loss"] for h in history],
                 "grad_norm": [h["grad_norm"] for h in history],
-                "first_grad": first, "change": change, "decay_share": share}
+                "first_grad": first, "first_grad_diff": diff, "first_grad_leaves": kept,
+                "change": change, "decay_share": share}
 
 
 def numbers(prog: dict, ref: dict) -> dict:

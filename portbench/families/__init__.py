@@ -3,6 +3,15 @@ file (``families/<family>.py``).  A module exposes:
 
   * ``n_layers(conf)``, ``d_model(conf)``, ``norm_eps(conf)``: the
     file's sizes under the family's published keys;
+  * ``tied_head(conf) -> bool``: whether the output head is the
+    embedding's transpose; then the tree holds no ``lm_head`` leaf and
+    the reference multiplies by ``embed``ᵀ, so the embedding's gradient
+    sums the lookup's part and the head's;
+  * ``held_vocab(conf) -> int``: the rows the embedding and the head
+    hold, the published vocabulary padded as the model pads it.  The
+    softmax, the weights and the counts run over every held row; the
+    traffic's token ids and labels stay in the published ``vocab_size``
+    (``cell.Cell.vocab``);
   * ``port_widths(conf, cfg) -> [(key, file value, program value)]``:
     every size the program's config ``cfg`` of the same model must share
     with the file;

@@ -2,9 +2,10 @@
 
 A pre-norm decoder: RMSNorm, grouped-query attention with rotary
 positions (rotate-half form, base ``rope_theta``), causal softmax, a
-SwiGLU feed-forward ``w2(silu(x w1) * (x w3))``; a final RMSNorm and an
-untied output head (``reference/models.py``).  Every projection and the
-head run through the program's GEMM funnel.
+SwiGLU feed-forward ``w2(silu(x w1) * (x w3))``; a final RMSNorm and the
+output head (``reference/models.py``), tied to the embedding where the
+file's ``tie_word_embeddings`` says so (InternLM2's is not).  Every
+projection and the head run through the program's GEMM funnel.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ def d_model(conf) -> int:
 
 def norm_eps(conf) -> float:
     return conf["rms_norm_eps"]
+
+
+def tied_head(conf) -> bool:
+    return bool(conf.get("tie_word_embeddings", False))
+
+
+def held_vocab(conf) -> int:
+    return conf["vocab_size"]
 
 
 def _sizes(conf):

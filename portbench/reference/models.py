@@ -1,7 +1,10 @@
 """The language model around a family's layers, forward passes in float32.
 
 An embedding lookup, the family's layers in turn (``families/<family>.py``,
-``layer``), a final RMSNorm and the output head.  The weights come in the
+``layer``), a final RMSNorm and the output head: ``lm_head``, or the
+embedding's transpose where the family ties them (the embedding's
+gradient then sums the lookup's part and the head's).  The logits span
+every row the embedding holds.  The weights come in the
 program's tree layout, every layer's tensor stacked on a leading axis,
 projections stored ``(in, out)``.
 """
@@ -42,9 +45,11 @@ def hidden(params, conf, tokens, precision: str = "fp32", remat: bool = False):
 
 
 def logits(params, conf, tokens, precision: str = "fp32", remat: bool = False):
-    """(B, S, V) float32 logits."""
+    """(B, S, V) float32 logits, V the held vocabulary."""
 
-    return mm(hidden(params, conf, tokens, precision, remat), params["lm_head"], precision)
+    tied = families.load(conf["family"]).tied_head(conf)
+    head = params["embed"].T if tied else params["lm_head"]
+    return mm(hidden(params, conf, tokens, precision, remat), head, precision)
 
 
 def token_logprobs(params, conf, tokens, labels, precision: str = "fp32"):

@@ -84,11 +84,12 @@ def loss_and_grads(params, conf, batch, precision: str):
     return float(loss), grads
 
 
-def train(params, conf, batches, opt: dict, precision: str = "fp32"):
+def train(params, conf, batches, opt: dict, precision: str = "fp32", on_first=None):
     """AdamW over ``batches`` from ``params`` (float32 leaves, updated in
     place).  Returns per step ``{"loss", "grad_norm"}`` and the
     :func:`layer_norms` of the first step's clipped gradient, as the
-    optimizer takes it."""
+    optimizer takes it.  ``on_first``, where given, is called once with
+    that gradient, ``[(name, tensor)]``, before it is freed."""
 
     named = leaves(params)
     for _, p in named:
@@ -114,6 +115,8 @@ def train(params, conf, batches, opt: dict, precision: str = "fp32"):
                 del upd
         if t == 1:
             first_grad = layer_norms((name, g) for (name, _), g in zip(named, grads))
+            if on_first is not None:
+                on_first([(name, g) for (name, _), g in zip(named, grads)])
         del grads
         history.append({"loss": loss, "grad_norm": norm})
     for _, p in named:

@@ -43,6 +43,21 @@ def test_the_control_reads_far_above_the_program(name):
     assert ctrl[key]["value"] > 3 * prog[key]["value"]
 
 
+@pytest.mark.parametrize("name", ["internlm2-1.8b.train", "internlm2-1.8b.train_mixed"])
+def test_the_first_gradient_difference_reads_the_control_and_half_batch_apart(name):
+    # Reduced, seed 2**32 + 99: the program 0.032, the control 0.36, half
+    # the batch 1.03; a state left unchanged reads 1 (the same step again
+    # puts nothing into its first moment).
+    cell = reduced_cell(name)
+    runs = {"program": {}, "control": {"control": True}, "half": {"fault": "half_batch"},
+            "frozen": {"fault": "frozen"}}
+    read = {k: RUN.run_cell(cell, SEED, 0, False, "cpu", **kw)["checks"]["first_grad_diff_gap"]
+            ["value"] for k, kw in runs.items()}
+    assert read["program"] < 0.1
+    assert read["control"] > 5 * read["program"] and read["half"] > 10 * read["program"]
+    assert read["frozen"] == pytest.approx(1.0)
+
+
 def test_the_result_line():
     cell = reduced_cell("internlm2-1.8b.score")
     res = RUN.run_cell(cell, SEED, 0.3, False, "cpu")
@@ -51,3 +66,11 @@ def test_the_result_line():
     assert set(res["metrics"]) == {"setup_s", "score_tokens_per_s", "score_p95_ms",
                                    "peak_mem_gb"}
     assert res["attempted"] >= 1 and res["device"]["count"] == 1
+
+
+def test_a_training_result_lists_the_first_gradient_difference_unlimited():
+    cell = reduced_cell("internlm2-1.8b.train")
+    checks = RUN.run_cell(cell, SEED, 0, False, "cpu")["checks"]
+    assert "first_grad_diff_gap" not in cell.limits
+    assert checks["first_grad_diff_gap"]["limit"] is None
+    assert 0 < checks["first_grad_diff_gap"]["value"] < 0.1

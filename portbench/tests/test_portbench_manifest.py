@@ -84,8 +84,9 @@ def test_per_layer_readers(m):
         assert cell in {w["name"] for w in MAN["workloads"]}
 
 
-FAMILY = ("n_layers", "d_model", "norm_eps", "port_widths", "block_leaves", "layer",
-          "layer_matmul_params", "mixer_flops", "funnel_products", "flash_bound_s", "reduced")
+FAMILY = ("n_layers", "d_model", "norm_eps", "tied_head", "held_vocab", "port_widths",
+          "block_leaves", "layer", "layer_matmul_params", "mixer_flops", "funnel_products",
+          "flash_bound_s", "reduced")
 
 
 @pytest.mark.parametrize("c", MAN["configs"], ids=lambda c: c["name"])
@@ -114,8 +115,8 @@ def test_config_files(c):
 def test_limits_name_the_compared_numbers():
     import importlib
 
-    given = {"train": {"loss_gap", "grad_norm_gap", "first_grad_gap", "change_gap",
-                       "decay_gap"},
+    given = {"train": {"loss_gap", "grad_norm_gap", "first_grad_gap", "first_grad_diff_gap",
+                       "change_gap", "decay_gap"},
              "score": {"logprob_gap_max", "logprob_gap_rms"}}
     for w in MAN["workloads"]:
         cell = C.load_cell(w["name"])

@@ -45,6 +45,7 @@ def test_training_step_against_the_program(name):
     assert numbers["loss_gap"] < 1e-3
     assert numbers["grad_norm_gap"] < 0.02
     assert numbers["first_grad_gap"] < 0.05 and numbers["change_gap"] < 0.05
+    assert numbers["first_grad_diff_gap"] < 0.1
     # At these sizes the embedding's and the head's Adam step moves their
     # decay share by about 10 / ‖w0‖ (‖w0‖ 2.6 here, 275 at full size).
     assert numbers["decay_gap"] < 0.6
@@ -61,3 +62,15 @@ def test_leaf_gaps_by_hand():
     assert max(compare.leaf_gaps({"a": 1.0, "b": 2.0, "c": 90.0}, ref)) == pytest.approx(0.1)
     assert max(compare.leaf_gaps({"a": 1.0, "b": 2.0}, ref)) == math.inf
     assert compare.whole_leaves({"w[0]": 3.0, "w[1]": 4.0, "x": 1.0}) == {"w": 5.0, "x": 1.0}
+
+
+def test_first_gradient_difference_by_hand():
+    side = {"loss": [1.0], "grad_norm": [1.0], "first_grad": {"w[0]": 3.0, "w[1]": 4.0, "x": 0.5},
+            "change": {"w[0]": 1.0, "w[1]": 1.0, "x": 1.0},
+            "decay_share": {"w": 0.0, "x": 0.0}}
+    # w's stack: a difference of (0.6, 0.8), norm 1, over the leaf's norm 5;
+    # x: 0.1 over 0.5, the worst leaf, though x is under the median.
+    ref = dict(side, first_grad_diff={"w[0]": 0.6, "w[1]": 0.8, "x": 0.1})
+    assert compare.training_numbers(side, ref)["first_grad_diff_gap"] == pytest.approx(0.2)
+    ref = dict(side, first_grad_diff={"w[0]": 0.6, "w[1]": 0.8})     # x never compared
+    assert compare.training_numbers(side, ref)["first_grad_diff_gap"] == math.inf

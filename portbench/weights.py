@@ -3,7 +3,8 @@
 The tree is the program's layout (the layers of a leaf stacked on a
 leading axis, projections ``(in, out)``): the family's layer leaves
 (``families/<family>.py``, ``block_leaves``), then the final norm, the
-output head and the embedding.  Projections are normal with standard
+output head (none where the family ties it to the embedding) and the
+embedding, both over the family's held vocabulary.  Projections are normal with standard
 deviation ``1/sqrt(fan_in)``, the embedding and the output head 0.02,
 norm weights 1; a family may give a leaf an initialiser of its own.
 
@@ -38,10 +39,10 @@ def leaf_specs(conf: dict) -> list:
     """``[(dotted name, shape, init)]`` of the whole tree, in draw order."""
 
     fam = families.load(conf["family"])
-    nl, d, v = fam.n_layers(conf), fam.d_model(conf), conf["vocab_size"]
+    nl, d, v = fam.n_layers(conf), fam.d_model(conf), fam.held_vocab(conf)
     blocks = [("blocks." + n, (nl,) + tuple(s), init) for n, s, init in fam.block_leaves(conf)]
-    return blocks + [("final_norm", (d,), "ones"), ("lm_head", (d, v), "head"),
-                     ("embed", (v, d), "embed")]
+    head = [] if fam.tied_head(conf) else [("lm_head", (d, v), "head")]
+    return blocks + [("final_norm", (d,), "ones")] + head + [("embed", (v, d), "embed")]
 
 
 def _draw(gen, init, shape, device, dtype):
