@@ -46,6 +46,19 @@ class SSMConfig:
     n_groups: int = 1
     d_conv: int = 4
     chunk: int = 256
+    # The published initialisation of mamba_ssm's Mamba2 module [arXiv:2405.21060]:
+    # A = -U(A_init_range), dt = exp(U(log dt_min, log dt_max)) floored at
+    # dt_init_floor and stored as its inverse softplus, D = 1, the conv
+    # PyTorch's default.  None keeps the reference's constants (A_log 0,
+    # dt_bias 0).
+    A_init_range: Optional[tuple] = None
+    dt_min: Optional[float] = None
+    dt_max: Optional[float] = None
+    dt_init_floor: Optional[float] = None
+
+    @property
+    def published_init(self) -> bool:
+        return self.A_init_range is not None
 
     @property
     def d_inner(self) -> int:
@@ -97,6 +110,12 @@ class ArchConfig:
     shared_attn_every: int = 0  # zamba2: shared attn+mlp block cadence
     enc_layers: int = 0         # whisper: encoder depth (decoder = n_layers)
     enc_frames: int = 1500      # whisper: cross-attention KV length at decode
+    # The output head is the embedding's transpose: no ``lm_head`` leaf.
+    tie_embeddings: bool = False
+    # mamba_ssm's published precision: the residual stream between layers
+    # in fp32, and the Mamba2 block's ``A_log``, ``dt_bias`` and ``D`` into
+    # the scan in fp32 (its params stay fp32; only products take bf16).
+    residual_in_fp32: bool = False
     notes: str = ""
 
     @property
@@ -128,7 +147,8 @@ class ArchConfig:
         n = 0
         if not self.embed_inputs:
             n += v * d
-        n += d * v  # lm head
+        if not self.tie_embeddings:
+            n += d * v  # lm head
         if self.family == "dense":
             n += L * (attn + glu + 2 * d)
         elif self.family == "moe":
@@ -196,6 +216,8 @@ class ArchConfig:
             shared_attn_every=2 if self.shared_attn_every else 0,
             enc_layers=2 if self.enc_layers else 0,
             enc_frames=16,
+            tie_embeddings=self.tie_embeddings,
+            residual_in_fp32=self.residual_in_fp32,
         )
         if self.moe is not None:
             kw["moe"] = MoEConfig(
@@ -206,8 +228,28 @@ class ArchConfig:
                 d_ff_shared=64 if self.moe.d_ff_shared else 0,
             )
         if self.ssm is not None:
-            kw["ssm"] = SSMConfig(d_model=64, d_state=16, headdim=16, expand=2, chunk=8)
+            s = self.ssm
+            kw["ssm"] = SSMConfig(d_model=64, d_state=16, headdim=16, expand=2, chunk=8,
+                                  A_init_range=s.A_init_range, dt_min=s.dt_min, dt_max=s.dt_max,
+                                  dt_init_floor=s.dt_init_floor)
         return ArchConfig(**kw)
+
+
+# The fields the port's records add to the reference's, and the value each
+# holds in every config mirrored from the reference.
+PORT_FIELDS = {"tie_embeddings": False, "residual_in_fp32": False, "A_init_range": None,
+               "dt_min": None, "dt_max": None, "dt_init_floor": None}
+
+
+def reference_fields(fields: dict) -> dict:
+    """A record's fields (``vars`` or ``dataclasses.asdict`` of an
+    ``ArchConfig`` or ``SSMConfig``) without the port's own, each of which
+    must hold its mirrored value: what the reference's record holds."""
+
+    moved = {k: v for k, v in fields.items() if k in PORT_FIELDS and v != PORT_FIELDS[k]}
+    if moved:
+        raise ValueError(f"not a mirrored config: {moved}")
+    return {k: v for k, v in fields.items() if k not in PORT_FIELDS}
 
 
 # The reference's ten architectures (one module per id under
@@ -226,14 +268,22 @@ _REGISTRY = {
 }
 
 
+# Configs the port runs beside the reference's ten; ``list_configs`` (the
+# ten every parity test walks) leaves them out.
+_PORT_ONLY = {
+    "mamba2-1.3b-published": "mamba2_1p3b_published",
+}
+
+
 def list_configs() -> list[str]:
     return sorted(_REGISTRY)
 
 
 def get_config(name: str) -> ArchConfig:
-    mod_name = _REGISTRY.get(name, name.replace("-", "_").replace(".", "p"))
+    mod_name = _REGISTRY.get(name) or _PORT_ONLY.get(name) or name.replace("-", "_").replace(".", "p")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "ShapeSpec", "LM_SHAPES", "get_config", "list_configs"]
+__all__ = ["ArchConfig", "MoEConfig", "PORT_FIELDS", "SSMConfig", "ShapeSpec", "LM_SHAPES",
+           "get_config", "list_configs", "reference_fields"]

@@ -25,7 +25,6 @@ from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import spmd
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import _remat, _unstack, cross_entropy, layer_params
@@ -116,12 +115,6 @@ def encode(params, cfg: ArchConfig, frames, *, attn_backend: str = "auto", remat
     return L.layer_norm(x, params["enc_ln_w"], params["enc_ln_b"])
 
 
-def _head(params, x):
-    """The tied output projection: ``x · embed^T``."""
-
-    return ops.gemm(x, params["embed"].T.to(L.COMPUTE_DTYPE))
-
-
 def forward_encdec(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto",
                    remat: bool = False):
     """batch: ``{"frames": (B, Se, D), "tokens": (B, Sd)}`` -> ``(logits
@@ -141,7 +134,7 @@ def forward_encdec(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto"
     for p in _unstack(params["dec_blocks"], cfg.n_layers):
         x = body(x, p)
     x = L.layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
-    return _head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return T.tied_head(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, *, device):
@@ -190,7 +183,7 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
                                   state["cross_k"][i], state["cross_v"][i], xcfg)
         x = x + L.apply_mlp(p["mlp"], L.layer_norm(x, p["ln2_w"], p["ln2_b"]))
     x = L.layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
-    return _head(params, x), state
+    return T.tied_head(params, x), state
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto", remat: bool = False):

@@ -9,7 +9,8 @@ cross-attention).  Conventions, as in the reference:
     GEMM kernels compute ``A · B``; they may be stored in bf16 once (the
     reference casts fp32 masters to bf16 at every use — the same values),
   * norm weights and biases stay fp32, normalizations and softmax run in
-    fp32, the residual stream stays bf16,
+    fp32, the residual stream stays bf16 (fp32 under a config's
+    ``residual_in_fp32``),
   * every dense projection routes through :func:`repro_torch.kernels.ops.gemm`
     so the class's control tree governs the hot loops.
 
@@ -20,6 +21,7 @@ through donated jit arguments; here the tensors are simply written).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -74,6 +76,31 @@ def dense_init(generator, shape, scale: Optional[float] = None, *, device, dtype
 def embed_init(generator, shape, *, device, dtype=PARAM_DTYPE):
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     return _placed((w * 0.02).to(dtype))
+
+
+def uniform_init(generator, shape, low: float, high: float, *, device):
+    """fp32 ``U(low, high)``."""
+
+    w = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return _placed(w * (high - low) + low)
+
+
+# True while ``torch.utils.checkpoint`` recomputes a layer body in the
+# backward (``transformer._remat`` sets it); spans read it to tag their phase.
+RECOMPUTING: contextvars.ContextVar = contextvars.ContextVar("repro_torch_recomputing",
+                                                             default=False)
+
+
+@contextlib.contextmanager
+def recomputing(inner=None):
+    """``inner`` (a context manager, or none) with :data:`RECOMPUTING` set."""
+
+    token = RECOMPUTING.set(True)
+    try:
+        with inner if inner is not None else contextlib.nullcontext():
+            yield
+    finally:
+        RECOMPUTING.reset(token)
 
 
 # ---------------------------------------------------------------------------

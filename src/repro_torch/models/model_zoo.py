@@ -151,6 +151,7 @@ def gather_logits(logits, cfg: ArchConfig, mesh, batch: int):
 
     from repro_torch.distributed import collectives as C
 
+    T.one_card_only(cfg)
     specs = param_specs(cfg, mesh, fsdp=False)
     head = SH.P(*reversed(specs["embed"])) if cfg.family == "encdec" else specs["lm_head"]
     if spmd.splits_model(head, 1):

@@ -14,15 +14,34 @@ state and the two causal-conv histories; the port writes them **in place**
 As in the reference, z/x/B·C/dt are four separate projections and every
 projection (and ``out_proj``) is a plain bf16 product (``torch.matmul``):
 the reference computes them with ``jnp.einsum``, outside its GEMM kernel.
+
+Every full-sequence scan is counted in :data:`SCANS` and, while a span
+records, traced: ``ssm.scan`` (tagged ``forward`` or ``recompute``) and
+``ssm.scan.backward`` (:func:`_scan`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import SSMConfig
 from repro_torch.models import layers as L
+from repro_torch.observability import trace
+
+# The leaves that enter the scan in fp32 under ``ArchConfig.residual_in_fp32``
+# (``transformer._cast_params`` leaves them uncast).
+FP32_LEAVES = frozenset({"A_log", "dt_bias", "D"})
+
+# Scan calls and their chunks since the last reset: the card's cross-check
+# of a step's frozen counts, as ``kernels.gemm.LAUNCHES`` is the funnel's.
+SCANS: dict[str, int] = {"calls": 0, "chunks": 0}
+
+
+def reset_scans() -> None:
+    SCANS.update(calls=0, chunks=0)
 
 
 def init_mamba2(generator, cfg: SSMConfig, n_layers: int, *, device,
@@ -30,29 +49,52 @@ def init_mamba2(generator, cfg: SSMConfig, n_layers: int, *, device,
     """``n_layers`` stacked Mamba2 blocks at the reference's scales.  The
     projections are stored in ``dtype``; the conv weights and biases,
     ``dt_bias``, ``A_log``, ``D`` and ``norm_w`` stay fp32 (the decode step
-    uses them in fp32)."""
+    uses them in fp32).
 
-    nl, d, di, nh = n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads
+    With ``cfg.published_init``, mamba_ssm's initialisation: ``A_log =
+    log U(A_init_range)``; ``dt_bias`` the inverse softplus of ``dt =
+    exp(U(log dt_min, log dt_max))`` floored at ``dt_init_floor``; the
+    convolutions PyTorch's ``Conv1d`` default, ``U(±1/sqrt(d_conv))``; the
+    four in-projections at one scale, as the column blocks of one
+    ``in_proj``; ``out_proj`` divided by ``sqrt(n_layers)``
+    (``rescale_prenorm_residual``)."""
+
+    nl, d, di, nh, k = n_layers, cfg.d_model, cfg.d_inner, cfg.n_heads, cfg.d_conv
     gn2 = 2 * cfg.n_groups * cfg.d_state
+    pub = cfg.published_init
     dense = lambda shape, scale=None, dt=dtype: L.dense_init(  # noqa: E731
         generator, (nl,) + shape, scale, device=device, dtype=dt)
     full = lambda shape, value: torch.full((nl,) + shape, value, dtype=L.PARAM_DTYPE,  # noqa: E731
                                            device=device)
+    uni = lambda shape, lo, hi: L.uniform_init(generator, (nl,) + shape, lo, hi,  # noqa: E731
+                                               device=device)
+    tap = 1.0 / math.sqrt(k)
+    conv_w = lambda c: uni((k, c), -tap, tap) if pub else dense((k, c), 0.5, L.PARAM_DTYPE)  # noqa: E731
+    conv_b = lambda c: uni((c,), -tap, tap) if pub else full((c,), 0.0)  # noqa: E731
     return {
         "wz": dense((d, di)),
         "wx": dense((d, di)),
         "wbc": dense((d, gn2)),
-        "wdt": dense((d, nh), 0.02),
-        "conv_w_x": dense((cfg.d_conv, di), 0.5, L.PARAM_DTYPE),
-        "conv_b_x": full((di,), 0.0),
-        "conv_w_bc": dense((cfg.d_conv, gn2), 0.5, L.PARAM_DTYPE),
-        "conv_b_bc": full((gn2,), 0.0),
-        "dt_bias": full((nh,), 0.0),
-        "A_log": full((nh,), 0.0),
+        "wdt": dense((d, nh), None if pub else 0.02),
+        "conv_w_x": conv_w(di),
+        "conv_b_x": conv_b(di),
+        "conv_w_bc": conv_w(gn2),
+        "conv_b_bc": conv_b(gn2),
+        "dt_bias": _dt_bias(uni((nh,), math.log(cfg.dt_min), math.log(cfg.dt_max)), cfg)
+        if pub else full((nh,), 0.0),
+        "A_log": torch.log(uni((nh,), *cfg.A_init_range)) if pub else full((nh,), 0.0),
         "D": full((nh,), 1.0),
         "norm_w": full((di,), 1.0),
-        "out_proj": dense((di, d)),
+        "out_proj": dense((di, d), 1.0 / math.sqrt(di * nl) if pub else None),
     }
+
+
+def _dt_bias(log_dt, cfg: SSMConfig):
+    """The bias whose softplus is ``dt = exp(log_dt)`` floored at
+    ``cfg.dt_init_floor``: ``dt + log(-expm1(-dt))``."""
+
+    dt = torch.clamp(torch.exp(log_dt), min=cfg.dt_init_floor)
+    return dt + torch.log(-torch.expm1(-dt))
 
 
 def _causal_conv(u, w, b, d_conv: int, conv_state=None):
@@ -135,6 +177,67 @@ def _ssd_chunked(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
     return y.to(x.dtype), state
 
 
+class _OpenBackward(torch.autograd.Function):
+    """Identity on the scan's output; its backward, the scan's backward's
+    first node, opens the ``ssm.scan.backward`` span into ``box``."""
+
+    @staticmethod
+    def forward(ctx, box, tags, y):
+        ctx.box, ctx.tags = box, tags
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = trace.span("ssm.scan.backward", cat="model", **ctx.tags)
+        ctx.box.append(sp.__enter__())
+        return None, None, g
+
+
+class _CloseBackward(torch.autograd.Function):
+    """Identity on the scan's inputs; its backward, which runs once every
+    input's gradient is in, closes the span ``box`` holds."""
+
+    @staticmethod
+    def forward(ctx, box, *xs):
+        ctx.box = box
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        while ctx.box:
+            ctx.box.pop().__exit__(None, None, None)
+        return (None,) + grads
+
+
+def _scan(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
+    """:func:`_ssd_chunked`, counted in :data:`SCANS`.  While a span
+    records (``trace.live``) it runs under the ``ssm.scan`` span, tagged
+    with its shapes and its ``phase`` (``recompute`` inside a remat
+    backward, else ``forward``), and, where autograd records it, its
+    backward between two identity nodes that bracket the
+    ``ssm.scan.backward`` span."""
+
+    b, s, h, p = x.shape
+    q = min(cfg.chunk, s)
+    SCANS["calls"] += 1
+    SCANS["chunks"] += s // q
+    if not trace.live():
+        return _ssd_chunked(x, dt, A, Bm, Cm, cfg, init_state=init_state)
+    tags = dict(rows=b, seq=s, heads=h, headdim=p, d_state=Bm.shape[3], groups=Bm.shape[2],
+                chunk=q)
+    ins = (x, dt, A, Bm, Cm)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    box = []
+    if grad:
+        x, dt, A, Bm, Cm = _CloseBackward.apply(box, *ins)
+    phase = "recompute" if L.RECOMPUTING.get() else "forward"
+    with trace.span("ssm.scan", cat="model", phase=phase, **tags):
+        y, state = _ssd_chunked(x, dt, A, Bm, Cm, cfg, init_state=init_state)
+    if grad:
+        y = _OpenBackward.apply(box, tags, y)
+    return y, state
+
+
 def _project(p, xin, cfg: SSMConfig):
     xc = xin.to(L.COMPUTE_DTYPE)
     c = lambda name: p[name].to(L.COMPUTE_DTYPE)  # noqa: E731
@@ -171,7 +274,7 @@ def apply_mamba2(p, xin, cfg: SSMConfig, *, init_state=None):
     Cm = bc[..., gn:].reshape(b, s, cfg.n_groups, cfg.d_state)
     dtv, A = _rates(p, dt)
 
-    y, final = _ssd_chunked(x, dtv, A, Bm, Cm, cfg, init_state=init_state)
+    y, final = _scan(x, dtv, A, Bm, Cm, cfg, init_state=init_state)
     y = y + p["D"].float()[None, None, :, None] * x.float()
     return _finalize(p, y, z, xin, cfg), final
 
@@ -280,7 +383,7 @@ def apply_mamba2_tp(p, sp, xin, cfg: SSMConfig, lay):
     Bm = bc[..., :gn].reshape(b, s, cfg.n_groups, cfg.d_state)
     Cm = bc[..., gn:].reshape(b, s, cfg.n_groups, cfg.d_state)
     dtv, A = _rates(p, dt)
-    y, _ = _ssd_chunked(x, dtv, A, Bm, Cm, cfg)
+    y, _ = _scan(x, dtv, A, Bm, Cm, cfg)
     y = y + p["D"].float()[None, None, :, None] * x.float()
     return _finalize_tp(p, sp, y, z, xin, lay)
 
@@ -342,6 +445,8 @@ def decode_mamba2_tp(p, sp, xin, cfg: SSMConfig, lay, state, head_axes=("model",
 
 
 __all__ = [
+    "FP32_LEAVES",
+    "SCANS",
     "SSMConfig",
     "apply_mamba2",
     "apply_mamba2_tp",
@@ -349,4 +454,5 @@ __all__ = [
     "decode_mamba2_tp",
     "init_mamba2",
     "init_mamba2_state",
+    "reset_scans",
 ]

@@ -19,7 +19,9 @@ recurrent state ``{"mamba": {"ssm", "conv_x", "conv_bc"}}`` (each leaf
 The hybrid runs ``n_layers // shared_attn_every`` groups of Mamba2 layers,
 each followed by one weight-shared attention+GLU block.  With
 ``cfg.embed_inputs`` the model takes ``batch["embeds"]`` (B, S, D) in
-place of tokens.
+place of tokens.  With ``cfg.tie_embeddings`` the head is ``embed``ᵀ
+(no ``lm_head``; one card only), with ``cfg.residual_in_fp32`` the
+residual stream is fp32 between the layers.
 """
 
 from __future__ import annotations
@@ -103,15 +105,18 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig, *, device,
     block carries ``"moe"`` params (router, experts, shared expert) in place
     of the dense ``"mlp"``; a Mamba2 block ``"ln"`` and ``"mamba"``.  The
     hybrid adds one unstacked attention+GLU block, ``"shared"``; embedding
-    inputs drop ``"embed"``."""
+    inputs drop ``"embed"``, a tied head (``cfg.tie_embeddings``)
+    ``"lm_head"``."""
 
     d = cfg.d_model
     params = {
         "blocks": _init_blocks(generator, cfg, block_kind(cfg), cfg.n_layers, device=device,
                                dtype=dtype),
         "final_norm": torch.ones((d,), dtype=L.PARAM_DTYPE, device=device),
-        "lm_head": L.dense_init(generator, (d, cfg.vocab), scale=0.02, device=device, dtype=dtype),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, (d, cfg.vocab), scale=0.02, device=device,
+                                         dtype=dtype)
     if not cfg.embed_inputs:
         params["embed"] = L.embed_init(generator, (cfg.vocab, d), device=device, dtype=dtype)
     if cfg.shared_attn_every:
@@ -193,14 +198,36 @@ def _layer_fn(cfg: ArchConfig, kind: str, positions, *, attn_backend: str = "aut
     return f
 
 
-def _cast_params(tree):
+def _cast_params(tree, keep=frozenset()):
     """The reference's compute cast: every fp32 leaf to bf16 (norm weights,
     qkv biases and the Mamba2 block's fp32 params too), as its forward does
-    before the layers run."""
+    before the layers run; the leaves named in ``keep`` stay as they are."""
 
     if isinstance(tree, dict):
-        return {k: _cast_params(v) for k, v in tree.items()}
+        return {k: v if k in keep else _cast_params(v, keep) for k, v in tree.items()}
     return tree.to(L.COMPUTE_DTYPE) if tree.dtype == torch.float32 else tree
+
+
+def _fp32_leaves(cfg: ArchConfig):
+    """The block leaves the forward reads uncast: under ``residual_in_fp32``
+    the Mamba2 block's rate and skip vectors."""
+
+    return S.FP32_LEAVES if cfg.residual_in_fp32 else frozenset()
+
+
+def tied_head(params, x):
+    """The tied output projection through the GEMM funnel: ``x · embedᵀ``."""
+
+    return ops.gemm(x, params["embed"].T.to(L.COMPUTE_DTYPE))
+
+
+def _head(params, cfg: ArchConfig, x):
+    """The LM head on the final-normed stream (bf16 operands)."""
+
+    x = x.to(L.COMPUTE_DTYPE)
+    if cfg.tie_embeddings:
+        return tied_head(params, x)
+    return ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
 
 
 def _unstack(blocks, n: int) -> list:
@@ -218,12 +245,12 @@ def _remat(fn):
     """``fn`` under ``torch.utils.checkpoint``: its activations are dropped
     and recomputed in the backward, under the execution context active
     now (the recompute runs on autograd's thread, which does not see this
-    one's ``ContextVar``)."""
+    one's ``ContextVar``) and with ``layers.RECOMPUTING`` set."""
 
     ctx = X.current_context()
 
     def context_fn():
-        return contextlib.nullcontext(), (ctx if ctx is not None else contextlib.nullcontext())
+        return contextlib.nullcontext(), L.recomputing(ctx)
 
     def f(*args):
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
@@ -244,11 +271,20 @@ def forward_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto",
     the backward, the LM head excepted, as the reference's
     ``jax.checkpoint`` does."""
 
+    x, aux = hidden_lm(params, cfg, batch, attn_backend=attn_backend, remat=remat)
+    return _head(params, cfg, x), aux
+
+
+def hidden_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto",
+              remat: bool = False):
+    """:func:`forward_lm` up to its head: ``(the final-normed stream (B,
+    S, D), aux_loss)``, fp32 under ``cfg.residual_in_fp32``, else bf16."""
+
     x = embed_tokens(params, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     body = _layer_fn(cfg, block_kind(cfg), positions, attn_backend=attn_backend)
-    layers = _unstack(_cast_params(params["blocks"]), cfg.n_layers)
+    layers = _unstack(_cast_params(params["blocks"], _fp32_leaves(cfg)), cfg.n_layers)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = cfg.shared_attn_every
     if every:  # Zamba2: groups of `every` Mamba2 layers + the shared block
@@ -267,9 +303,7 @@ def forward_lm(params, cfg: ArchConfig, batch, *, attn_backend: str = "auto",
         for i in range(cfg.n_layers):
             x, aux_i = body(x, layers[i])
             aux = aux + aux_i
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
-    return logits, aux
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -364,9 +398,12 @@ def init_decode_state_paged(cfg: ArchConfig, n_pages: int, page_size: int, *, de
 
 
 def embed_tokens(params, cfg: ArchConfig, batch):
+    """The residual stream's start: bf16, or fp32 under ``residual_in_fp32``."""
+
+    dt = torch.float32 if cfg.residual_in_fp32 else L.COMPUTE_DTYPE
     if cfg.embed_inputs:
-        return batch["embeds"].to(L.COMPUTE_DTYPE)
-    return params["embed"][batch["tokens"].long()].to(L.COMPUTE_DTYPE)
+        return batch["embeds"].to(dt)
+    return params["embed"][batch["tokens"].long()].to(dt)
 
 
 def _write_plan(acfg: L.AttnConfig, state, batch, pos, b: int, device):
@@ -443,8 +480,7 @@ def decode_step(params, cfg: ArchConfig, batch, state, pos):
                                    batch, pos, live, plan)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = ops.gemm(x, params["lm_head"].to(L.COMPUTE_DTYPE))
-    return logits, state
+    return _head(params, cfg, x), state
 
 
 # ---------------------------------------------------------------------------
@@ -539,6 +575,14 @@ def _attn_block_sharded(p, sp, x, cfg: ArchConfig, lay, positions, seq: bool, at
     return x + h, aux
 
 
+def one_card_only(cfg: ArchConfig) -> None:
+    """Raise for a config whose tied head no sharded step holds."""
+
+    if cfg.tie_embeddings:
+        raise ValueError(f"{cfg.name} ties its output head to the embedding "
+                         "(tie_embeddings); the sharded steps hold an lm_head leaf: one card only")
+
+
 def forward_lm_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = "auto",
                        remat: bool = False):
     """:func:`forward_lm` on a mesh: returns ``(logits, aux)``, the logits
@@ -550,6 +594,7 @@ def forward_lm_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str
     again in the backward.  The hybrid's shared block runs after each
     group of Mamba2 layers on the stream whole over ``model``."""
 
+    one_card_only(cfg)
     b, s = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[:2]
     kind = block_kind(cfg)
     seq = stream_seq(cfg, lay, b, s)
@@ -648,6 +693,7 @@ def loss_fn_sharded(params, cfg: ArchConfig, batch, lay, *, attn_backend: str = 
     """``(loss, {"ce", "aux"})`` of this rank's rows: its term of the global
     mean (``spmd.dp_sum`` over the dp ranks gives the reference's loss)."""
 
+    one_card_only(cfg)
     logits, aux = forward_lm_sharded(params, cfg, batch, lay, attn_backend=attn_backend,
                                      remat=remat)
     b, s = (batch["embeds"] if cfg.embed_inputs else batch["tokens"]).shape[:2]
@@ -718,6 +764,7 @@ def decode_step_sharded(params, cfg: ArchConfig, batch, state, pos, lay, cache_s
 
     if "pages_k" in state:
         raise ValueError("the paged arena is not sharded over a data/model mesh")
+    one_card_only(cfg)
     x = embed_tokens_sharded(params, cfg, batch, lay, seq=False)
     b = x.shape[0]
     if block_kind(cfg) == "mamba":
@@ -751,6 +798,7 @@ __all__ = [
     "embed_tokens",
     "forward_lm",
     "gemm_shapes",
+    "hidden_lm",
     "init_decode_state",
     "init_decode_state_paged",
     "init_lm",
@@ -758,8 +806,10 @@ __all__ = [
     "lm_head_sharded",
     "loss_fn",
     "n_groups",
+    "one_card_only",
     "prefill",
     "sharded_ce",
     "stream_seq",
+    "tied_head",
     "vocab_split",
 ]

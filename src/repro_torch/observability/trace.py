@@ -452,6 +452,14 @@ class Span:
         return False
 
 
+def live() -> bool:
+    """Does a span record now (tracing on, or a profiler session)?  The
+    two flag checks of :func:`span`, for callers whose tags or brackets
+    cost something to make."""
+
+    return _BUFFER is not None or _profiling()
+
+
 def span(name: str, *, cat: str = "span", **args):
     """A context manager timing its body (no-op while tracing is off and
     no profiler session records)."""
@@ -476,6 +484,7 @@ __all__ = [
     "enable",
     "disable",
     "enabled",
+    "live",
     "get_buffer",
     "profiled_spans",
     "span",

@@ -59,9 +59,10 @@ def given(monkeypatch):
 
 
 def test_the_manifest_lists_five_span_readers():
+    # PR 29's five, and the Mamba2 scan's two (``tests/test_portbench_ssm.py``)
     assert sorted(SPAN_METRICS) == ["host_share.score", "host_share.train",
                                     "optimizer_share.train", "pod_balance.train",
-                                    "prefill_mfu.score"]
+                                    "prefill_mfu.score", "ssd_roofline.train", "ssd_share.train"]
     assert all(m["unit"] == "%" and m["workloads"] for m in SPAN_METRICS.values())
 
 

@@ -45,7 +45,7 @@ from repro.models import model_zoo as JZ
 from repro.models import ssm as JS
 from repro.runtime.serving import ServingEngine as JaxEngine
 
-from repro_torch.configs import SSMConfig, get_config
+from repro_torch.configs import SSMConfig, get_config, reference_fields
 from repro_torch.convert import params_from_jax
 from repro_torch.core.asymmetric import AsymmetricMesh, biglittle_classes
 from repro_torch.launch import serve
@@ -312,11 +312,12 @@ def test_decode_recurrence_matches_the_full_sequence():
 
 def test_reduced_configs_match_reference(zoo):
     cfg, jcfg = zoo["cfg"], zoo["jcfg"]
-    assert {k: v for k, v in vars(cfg).items() if k != "ssm"} == \
+    assert {k: v for k, v in reference_fields(vars(cfg)).items() if k != "ssm"} == \
         {k: v for k, v in vars(jcfg).items() if k != "ssm"}
-    assert vars(cfg.ssm) == vars(jcfg.ssm)
+    assert reference_fields(vars(cfg.ssm)) == vars(jcfg.ssm)
     full, jfull = get_config(zoo["arch"]), jax_config(zoo["arch"])
-    assert vars(full.ssm) == vars(jfull.ssm) and full.param_count() == jfull.param_count()
+    assert reference_fields(vars(full.ssm)) == vars(jfull.ssm)
+    assert full.param_count() == jfull.param_count()
 
 
 def test_forward_logits_and_loss_match_reference(zoo):
