@@ -36,7 +36,11 @@ Phases (any failed check exits non-zero and prints no result line):
      layer (4 x 2,048), zamba2's head dim 80 and whisper's non-causal
      encoder and cross-attention, row by row, bitwise twice, timed at the
      first beside ``scaled_dot_product_attention``'s forward and
-     backward; last, the GEMM autograd
+     backward; the SSD scan kernels (``phase1_ssd``: three forward and six
+     backward launches) at the Mamba2 cell's layer and zamba2's d_state
+     64 against their plain versions and ``_ssd_chunked`` with its autograd
+     (``SSD_FP32_TOL``, ``SSD_BF16_TOL``), bitwise twice, timed beside
+     ``_ssd_chunked`` and the bound; last, the GEMM autograd
      Function (``ops.GemmFn``) at the training shapes of phase 16 (M = 8 x
      512; ``gemm_backward_check``), with a unit-scale dC: its output, dA and dB through
      ``gemm_cuda`` at the big class's blocks and ``gemm_cuda_lean`` at the
@@ -327,6 +331,10 @@ Phases (any failed check exits non-zero and prints no result line):
      step's wall ms on the ranks is printed beside the stream step's.
      Phase 20's stream results are its references (made here when
      ``--phase26`` runs phase 0 and this phase alone).
+ ``python3 chip_smoke.py --mamba2`` runs phase 0, the SSD scan kernels'
+ check of phase 1 and the Mamba2 phases' gates alone (13, 14 and 18, each
+ scan of the block gates through the kernels, none through
+ ``_ssd_chunked``), details in ``chiprun_out/chip_smoke_mamba2.json``.
  Each of phases 17-19 and 21 ends with the GEMM autograd Function's check
  of phase 1 at its own step's shapes, both classes (``gemm_backward_check``).
 
@@ -391,6 +399,15 @@ FLASH_ROW_TOL = 2e-2
 # chunk carries in moves by tens of percent.  Its final fp32 state is held
 # to the same bound in L2 (3.5e-6 of its norm on the CPU at full width).
 BLOCK_ROW_TOL = 2e-2
+# The SSD scan kernels against their plain versions and _ssd_chunked
+# (phase 1), relative L2: the fp32 outputs (the final state, ddt, dA) within
+# SSD_FP32_TOL (the operands' high and low pairs keep about 16 bits, sums in
+# other orders: readings about 3e-6); the bf16 ones (y, dx, dB, dC) within
+# SSD_BF16_TOL (a value whose fp32 sum lands across a bf16 rounding boundary
+# moves a bf16 step: readings about 1e-4).  The scan at the Mamba2 cell's
+# layer: 4 x 2,048 tokens, 64 heads of 64, d_state 128, one group, chunk 256.
+SSD_FP32_TOL, SSD_BF16_TOL = 1e-4, 1e-3
+SSD_SHAPE = (4, 2048, 64, 1, 128, 256)   # rows, seq, heads, groups, d_state, chunk
 
 PEAK_BF16 = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 HBM_BW = 3.35e12     # bytes/s, H100 SXM data sheet
@@ -1077,6 +1094,89 @@ def phase1_flash_training(torch) -> dict:
               + (f"; forward {case['forward_ms']:.3f} + backward {case['backward_ms']:.3f} ms "
                  f"({case['tflops']:.0f} TFLOP/s), plain {plain_ms:.1f}, sdpa {case['library_ms']:.3f}, "
                  f"bound {case['bound_ms']:.3f} ({case['bound_by']})" if "ms" in case else ""), flush=True)
+    return out
+
+
+def phase1_ssd(torch) -> dict:
+    """The SSD scan kernels (``kernels/ssd.ssd_scan_cuda``: three forward
+    launches, six backward) at the Mamba2 cell's layer (``SSD_SHAPE``) and
+    at zamba2's d_state 64: the output, the final state and the five
+    gradients against the plain versions (``ssd_fwd_torch`` /
+    ``ssd_bwd_torch``, fp32 on the card) and against ``_ssd_chunked`` with
+    its autograd, the route before, in relative L2; two backward calls
+    bitwise equal.  At the cell's layer: the forward and the forward with
+    its backward timed (CUDA events), ``_ssd_chunked``'s the same way, the
+    plain versions once, and the bound ``portbench.families.ssm.ssd_bound_s``
+    (the backward counted twice the forward, as ``ssd_roofline.train``
+    counts it)."""
+
+    from portbench.families import ssm as FS
+    from repro_torch.configs import SSMConfig
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import ssm as S
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out: dict = {"cases": []}
+    rows_, seq_, heads_, groups_, n_cell, chunk_ = SSD_SHAPE
+    for label, b, s, h, g, n, q in (("cell", *SSD_SHAPE), (f"{HYBRID_ARCH} d_state 64", 2, 2048, 80, 1, 64, 256)):
+        bf = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+        x, Bm, Cm, dy = bf(b, s, h, 64), bf(b, s, g, n), bf(b, s, g, n), bf(b, s, h, 64)
+        A = -(1.0 + 15.0 * torch.rand(h, generator=gen, device="cuda"))
+        dt = torch.exp(math.log(1e-4) + (math.log(0.1) - math.log(1e-4))
+                       * torch.rand((b, s, h), generator=gen, device="cuda"))
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        cfg = SSMConfig(d_model=h * 32, d_state=n, headdim=64, chunk=q)
+
+        def kernel_step():
+            y, _ = SSD.ssd_scan_cuda(*leaves, q)
+            return (y,) + torch.autograd.grad(y, leaves, dy)
+
+        def chunked_step():
+            y, _ = S._ssd_chunked(*leaves, cfg)
+            return (y,) + torch.autograd.grad(y, leaves, dy)
+
+        got, again = kernel_step(), kernel_step()
+        check(all(torch.equal(a, b_) for a, b_ in zip(got, again)), f"ssd scan {label}: two calls differ")
+        t0 = time.perf_counter()
+        y_p, _ = SSD.ssd_fwd_torch(x, dt, A, Bm, Cm, q)
+        plain = (y_p,) + SSD.ssd_bwd_torch(x, dt, A, Bm, Cm, q, dy)[:5]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        chunked = chunked_step()
+        names = ("y", "dx", "ddt", "dA", "dB", "dC")
+        errs = {ref: {k: rel(a, w) for k, a, w in zip(names, got, want)}
+                for ref, want in (("plain", plain), ("chunked", chunked))}
+        for ref, e in errs.items():
+            for k, v in e.items():
+                tol = SSD_FP32_TOL if got[names.index(k)].dtype == torch.float32 else SSD_BF16_TOL
+                check(v <= tol, f"ssd scan {label}: {k} off the {ref} version by {v}, over {tol}")
+        case = {"label": label, "shape": [b, s, h, g, n, q], "rel_err": errs}
+        if label == "cell":
+            with torch.no_grad():
+                fwd_ms = time_ms(torch, lambda: SSD.ssd_scan_cuda(x, dt, A, Bm, Cm, q), [()], 10)
+                fwd_before = time_ms(torch, lambda: S._ssd_chunked(x, dt, A, Bm, Cm, cfg), [()], 3)
+            step_ms = time_ms(torch, kernel_step, [()], 10)
+            step_before = time_ms(torch, chunked_step, [()], 3)
+            tags = dict(rows=b, seq=s, heads=h, headdim=64, d_state=n, groups=g, chunk=q)
+            bound = 3 * FS.ssd_bound_s(tags, {"bf16_flops": PEAK_BF16, "hbm_bytes_per_s": HBM_BW}) * 1e3
+            case.update(forward_ms=fwd_ms, ms=step_ms, backward_ms=step_ms - fwd_ms,
+                        forward_before_ms=fwd_before, before_ms=step_before, plain_ms=plain_ms,
+                        bound_ms=bound, roofline=bound / step_ms)
+            out.update({k_: case[k_] for k_ in ("forward_ms", "ms", "backward_ms", "forward_before_ms",
+                                                "before_ms", "plain_ms", "bound_ms", "roofline", "shape")})
+        out["cases"].append(case)
+        print(f"  ssd scan {label} B={b} S={s} H={h} G={g} N={n} Q={q}: "
+              f"{ {ref: {k: f'{v:.1e}' for k, v in e.items()} for ref, e in errs.items()} }, bitwise twice"
+              + (f"; forward {case['forward_ms']:.3f} ms (before {case['forward_before_ms']:.2f}), forward "
+                 f"and backward {case['ms']:.3f} ms (before {case['before_ms']:.2f}), plain {plain_ms:.0f}, "
+                 f"bound {case['bound_ms']:.4f} ({100 * case['roofline']:.2f}%)" if "ms" in case else ""),
+              flush=True)
+        del got, again, plain, chunked, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2333,6 +2433,10 @@ def recurrent_phase(torch, counts, reset, arch: str) -> dict:
     x = torch.randn((FWD_BATCH, RECUR_LEN, cfg.d_model), generator=gen, device="cuda")
     x = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))).to(torch.bfloat16)
     blocks = {}
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import layers as L
+
+    scans0, fallbacks0 = SSD.LAUNCHES["ssd_scan_cuda"], L.CUDA_CALLS["ssd_chunked"]
     for i in (0, cfg.n_layers // 2, cfg.n_layers - 1):
         pm = TX.layer_params(params["blocks"], i)["mamba"]
         with torch.no_grad():
@@ -2347,6 +2451,9 @@ def recurrent_phase(torch, counts, reset, arch: str) -> dict:
         check(bool(torch.isfinite(y_scan.float()).all()) and row <= BLOCK_ROW_TOL,
               f"layer {i}: scan vs recurrence rows off by {row} of their norm, over {BLOCK_ROW_TOL}")
         check(state_rel <= BLOCK_ROW_TOL, f"layer {i}: final state off by {state_rel}, over {BLOCK_ROW_TOL}")
+    check(SSD.LAUNCHES["ssd_scan_cuda"] - scans0 == 3 and L.CUDA_CALLS["ssd_chunked"] == fallbacks0,
+          f"the block gate's scans: {SSD.LAUNCHES['ssd_scan_cuda'] - scans0} through the kernels, "
+          f"{L.CUDA_CALLS['ssd_chunked'] - fallbacks0} through _ssd_chunked (want 3, 0)")
     print(f"  the chunked scan vs the recurrence, block by block over {RECUR_LEN} positions: "
           f"{ {i: {k: round(v, 7) for k, v in b.items()} for i, b in blocks.items()} } (rows within "
           f"{BLOCK_ROW_TOL} of their norm, the final state within it in L2)", flush=True)
@@ -2910,15 +3017,29 @@ def train_attention_launches(attn: int) -> dict:
             "flash_attention_bwd_dq": attn, "flash_attention_bwd_dkdv": attn, "chunked_attention": 0}
 
 
-def check_train_steps(cfg, steps: list, per_step: int, eval_loss: float, attn: int) -> None:
+def train_scan_launches(scans: int) -> dict:
+    """A training step's SSD scan launches with ``scans`` Mamba2 scans a
+    forward: each forward kernel in the forward and again in the
+    recompute, each backward kernel once, no ``_ssd_chunked`` call on the
+    card."""
+
+    from repro_torch.kernels import ssd as SSD
+
+    return {"ssd_scan_cuda": 2 * scans, **{k: 2 * scans for k in SSD.FWD_KERNELS},
+            **{k: scans for k in SSD.BWD_KERNELS}, "ssd_chunked": 0}
+
+
+def check_train_steps(cfg, steps: list, per_step: int, eval_loss: float, attn: int,
+                      scans: int = 0) -> None:
     """Each of ``steps`` (``launches``, ``loss``, ``grad_norm``, the MoE's
     ``aux``) launched ``per_step`` ``gemm_cuda``, the training attention's
     kernels for ``attn`` attention calls a forward
-    (``train_attention_launches``) and no other kernel, with a finite loss
-    and a finite, positive grad norm (and aux); the step-0 loss within
+    (``train_attention_launches``), the SSD scan's for ``scans`` scans a
+    forward (``train_scan_launches``) and no other kernel, with a finite
+    loss and a finite, positive grad norm (and aux); the step-0 loss within
     ``TRAIN_EVAL_LOSS_TOL`` of the eval loss on the same batch."""
 
-    want = {"gemm_cuda": per_step, **train_attention_launches(attn)}
+    want = {"gemm_cuda": per_step, **train_attention_launches(attn), **train_scan_launches(scans)}
     for i, s in enumerate(steps):
         lc = s["launches"]
         check(all(v == want.get(k, 0) for k, v in lc.items()),
@@ -3267,9 +3388,13 @@ def mamba2_block_grads(torch, masters, cfg, seed: int) -> dict:
     shape = (BLOCK_GRAD_ROWS, TRAIN_SEQ, cfg.d_model)
     x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16).requires_grad_(True)
     ct = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    from repro_torch.kernels import ssd as SSD
+
     pb = {k: v.detach().to(torch.bfloat16).requires_grad_(True) for k, v in masters.items()}
+    launched = dict(SSD.LAUNCHES)
     y, _ = S.apply_mamba2(pb, x, cfg)
     y.backward(ct)
+    kernel_scans = {k: SSD.LAUNCHES[k] - launched[k] for k in ("ssd_scan_cuda", "ssd_bwd_dx")}
     got = {"y": y.detach(), "x": x.grad, **{k: v.grad for k, v in pb.items()}}
     finite = all(bool(torch.isfinite(t).all()) for t in got.values())
     rel = lambda a, b: row_rel_err(a if a.ndim > 1 else a[None], b if b.ndim > 1 else b[None])  # noqa: E731
@@ -3292,7 +3417,8 @@ def mamba2_block_grads(torch, masters, cfg, seed: int) -> dict:
         faults[fault] = {"worst": list(max(e.items(), key=lambda kv: kv[1])), "x": e["x"],
                          "worst_param": list(max(((k, v) for k, v in e.items() if k not in ("x", "y")),
                                                  key=lambda kv: kv[1]))}
-    return {"rows": list(shape[:2]), "max_row_rel_err": against(None), "finite": finite, "faults": faults}
+    return {"rows": list(shape[:2]), "max_row_rel_err": against(None), "finite": finite, "faults": faults,
+            "kernel_scans": kernel_scans}
 
 
 def check_mamba2_block(torch, masters, cfg) -> dict:
@@ -3309,6 +3435,8 @@ def check_mamba2_block(torch, masters, cfg) -> dict:
           f"{BLOCK_GRAD_ROW_TOL}): worst row by seed {[(s, k, round(v, 4)) for s, (k, v) in worst.items()]}; "
           f"by leaf over the seeds { {k: round(v, 4) for k, v in by_leaf.items()} }", flush=True)
     for seed, r in runs.items():
+        check(r["kernel_scans"] == {"ssd_scan_cuda": 1, "ssd_bwd_dx": 1},
+              f"the block's scan at seed {seed} did not run the SSD kernels: {r['kernel_scans']}")
         check(r["finite"] and worst[seed][1] <= BLOCK_GRAD_ROW_TOL,
               f"the Mamba2 block's gradients off float64 by {worst[seed][1]} ({worst[seed][0]}) at seed "
               f"{seed}, over {BLOCK_GRAD_ROW_TOL}")
@@ -3416,7 +3544,8 @@ def train_family(torch, counts, reset, arch: str, *, steps: int, layers: int | N
               f"({per_step} gemm_cuda a step); peak {peak_gb:.2f} GB; init {init_s:.1f} s"
               f"{'' if agree is None else f'; train vs eval routing agrees on {agree:.3f} of decisions'}",
               flush=True)
-        check_train_steps(cfg, steps_rec, per_step, eval_loss, eval_launches["flash_attention_cuda"])
+        check_train_steps(cfg, steps_rec, per_step, eval_loss, eval_launches["flash_attention_cuda"],
+                          eval_launches["ssd_scan_cuda"])
         out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": TRAIN_BATCH,
                "seq": TRAIN_SEQ, "losses": losses, "eval_loss_step0": eval_loss,
                "eval_launches": eval_launches, "steps": steps_rec, "step_ms": step_s * 1e3,
@@ -5912,22 +6041,44 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gemm as G
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.models import layers as L
 
     detail: dict = {}
     card, detail["sass"] = phase0(torch)
     detail["card"] = card
 
-    def counts():  # the launches by kernel, and chunked_attention's calls on the card
-        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES, **L.CUDA_CALLS}
+    def counts():  # the launches by kernel; chunked_attention's and _ssd_chunked's calls on the card
+        return {**G.LAUNCHES, **PA.LAUNCHES, **FA.LAUNCHES, **SSD.LAUNCHES, **L.CUDA_CALLS}
 
     def reset():
         G.reset_launches()
         PA.reset_launches()
         FA.reset_launches()
-        L.CUDA_CALLS["chunked_attention"] = 0
+        SSD.reset_launches()
+        for k in L.CUDA_CALLS:
+            L.CUDA_CALLS[k] = 0
 
     alone = sys.argv[1:]
+    if alone == ["--mamba2"]:  # phase 0, the scan kernels and the Mamba2 phases' gates alone
+        runs = {"ssd_scan": phase1_ssd(torch)}
+        for phase, arch in ((13, SSM_ARCH), (14, HYBRID_ARCH)):
+            print(f"phase {phase} alone: {arch} at full width", flush=True)
+            runs[f"phase{phase}"] = recurrent_phase(torch, counts, reset, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        for arch in (SSM_ARCH, HYBRID_ARCH):
+            print(f"phase 18 alone: training {arch} at full width and depth", flush=True)
+            runs[f"phase18_{arch}"] = train_family(torch, counts, reset, arch, steps=FAMILY_TRAIN_STEPS,
+                                                   block_check=arch == SSM_ARCH)
+            gc.collect()
+            torch.cuda.empty_cache()
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_mamba2.json"), "w") as f:
+            json.dump(runs, f, indent=1, default=str)
+        print(json.dumps({"ok": True, "alone": "--mamba2"}))
+        return
+
     if alone and set(alone) <= {"--phase24", "--phase25", "--phase26"}:  # alone (and phase 0)
         runs = {}
         if "--phase24" in alone:
@@ -5952,6 +6103,10 @@ def main() -> None:
     print(f"phase 1: the training attention's forward and backward kernels (M = {TRAIN_ATTN_BATCH} x "
           f"{TRAIN_ATTN_SEQ})", flush=True)
     records["flash_attention_cuda"]["train_attention_step"] = phase1_flash_training(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 1: the SSD scan kernels, forward and backward, at the Mamba2 cell's layer", flush=True)
+    records["ssd_scan_cuda"] = phase1_ssd(torch)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 1: the GEMM autograd Function's backward at the training shapes "

@@ -23,7 +23,7 @@ import threading
 from typing import Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("gemm", "paged_attention", "flash_attention")
+SOURCES = ("gemm", "paged_attention", "flash_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

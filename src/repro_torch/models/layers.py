@@ -155,9 +155,11 @@ def repeat_kv(k, n_rep: int):
     return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
 
 
-# chunked_attention's calls on CUDA tensors: a card's attention, training
-# and forward, goes through the flash kernels, so a card's step adds none.
-CUDA_CALLS: dict[str, int] = {"chunked_attention": 0}
+# chunked_attention's and ssm._ssd_chunked's calls on CUDA tensors: a
+# card's attention, training and forward, goes through the flash kernels,
+# and a card's scan at the kernels' shapes through kernels/ssd.py, so a
+# card's step adds none.
+CUDA_CALLS: dict[str, int] = {"chunked_attention": 0, "ssd_chunked": 0}
 
 
 def chunked_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import SSMConfig
+from repro_torch.kernels import ssd as SSD
 from repro_torch.models import layers as L
 from repro_torch.observability import trace
 
@@ -125,6 +126,8 @@ def _ssd_chunked(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
     (B, H, N, P) fp32)``.
     """
 
+    if x.is_cuda:
+        L.CUDA_CALLS["ssd_chunked"] += 1
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     q = min(cfg.chunk, s)
@@ -209,8 +212,18 @@ class _CloseBackward(torch.autograd.Function):
         return (None,) + grads
 
 
+def _ssd(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
+    """The scan through ``kernels/ssd.ssd_scan_cuda`` where its kernels
+    take the inputs (``kernel_takes``: bf16 x, B, C on a card at their
+    shapes), else :func:`_ssd_chunked`."""
+
+    if SSD.kernel_takes(x, dt, A, Bm, Cm, cfg.chunk, init_state):
+        return SSD.ssd_scan_cuda(x, dt, A, Bm, Cm, cfg.chunk, init_state=init_state)
+    return _ssd_chunked(x, dt, A, Bm, Cm, cfg, init_state=init_state)
+
+
 def _scan(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
-    """:func:`_ssd_chunked`, counted in :data:`SCANS`.  While a span
+    """:func:`_ssd`, counted in :data:`SCANS`.  While a span
     records (``trace.live``) it runs under the ``ssm.scan`` span, tagged
     with its shapes and its ``phase`` (``recompute`` inside a remat
     backward, else ``forward``), and, where autograd records it, its
@@ -222,7 +235,7 @@ def _scan(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
     SCANS["calls"] += 1
     SCANS["chunks"] += s // q
     if not trace.live():
-        return _ssd_chunked(x, dt, A, Bm, Cm, cfg, init_state=init_state)
+        return _ssd(x, dt, A, Bm, Cm, cfg, init_state=init_state)
     tags = dict(rows=b, seq=s, heads=h, headdim=p, d_state=Bm.shape[3], groups=Bm.shape[2],
                 chunk=q)
     ins = (x, dt, A, Bm, Cm)
@@ -232,7 +245,7 @@ def _scan(x, dt, A, Bm, Cm, cfg: SSMConfig, init_state=None):
         x, dt, A, Bm, Cm = _CloseBackward.apply(box, *ins)
     phase = "recompute" if L.RECOMPUTING.get() else "forward"
     with trace.span("ssm.scan", cat="model", phase=phase, **tags):
-        y, state = _ssd_chunked(x, dt, A, Bm, Cm, cfg, init_state=init_state)
+        y, state = _ssd(x, dt, A, Bm, Cm, cfg, init_state=init_state)
     if grad:
         y = _OpenBackward.apply(box, tags, y)
     return y, state

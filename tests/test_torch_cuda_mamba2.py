@@ -1,6 +1,8 @@
 """Mamba2-1.3B as published, one training step on a card at the benchmark
 cell's shapes (4 x 2,048): the scan's spans and counter against the
-frozen counts, as the GEMM launch counters are held to theirs.
+frozen counts, as the GEMM launch counters are held to theirs, and every
+scan through the SSD kernels (``kernels/ssd.LAUNCHES``), none through
+``_ssd_chunked`` (``layers.CUDA_CALLS``).
 
 Marked ``cuda``; skips without a card.  The file imports neither ``jax``
 nor the JAX package; on the card's machine run it without the conftest::
@@ -33,7 +35,9 @@ def cuda():
 def test_cuda_published_mamba2_step_spans_and_counts(cuda, tmp_path):
     from portbench import run as RUN
     from repro_torch.kernels import gemm as G
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
     from repro_torch.models import ssm as S
     from repro_torch.observability import trace
 
@@ -51,6 +55,8 @@ def test_cuda_published_mamba2_step_spans_and_counts(cuda, tmp_path):
     trace.profiled_spans()
     S.reset_scans()
     G.reset_launches()
+    SSD.reset_launches()
+    L.CUDA_CALLS["ssd_chunked"] = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         metrics = trainer.train_step(batch)
         float(metrics["loss"])
@@ -60,6 +66,12 @@ def test_cuda_published_mamba2_step_spans_and_counts(cuda, tmp_path):
     assert (nl, chunks) == (48, 8)
     assert S.SCANS == {"calls": 2 * nl, "chunks": 2 * nl * chunks}      # 96, 768
     assert G.LAUNCHES == {"gemm_cuda": 3, "gemm_cuda_lean": 0}          # the tied head's three
+    # Every scan through the kernels (forward and recompute), every backward
+    # through the backward kernels, none through _ssd_chunked.
+    assert SSD.LAUNCHES["ssd_scan_cuda"] == S.SCANS["calls"] == 2 * nl
+    assert all(SSD.LAUNCHES[k] == 2 * nl for k in SSD.FWD_KERNELS)
+    assert all(SSD.LAUNCHES[k] == nl for k in SSD.BWD_KERNELS)
+    assert L.CUDA_CALLS["ssd_chunked"] == 0
     scans = [s for s in spans if s.name == "ssm.scan"]
     back = [s for s in spans if s.name == "ssm.scan.backward"]
     phases = [s.args["phase"] for s in scans]

@@ -68,7 +68,8 @@ def test_port_covers_the_slice_modules():
         "repro_torch.core.execution", "repro_torch.core.control_tree",
         "repro_torch.core.asymmetric", "repro_torch.kernels.ref",
         "repro_torch.kernels.gemm", "repro_torch.kernels.paged_attention",
-        "repro_torch.kernels.flash_attention", "repro_torch.configs.minitron_4b",
+        "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd",
+        "repro_torch.configs.minitron_4b",
         "repro_torch.configs.deepseek_7b", "repro_torch.configs.qwen2p5_32b",
         "repro_torch.kernels.ops", "repro_torch.configs",
         "repro_torch.configs.internlm2_1p8b", "repro_torch.models.layers",
@@ -98,7 +99,7 @@ def test_port_covers_the_slice_modules():
         "repro_torch.launch.roofline",
     ):
         assert name in mods, name
-    for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu"):
+    for src in ("gemm.cu", "paged_attention.cu", "flash_attention.cu", "ssd_scan.cu"):
         assert (PORT / "csrc" / src).is_file(), src
 
 
